@@ -1,0 +1,502 @@
+"""HOR and delta+bit-packed index layouts as PyTorch tensors.
+
+The port of ``repro.core.layouts`` for the bulk query path:
+
+  HOR    -> BlockedIndex    postings in fixed 128-lane blocks with per-
+                            block doc-id min/max summaries (the paper's
+                            hstore + GIN analogue)
+  (beyond paper)
+         -> PackedCsrIndex  delta + bit-packed doc ids, fp16 tf
+
+Each index is a frozen dataclass of tensors with ``.to(device)``.
+Builders are host-side numpy, byte-equal to the reference's, and put the
+result on ``device`` ("cuda" unless the caller asks for the CPU).
+Storage widths match the reference so ``nbytes()`` / ``posting_bytes()``
+agree; u32 arrays (term hashes, packed words) are held as int32
+bit-views because torch has no unsigned shifts or ``searchsorted``:
+hashes are searched on ``x ^ INT32_MIN``, which keeps the unsigned
+order, and shifted words are masked after ``>>`` (int32 shifts are
+arithmetic).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+
+Tensor = torch.Tensor
+
+BLOCK = 128  # posting block size
+ROUTE_TILE = 512  # doc-tile width the scoring kernels route against
+INT32_MIN = -2**31
+
+
+def as_i32_bits(a: np.ndarray) -> np.ndarray:
+    """u32 numpy array -> the same bits as int32 (the port's storage)."""
+    return np.ascontiguousarray(np.asarray(a).astype(np.uint32)).view(np.int32)
+
+
+def hash_tensor(hashes, device=None) -> Tensor:
+    """Query term hashes (u32 numpy, or a tensor already holding int32
+    bit-views) -> an int32 bit-view tensor on ``device``."""
+    if isinstance(hashes, Tensor):
+        if hashes.dtype != torch.int32:
+            raise TypeError(f"hash tensors hold u32 bit-views as int32, "
+                            f"got {hashes.dtype}")
+        return hashes.to(device)
+    return torch.from_numpy(as_i32_bits(hashes)).to(device)
+
+
+def _to(obj, device):
+    """Move every tensor field (and nested DocTable) of a frozen layout."""
+    changes = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, Tensor):
+            changes[f.name] = v.to(device)
+        elif isinstance(v, DocTable):
+            changes[f.name] = v.to(device)
+    return dataclasses.replace(obj, **changes)
+
+
+def _nbytes(t: Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _block_tile_routing(block_min: np.ndarray, block_max: np.ndarray,
+                        num_docs: int, tile: int
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+    """Host-side pair-routing cache: per-block doc-tile span.
+
+    A block overlaps the contiguous tile range [min//tile, max//tile];
+    a pure function of the immutable index, built once.  Returns
+    (tile_first i32[NB], tile_count i32[NB]); empty blocks (max < 0)
+    get count 0.
+    """
+    n_tiles = max(-(-num_docs // tile), 1)
+    has = block_max >= 0
+    t0 = np.clip(block_min // tile, 0, n_tiles - 1)
+    t1 = np.clip(block_max // tile, 0, n_tiles - 1)
+    first = np.where(has, t0, 0).astype(np.int32)
+    count = np.where(has, t1 - t0 + 1, 0).astype(np.int32)
+    return first, count
+
+
+# ---------------------------------------------------------------------------
+# shared tables
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class DocTable:
+    """Per-document metadata: the paper's ``document`` relation."""
+    norm: Tensor   # f32[D]  vector norm under tf-idf (paper §3.6)
+    rank: Tensor   # f32[D]  PageRank-like static score
+
+    @property
+    def num_docs(self) -> int:
+        return self.norm.shape[0]
+
+    def nbytes(self) -> int:
+        return _nbytes(self.norm) + _nbytes(self.rank)
+
+    def to(self, device) -> "DocTable":
+        return DocTable(norm=self.norm.to(device), rank=self.rank.to(device))
+
+
+@dataclasses.dataclass(frozen=True)
+class PostingsHost:
+    """Host (numpy) canonical postings: the logical index content."""
+    term_hashes: np.ndarray   # u32[W]  hash of each term (id == position)
+    df: np.ndarray            # i32[W]
+    # CSR over terms (term-major, doc-sorted within term):
+    offsets: np.ndarray       # i64[W+1]
+    doc_ids: np.ndarray       # i32[P]
+    tfs: np.ndarray           # f32[P]
+    num_docs: int
+    norm: np.ndarray          # f32[D]
+    rank: np.ndarray          # f32[D]
+
+    @property
+    def num_terms(self) -> int:
+        return len(self.term_hashes)
+
+    @property
+    def num_postings(self) -> int:
+        return len(self.doc_ids)
+
+    @property
+    def max_posting_len(self) -> int:
+        if self.num_terms == 0:
+            return 0
+        return int((self.offsets[1:] - self.offsets[:-1]).max())
+
+
+class _SortedTerms:
+    """Hash-sorted vocabulary shared by both layouts (COR-style folded
+    word table): ``lookup_terms`` / ``term_df`` over ``sorted_hash``."""
+
+    def lookup_terms(self, hashes: Tensor) -> Tensor:
+        """int32 hash bit-views [...] -> term ids, -1 where absent."""
+        keys = self.sorted_hash ^ INT32_MIN
+        pos = torch.searchsorted(keys, (hashes ^ INT32_MIN).contiguous())
+        pos = pos.clamp(0, self.sorted_hash.shape[0] - 1)
+        hit = self.sorted_hash[pos] == hashes
+        return torch.where(hit, pos, -1).to(torch.int32)
+
+    def term_df(self, term_ids: Tensor) -> Tensor:
+        safe = term_ids.clamp_min(0).long()
+        return torch.where(term_ids >= 0, self.df[safe], 0)
+
+    @property
+    def device(self) -> torch.device:
+        return self.df.device
+
+    def to(self, device):
+        return _to(self, device)
+
+    def _term_blocks(self, term_ids: Tensor, cap: int):
+        """Block ids [..., nblk] covering ``cap`` postings of each term,
+        and their validity (inside the term's block range)."""
+        nblk = -(-cap // self.block)
+        safe = term_ids.clamp_min(0).long()
+        start = self.block_offsets[safe].long()
+        nb = self.block_offsets[safe + 1].long() - start
+        k = torch.arange(nblk, device=term_ids.device)
+        bvalid = k < nb[..., None]
+        bidx = torch.where(bvalid, start[..., None] + k, 0)
+        return bidx, bvalid
+
+
+# ---------------------------------------------------------------------------
+# (HOR) BlockedIndex
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockedIndex(_SortedTerms):
+    """hstore/GIN analogue: fixed-size posting blocks + per-block summaries.
+
+    Each term's postings are rounded up to multiples of BLOCK lanes
+    (padding doc_id = -1, tf = 0).  Per block we keep min/max doc id and
+    the block -> doc-tile routing cache the fused kernels walk.
+    """
+    sorted_hash: Tensor    # i32[W]  u32 hash bit-views, unsigned-sorted
+    df: Tensor             # i32[W]
+    block_offsets: Tensor  # i32[W+1]  term -> block range
+    block_docs: Tensor     # i32[NB, BLOCK]  (-1 padding)
+    block_tfs: Tensor      # f32[NB, BLOCK]
+    block_min: Tensor      # i32[NB]
+    block_max: Tensor      # i32[NB]
+    docs: DocTable
+    max_posting_len: int
+    max_blocks_per_term: int
+    block: int = BLOCK
+    tile_first: Tensor | None = None   # i32[NB]
+    tile_count: Tensor | None = None   # i32[NB]
+    route_tile: int = ROUTE_TILE
+    route_pairs_max: int = 0   # sum(tile_count): dedup upper bound on pairs
+    route_span_max: int = 0    # max(tile_count): worst span of one block
+
+    def gather_postings(self, term_ids: Tensor, cap: int
+                        ) -> Tuple[Tensor, Tensor, Tensor]:
+        """q_occ: term ids [..., T] -> (docs, tfs, valid) [..., T, cap]."""
+        bidx, bvalid = self._term_blocks(term_ids, cap)
+        d = torch.where(bvalid[..., None], self.block_docs[bidx], -1)
+        t = torch.where(bvalid[..., None], self.block_tfs[bidx], 0.0)
+        d = d.flatten(-2)[..., :cap]
+        t = t.flatten(-2)[..., :cap]
+        present = (term_ids >= 0)[..., None]
+        v = (d >= 0) & present
+        return torch.where(present, d, -1), torch.where(present, t, 0.0), v
+
+    def nbytes(self) -> int:
+        return sum(_nbytes(x) for x in
+                   (self.sorted_hash, self.df, self.block_offsets,
+                    self.block_docs, self.block_tfs, self.block_min,
+                    self.block_max)) + self.docs.nbytes()
+
+    def posting_bytes(self) -> int:
+        return sum(_nbytes(x) for x in
+                   (self.block_offsets, self.block_docs, self.block_tfs,
+                    self.block_min, self.block_max))
+
+
+def _block_layout(h: PostingsHost, block: int):
+    """Hash-sorted term order, per-term lengths and block counts, block
+    offsets, and each posting's (source index, block row, lane)."""
+    order = np.argsort(h.term_hashes, kind="stable")
+    lengths = np.diff(h.offsets)[order]
+    nblocks = np.maximum(-(-lengths // block), (lengths > 0).astype(np.int64))
+    block_offsets = np.zeros(h.num_terms + 1, dtype=np.int64)
+    np.cumsum(nblocks, out=block_offsets[1:])
+    P = h.num_postings
+    new_offsets = np.zeros(h.num_terms + 1, dtype=np.int64)
+    np.cumsum(lengths, out=new_offsets[1:])
+    within = np.arange(P, dtype=np.int64) - np.repeat(new_offsets[:-1],
+                                                      lengths)
+    src = np.repeat(h.offsets[order].astype(np.int64), lengths) + within
+    brow = np.repeat(block_offsets[:-1], lengths) + within // block
+    lane = within % block
+    return order, nblocks, block_offsets, within, src, brow, lane
+
+
+def _docs(h: PostingsHost) -> DocTable:
+    """The host's doc table, copied (an index never aliases its host)."""
+    return DocTable(norm=torch.tensor(h.norm, dtype=torch.float32),
+                    rank=torch.tensor(h.rank, dtype=torch.float32))
+
+
+def build_blocked(h: PostingsHost, block: int = BLOCK,
+                  route_tile: int = ROUTE_TILE,
+                  device="cuda") -> BlockedIndex:
+    """HOR build, byte-equal to ``repro.core.layouts.build_blocked``."""
+    order, nblocks, block_offsets, _, src, brow, lane = _block_layout(
+        h, block)
+    NB = int(block_offsets[-1])
+    bd = np.full((NB, block), -1, dtype=np.int32)
+    bt = np.zeros((NB, block), dtype=np.float32)
+    bd[brow, lane] = h.doc_ids[src]
+    bt[brow, lane] = h.tfs[src]
+    bmin = np.where((bd >= 0).any(axis=1),
+                    np.where(bd >= 0, bd, np.iinfo(np.int32).max).min(axis=1),
+                    0).astype(np.int32)
+    bmax = bd.max(axis=1).astype(np.int32) if NB else np.zeros(0, np.int32)
+    tfirst, tcount = _block_tile_routing(bmin, bmax, h.num_docs, route_tile)
+    t = torch.from_numpy
+    return BlockedIndex(
+        sorted_hash=t(as_i32_bits(h.term_hashes[order])),
+        df=t(h.df[order].astype(np.int32)),
+        block_offsets=t(block_offsets.astype(np.int32)),
+        block_docs=t(bd), block_tfs=t(bt),
+        block_min=t(bmin), block_max=t(bmax),
+        docs=_docs(h),
+        max_posting_len=h.max_posting_len,
+        max_blocks_per_term=int(nblocks.max()) if len(nblocks) else 0,
+        block=block,
+        tile_first=t(tfirst), tile_count=t(tcount),
+        route_tile=int(route_tile),
+        route_pairs_max=int(tcount.sum()),
+        route_span_max=int(tcount.max()) if len(tcount) else 0,
+    ).to(device)
+
+
+def size_class(n: int, base: int = 128, growth: int = 2) -> int:
+    """Smallest ``base * growth**i >= max(n, 1)`` — the static size-class
+    quantizer."""
+    n = max(int(n), 1)
+    c = base
+    while c < n:
+        c *= growth
+    return c
+
+
+# ---------------------------------------------------------------------------
+# (beyond paper) PackedCsrIndex — delta + bit-packed postings
+# ---------------------------------------------------------------------------
+
+
+def unpack_words(words: Tensor, bits: Tensor, base: Tensor, count: Tensor,
+                 block: int = BLOCK) -> Tensor:
+    """Decode delta+bit-packed blocks: words i32[N, Wpb] (u32 bit-views),
+    bits/base/count i32[N] -> doc ids i32[N, block] (-1 at or past
+    ``count``).  The plain twin of the packed kernel's in-shared-memory
+    decode: each lane's delta sits at bit ``lane*bits``, spans the next
+    word when the bit offset is nonzero, and is masked to ``bits`` (all
+    ones at 32); doc id = base + inclusive prefix sum, in int32."""
+    n, wpb = words.shape
+    dev = words.device
+    lane = torch.arange(block, device=dev, dtype=torch.int64)
+    w64 = words.to(torch.int64) & 0xFFFFFFFF
+    bitpos = lane[None, :] * bits.to(torch.int64)[:, None]
+    wi = (bitpos >> 5).clamp_max(wpb - 1)
+    off = bitpos & 31
+    lo = torch.gather(w64, 1, wi) >> off
+    hi_w = torch.gather(w64, 1, (wi + 1).clamp_max(wpb - 1))
+    hi = torch.where(off > 0, (hi_w << (32 - off)) & 0xFFFFFFFF, 0)
+    raw = lo | hi
+    b = bits.to(torch.int64)[:, None]
+    mask = torch.where(b >= 32, 0xFFFFFFFF, (1 << b.clamp(0, 31)) - 1)
+    deltas = raw & mask
+    docs = base.to(torch.int64)[:, None] + torch.cumsum(deltas, dim=1)
+    docs = (docs & 0xFFFFFFFF)
+    docs = torch.where(docs >= 2**31, docs - 2**32, docs).to(torch.int32)
+    valid = lane[None, :] < count.to(torch.int64)[:, None]
+    return torch.where(valid, docs, -1)
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedCsrIndex(_SortedTerms):
+    """Delta+bit-packed doc ids per 128-posting block, fp16 tf.
+
+    Each block of 128 doc-id deltas is packed at a per-block bit width
+    into u32 words (held as int32 bit-views); the first delta of a block
+    is taken from ``block_base`` (the previous block's last doc id, or
+    -1 at a term start).
+    """
+    sorted_hash: Tensor    # i32[W]  u32 hash bit-views, unsigned-sorted
+    df: Tensor             # i32[W]
+    block_offsets: Tensor  # i32[W+1]    term -> block range
+    block_bits: Tensor     # i32[NB]     bit width of this block
+    block_base: Tensor     # i32[NB]     absolute doc id before first entry
+    block_count: Tensor    # i32[NB]     valid postings in this block
+    packed: Tensor         # i32[NB, words_per_block]  u32 bit-views
+    block_tfs: Tensor      # f16[NB, BLOCK]
+    docs: DocTable
+    max_posting_len: int
+    words_per_block: int
+    block: int = BLOCK
+    block_min: Tensor | None = None    # i32[NB]
+    block_max: Tensor | None = None    # i32[NB]
+    tile_first: Tensor | None = None   # i32[NB]
+    tile_count: Tensor | None = None   # i32[NB]
+    route_tile: int = ROUTE_TILE
+    route_pairs_max: int = 0
+    route_span_max: int = 0
+
+    def unpack_block(self, b: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+        """Decode blocks ``b`` [N] -> (doc_ids, tfs f32, valid) [N, BLOCK]."""
+        b = b.long()
+        docs = unpack_words(self.packed[b], self.block_bits[b],
+                            self.block_base[b], self.block_count[b],
+                            self.block)
+        valid = (torch.arange(self.block, device=b.device)[None, :]
+                 < self.block_count[b][:, None])
+        tfs = torch.where(valid, self.block_tfs[b].float(), 0.0)
+        return docs, tfs, valid
+
+    def gather_postings(self, term_ids: Tensor, cap: int
+                        ) -> Tuple[Tensor, Tensor, Tensor]:
+        """q_occ: term ids [..., T] -> (docs, tfs, valid) [..., T, cap]."""
+        bidx, bvalid = self._term_blocks(term_ids, cap)
+        d, t, v = self.unpack_block(bidx.reshape(-1))
+        shape = bidx.shape + (self.block,)
+        d, t, v = d.view(shape), t.view(shape), v.view(shape)
+        bv = bvalid[..., None]
+        d = torch.where(bv, d, -1).flatten(-2)[..., :cap]
+        t = torch.where(bv, t, 0.0).flatten(-2)[..., :cap]
+        v = (bv & v).flatten(-2)[..., :cap]
+        present = (term_ids >= 0)[..., None]
+        return (torch.where(present, d, -1), torch.where(present, t, 0.0),
+                v & present)
+
+    def nbytes(self) -> int:
+        return sum(_nbytes(x) for x in
+                   (self.sorted_hash, self.df, self.block_offsets,
+                    self.block_bits, self.block_base, self.block_count,
+                    self.packed, self.block_tfs)) + self.docs.nbytes()
+
+    def posting_bytes(self) -> int:
+        return sum(_nbytes(x) for x in
+                   (self.block_offsets, self.block_bits, self.block_base,
+                    self.block_count, self.packed, self.block_tfs))
+
+
+def build_packed_csr(h: PostingsHost, max_bits: int = 32,
+                     block: int = BLOCK, route_tile: int = ROUTE_TILE,
+                     device="cuda") -> PackedCsrIndex:
+    """Packed build, byte-equal to ``repro.core.layouts.build_packed_csr``.
+
+    The reference packs block by block and lane by lane in Python; here
+    every posting's (block row, word, shift) is computed at once and the
+    words are OR-ed together with one ``np.bitwise_or.at`` per word
+    half, so a million-page corpus packs in seconds.
+    """
+    order, nblocks, block_offsets, within, src, brow, lane = _block_layout(
+        h, block)
+    NB = int(block_offsets[-1])
+    P = h.num_postings
+    docs = h.doc_ids[src].astype(np.int64)
+    prev = np.empty(P, dtype=np.int64)
+    prev[1:] = docs[:-1]
+    first = within == 0
+    prev[first] = -1                    # term starts restart the delta
+    deltas = docs - prev
+    lane0 = lane == 0                   # first posting of each block
+    last = np.ones(P, dtype=bool)
+    last[:-1] = brow[1:] != brow[:-1]   # last posting of each block
+
+    base_arr = np.zeros(NB, dtype=np.int32)
+    min_arr = np.zeros(NB, dtype=np.int32)
+    max_arr = np.full(NB, -1, dtype=np.int32)
+    base_arr[brow[lane0]] = prev[lane0]
+    min_arr[brow[lane0]] = docs[lane0]
+    max_arr[brow[last]] = docs[last]
+    count_arr = np.bincount(brow, minlength=NB).astype(np.int32)
+    bits_arr = np.zeros(NB, dtype=np.int32)
+    if P:
+        bmax = np.maximum.reduceat(deltas, np.flatnonzero(lane0))
+        # exact bit_length via the frexp exponent (x = m * 2**e)
+        _, exp = np.frexp(np.maximum(bmax, 1).astype(np.float64))
+        bits_arr[brow[lane0]] = np.minimum(np.maximum(exp, 1), max_bits)
+    nwords = (block * bits_arr.astype(np.int64) + 31) // 32
+    words_per_block = int(nwords.max()) if NB else 1
+
+    flat = np.zeros(NB * words_per_block, dtype=np.uint64)
+    if P:
+        bits = bits_arr[brow].astype(np.int64)
+        bitpos = lane * bits
+        wi, off = bitpos // 32, bitpos % 32
+        row0 = brow * words_per_block
+        dv = deltas.astype(np.uint64)
+        np.bitwise_or.at(flat, row0 + wi,
+                         (dv << off.astype(np.uint64)) & 0xFFFFFFFF)
+        spill_ok = (off > 0) & (wi + 1 < nwords[brow])
+        spill = dv[spill_ok] >> (32 - off[spill_ok]).astype(np.uint64)
+        np.bitwise_or.at(flat, (row0 + wi + 1)[spill_ok], spill)
+    packed = flat.astype(np.uint32).reshape(NB, words_per_block)
+
+    tf_arr = np.zeros((NB, block), dtype=np.float16)
+    tf_arr[brow, lane] = h.tfs[src]
+    tfirst, tcount = _block_tile_routing(min_arr, max_arr, h.num_docs,
+                                         route_tile)
+    t = torch.from_numpy
+    return PackedCsrIndex(
+        sorted_hash=t(as_i32_bits(h.term_hashes[order])),
+        df=t(h.df[order].astype(np.int32)),
+        block_offsets=t(block_offsets.astype(np.int32)),
+        block_bits=t(bits_arr), block_base=t(base_arr),
+        block_count=t(count_arr), packed=t(as_i32_bits(packed)),
+        block_tfs=t(tf_arr),
+        docs=_docs(h),
+        max_posting_len=h.max_posting_len,
+        words_per_block=words_per_block,
+        block=block,
+        block_min=t(min_arr), block_max=t(max_arr),
+        tile_first=t(tfirst), tile_count=t(tcount),
+        route_tile=int(route_tile),
+        route_pairs_max=int(tcount.sum()),
+        route_span_max=int(tcount.max()) if len(tcount) else 0,
+    ).to(device)
+
+
+LAYOUTS = {"hor": BlockedIndex, "packed": PackedCsrIndex}
+
+
+def index_from_numpy(kind: str, arrays: dict, statics: dict,
+                     device="cuda"):
+    """Build the port's index from a reference index given as numpy.
+
+    ``kind`` is "hor" or "packed"; ``arrays`` maps each tensor field
+    name (plus ``norm`` and ``rank`` for the DocTable) to a numpy array,
+    u32 arrays included (they are stored as int32 bit-views);
+    ``statics`` maps the static fields (``max_posting_len``, ``block``,
+    ``route_tile``, ...).  Lets the tests score the very index the
+    reference built.
+    """
+    cls = LAYOUTS[kind]
+    fields = {}
+    for name, a in arrays.items():
+        if name in ("norm", "rank"):
+            continue
+        a = np.asarray(a)
+        if a.dtype == np.uint32:
+            a = as_i32_bits(a)
+        fields[name] = torch.from_numpy(np.array(a))
+    docs = DocTable(norm=torch.from_numpy(np.asarray(arrays["norm"],
+                                                     np.float32).copy()),
+                    rank=torch.from_numpy(np.asarray(arrays["rank"],
+                                                     np.float32).copy()))
+    return cls(docs=docs, **fields, **statics).to(device)
