@@ -76,7 +76,7 @@ def event_ms(fn, calls, reps):
     return start.elapsed_time(stop) / (reps * len(calls))
 
 
-def kernel_work(kind, args, q_real):
+def kernel_work(kind, args, tile, q_real):
     """(bytes, ops) one call must move/do at least, from this call's
     pairs: each distinct routed block read once, the real pairs'
     routing rows, norm/rank of visited tiles, candidates written."""
@@ -91,7 +91,6 @@ def kernel_work(kind, args, q_real):
          qnorm, num_docs, block, k_tile) = args
         block_bytes = packed.shape[1] * 4 + tfs.shape[1] * 2
         pair_bytes = 4 + 4 + 4 * pqw.shape[1] + 12
-    tile = 512
     n_tiles = -(-num_docs // tile)
     real = int(torch.searchsorted(
         pt, torch.tensor([n_tiles], dtype=pt.dtype, device=pt.device)))
@@ -247,7 +246,7 @@ def main() -> int:
             torch.cuda.synchronize()
             pairs_ms.append((time.perf_counter() - t0) * 1e3)
             calls.append(args)
-            work.append(kernel_work(kind, args, BATCH))
+            work.append(kernel_work(kind, args, kw["tile"], BATCH))
         max_err, bit_equal = 0.0, True
         for args in calls:
             got = wrapper(*args, **kw)

@@ -263,8 +263,15 @@ _ARGTYPES = {
 
 
 def _check_cuda(name: str, **tensors) -> None:
+    """Validate each ``arg=(tensor, dtype, shape)`` before its pointer
+    reaches the kernel, which trusts every extent it is given: shapes
+    first, then one CUDA device, dtype and contiguity."""
+    for arg, (t, _, shape) in tensors.items():
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, "
+                             f"needs {tuple(shape)}")
     dev = None
-    for arg, (t, dtype) in tensors.items():
+    for arg, (t, dtype, _) in tensors.items():
         if not t.is_cuda:
             raise ValueError(f"{name}: {arg} is on {t.device}; the CUDA "
                              "kernel takes CUDA tensors only")
@@ -317,12 +324,15 @@ def _launch_blocked_cuda(block_docs, block_tfs, pair_block, pair_tile,
                          k_tile, rank_blend, tile):
     name = "fused_topk_blocked"
     i32, f32 = torch.int32, torch.float32
-    _check_cuda(name, block_docs=(block_docs, i32), block_tfs=(block_tfs, f32),
-                pair_block=(pair_block, i32), pair_tile=(pair_tile, i32),
-                pair_qw=(pair_qw, f32), pair_cap=(pair_cap, i32),
-                norm=(norm, f32), rank=(rank, f32), qnorm=(qnorm, f32))
-    if block_docs.shape[1] != BLOCK:
-        raise ValueError(f"{name}: blocks must be {BLOCK} lanes wide")
+    nb, (np_, q) = block_docs.shape[0], pair_qw.shape
+    _check_cuda(name, block_docs=(block_docs, i32, (nb, BLOCK)),
+                block_tfs=(block_tfs, f32, (nb, BLOCK)),
+                pair_block=(pair_block, i32, (np_,)),
+                pair_tile=(pair_tile, i32, (np_,)),
+                pair_qw=(pair_qw, f32, (np_, q)),
+                pair_cap=(pair_cap, i32, (np_,)),
+                norm=(norm, f32, (num_docs,)), rank=(rank, f32, (num_docs,)),
+                qnorm=(qnorm, f32, (q,)))
     return _launch(name, (block_docs, block_tfs, pair_block), pair_tile,
                    pair_qw, pair_cap, (), norm, rank, qnorm, num_docs, tile,
                    k_tile, rank_blend)
@@ -333,15 +343,18 @@ def _launch_packed_cuda(packed, block_tfs, pair_block, pair_tile, pair_qw,
                         rank, qnorm, num_docs, k_tile, rank_blend, tile):
     name = "fused_topk_packed"
     i32, f32 = torch.int32, torch.float32
-    _check_cuda(name, packed=(packed, i32), block_tfs=(block_tfs,
-                                                       torch.float16),
-                pair_block=(pair_block, i32), pair_tile=(pair_tile, i32),
-                pair_qw=(pair_qw, f32), pair_cap=(pair_cap, i32),
-                pair_bits=(pair_bits, i32), pair_base=(pair_base, i32),
-                pair_count=(pair_count, i32), norm=(norm, f32),
-                rank=(rank, f32), qnorm=(qnorm, f32))
-    if block_tfs.shape[1] != BLOCK:
-        raise ValueError(f"{name}: blocks must be {BLOCK} lanes wide")
+    (nb, wpb), (np_, q) = packed.shape, pair_qw.shape
+    _check_cuda(name, packed=(packed, i32, (nb, max(wpb, 1))),
+                block_tfs=(block_tfs, torch.float16, (nb, BLOCK)),
+                pair_block=(pair_block, i32, (np_,)),
+                pair_tile=(pair_tile, i32, (np_,)),
+                pair_qw=(pair_qw, f32, (np_, q)),
+                pair_cap=(pair_cap, i32, (np_,)),
+                pair_bits=(pair_bits, i32, (np_,)),
+                pair_base=(pair_base, i32, (np_,)),
+                pair_count=(pair_count, i32, (np_,)),
+                norm=(norm, f32, (num_docs,)), rank=(rank, f32, (num_docs,)),
+                qnorm=(qnorm, f32, (q,)))
     return _launch(name, (packed, block_tfs, pair_block), pair_tile, pair_qw,
                    pair_cap, (pair_bits, pair_base, pair_count,
                               packed.shape[1]),

@@ -54,3 +54,37 @@ def test_cuda_launchers_refuse_cpu_tensors():
             torch.zeros(8, **i32), *meta, 600, 16, 0.0, 512)
     assert fds.fused_topk_blocked.launches == 0
     assert fds.fused_topk_packed.launches == 0
+
+
+@pytest.mark.parametrize("bad", ["pair_cap", "norm", "qnorm", "block_tfs",
+                                 "empty_words"])
+def test_cuda_launchers_check_shapes(bad):
+    """Every extent the kernels trust is checked before any pointer is
+    taken: a short pair array, a doc table that is not num_docs long, a
+    qnorm that is not Q long, tfs that do not match the blocks, packed
+    blocks with no words."""
+    from repro_torch.kernels import fused_decode_score as fds
+    i32 = dict(dtype=torch.int32)
+    f32 = dict(dtype=torch.float32)
+    t = dict(pair_block=torch.zeros(8, **i32),
+             pair_tile=torch.ones(8, **i32),
+             pair_qw=torch.zeros(8, 8, **f32),
+             pair_cap=torch.zeros(8 - (bad == "pair_cap"), **i32),
+             norm=torch.ones(600 - (bad == "norm"), **f32),
+             rank=torch.zeros(600, **f32),
+             qnorm=torch.ones(8 + (bad == "qnorm"), **f32))
+    pairs = [t[k] for k in ("pair_block", "pair_tile", "pair_qw", "pair_cap")]
+    meta = [t[k] for k in ("norm", "rank", "qnorm")]
+    tf_rows = 4 - (bad == "block_tfs")
+    words = 0 if bad == "empty_words" else 8
+    with pytest.raises(ValueError, match="has shape"):
+        fds._launch_packed_cuda(
+            torch.zeros(4, words, **i32),
+            torch.zeros(tf_rows, 128, dtype=torch.float16), *pairs,
+            torch.ones(8, **i32), torch.zeros(8, **i32),
+            torch.zeros(8, **i32), *meta, 600, 16, 0.0, 512)
+    if bad != "empty_words":
+        with pytest.raises(ValueError, match="has shape"):
+            fds._launch_blocked_cuda(
+                torch.zeros(4, 128, **i32), torch.zeros(tf_rows, 128, **f32),
+                *pairs, *meta, 600, 16, 0.0, 512)
