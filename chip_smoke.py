@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's query path on one GPU and check it.
 
-    python3 chip_smoke.py [--seed 7] [--batches 5] [--reps 5] [--out FILE]
+    python3 chip_smoke.py [--seed 7] [--out FILE]
 
 1. Builds the CUDA candidate kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, started together) and prints the card's
@@ -9,7 +9,7 @@
 2. Generates the repository's 1M-document tier
    (``CorpusSpec(num_docs=1_004_721, vocab=50_000, avg_distinct=40)``,
    one ``stream_batches`` batch of all docs) and bulk-builds it.
-3. Puts the HOR and the packed index on the card and serves ``--batches``
+3. Puts the HOR and the packed index on the card and serves ``BATCHES``
    batches of 8 queries x 3 terms (df band 0.15-0.5, k = 10,
    cap = max_posting_len) through ``make_scorer(engine="fused")``, with
    every kernel launch counter reset just before and read just after.
@@ -42,6 +42,8 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device-memory rate
 F32_OPS_PER_S = 67e12         # H100 SXM f32 rate outside the tensor cores
 NUM_DOCS, VOCAB, AVG_DISTINCT = 1_004_721, 50_000, 40
 BATCH, TERMS, K = 8, 3, 10
+BATCHES = 5                   # query batches served per layout
+REPS = 5                      # timing rounds over all batches per turn
 KERNELS = {
     "fused_topk_blocked": ("hor", "src/repro/kernels/fused_decode_score.py:513"),
     "fused_topk_packed": ("packed",
@@ -122,8 +124,6 @@ def same_candidates(a, b):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=7)
-    ap.add_argument("--batches", type=int, default=5)
-    ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", default=None,
                     help="also write the measurements to this JSON file")
     a = ap.parse_args()
@@ -175,7 +175,7 @@ def main() -> int:
     batches = [corpus.sample_query_terms(
         host.df, host.term_hashes, BATCH, TERMS, df_band=(0.15, 0.5),
         num_docs=host.num_docs, seed=a.seed * 1000 + i)
-        for i in range(a.batches)]
+        for i in range(BATCHES)]
 
     # 3-4. each layout on the card ----------------------------------------
     kernel_rows = []
@@ -260,10 +260,9 @@ def main() -> int:
                                  f"(max abs err {max_err})")
         # in turns (kernel, plain, kernel) on this card, with the clocks
         # read while the card is warm
-        ms_first = event_ms(lambda *c: wrapper(*c, **kw), calls, a.reps)
-        plain_ms = event_ms(lambda *c: plain(*c, **kw), calls,
-                            max(1, a.reps // 5))
-        ms_second = event_ms(lambda *c: wrapper(*c, **kw), calls, a.reps)
+        ms_first = event_ms(lambda *c: wrapper(*c, **kw), calls, REPS)
+        plain_ms = event_ms(lambda *c: plain(*c, **kw), calls, 1)
+        ms_second = event_ms(lambda *c: wrapper(*c, **kw), calls, REPS)
         clocks = smi("clocks.sm,clocks.mem,power.draw,temperature.gpu")
         ms = (ms_first + ms_second) / 2
         nbytes = float(np.mean([w[0] for w in work]))

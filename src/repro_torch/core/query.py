@@ -156,8 +156,7 @@ def score_query(index: Any, query_hashes: Tensor, k: int, cap: int,
 
 def fused_score_queries(index: Any, query_hashes: Tensor, k: int, cap: int,
                         rank_blend: float = 0.0,
-                        max_pairs: int | None = None,
-                        mode: str = "candidates", tune: Any = None):
+                        max_pairs: int | None = None, tune: Any = None):
     """Batched evaluation through the fused candidate engine: one kernel
     launch over the batch's shared posting blocks, per-tile candidates,
     then ``merge_topk_candidates``.  Needs a BlockedIndex or
@@ -171,10 +170,6 @@ def fused_score_queries(index: Any, query_hashes: Tensor, k: int, cap: int,
     """
     from repro_torch.kernels import autotune, ops
 
-    if mode != "candidates":
-        raise NotImplementedError(
-            f"mode={mode!r}: only the candidate engine is ported (the "
-            "dense mode is on the ROADMAP)")
     if tune is None:
         tune = autotune.lookup(index.device.type, int(index.docs.num_docs),
                                autotune.layout_of(index))
@@ -195,8 +190,7 @@ def fused_score_queries(index: Any, query_hashes: Tensor, k: int, cap: int,
 
 def make_scorer(index: Any, k: int, cap: int, rank_blend: float = 0.0,
                 engine: str = "torch", max_pairs: int | None = None,
-                mode: str = "candidates", return_stats: bool = False,
-                tune: Any = None) -> Callable[[Any], QueryResult]:
+                return_stats: bool = False, tune: Any = None) -> Callable[[Any], QueryResult]:
     """Batched scorer over ``index`` on the index's device.
 
     ``engine="torch"`` is the dense oracle; ``engine="fused"`` the fused
@@ -208,9 +202,6 @@ def make_scorer(index: Any, k: int, cap: int, rank_blend: float = 0.0,
     """
     if engine not in ("torch", "fused"):
         raise ValueError(f"unknown engine: {engine!r}")
-    if mode != "candidates":
-        raise NotImplementedError(
-            f"mode={mode!r}: only the candidate engine is ported")
     if engine == "fused":
         from repro_torch.core.layouts import BlockedIndex, PackedCsrIndex
         if not isinstance(index, (BlockedIndex, PackedCsrIndex)):
@@ -223,7 +214,7 @@ def make_scorer(index: Any, k: int, cap: int, rank_blend: float = 0.0,
         if engine == "fused":
             result, stats = fused_score_queries(
                 index, qh, k=k, cap=cap, rank_blend=rank_blend,
-                max_pairs=max_pairs, mode=mode, tune=tune)
+                max_pairs=max_pairs, tune=tune)
         else:
             result = score_queries(index, qh, k=k, cap=cap,
                                    rank_blend=rank_blend)

@@ -61,15 +61,6 @@ def _check_k_tile(k_tile: int, tile: int) -> None:
         raise ValueError(f"k_tile must be >= 1, got {k_tile}")
 
 
-def _check_pairs_per_step(np_pairs: int, pps: int) -> None:
-    if pps < 1:
-        raise ValueError(f"pairs_per_step must be >= 1, got {pps}")
-    if pps > 1 and np_pairs % pps:
-        raise ValueError(
-            f"np_pairs={np_pairs} not a multiple of pairs_per_step={pps}; "
-            "build pairs with build_batched_pairs(..., pairs_per_step=pps)")
-
-
 def _check_reducer(reducer: str, cuda: bool) -> None:
     """Both reducers define the same strict order (value descending,
     lowest lane first), so the plain path computes either; the CUDA
@@ -369,8 +360,7 @@ def _launch_packed_cuda(packed, block_tfs, pair_block, pair_tile, pair_qw,
 def fused_topk_blocked(block_docs, block_tfs, pair_block, pair_tile,
                        pair_qw, pair_cap, norm, rank, qnorm, num_docs: int,
                        k_tile: int, rank_blend: float = 0.0,
-                       tile: int = TILE, reducer: str = "successive",
-                       pairs_per_step: int = 1):
+                       tile: int = TILE, reducer: str = "successive"):
     """HOR candidate path (replaces ``fused_topk_blocked_pallas``).
 
     block_docs i32[NB, 128], block_tfs f32[NB, 128] read in place;
@@ -379,11 +369,10 @@ def fused_topk_blocked(block_docs, block_tfs, pair_block, pair_tile,
     lane count; norm/rank f32[num_docs]; qnorm f32[Q] (padding queries
     carry 1.0).  Returns (values f32[Q, n_tiles*k_tile], ids i32[same])
     tile-major candidate lists of FINAL scores.  CUDA tensors launch the
-    kernel; CPU tensors take the plain version.  ``pairs_per_step`` only
-    checks run-aligned pair arrays: both walk each tile's run whole, and
-    the padding pairs add nothing."""
+    kernel; CPU tensors take the plain version.  Run-aligned pair arrays
+    (``build_batched_pairs(..., pairs_per_step=n)``) need no flag: both
+    walk each tile's run whole, and the padding pairs add nothing."""
     _check_k_tile(k_tile, tile)
-    _check_pairs_per_step(pair_qw.shape[0], pairs_per_step)
     _check_reducer(reducer, block_docs.is_cuda)
     if not block_docs.is_cuda:
         return fused_topk_blocked_plain(
@@ -400,13 +389,12 @@ def fused_topk_packed(packed, block_tfs, pair_block, pair_tile, pair_qw,
                       pair_cap, pair_bits, pair_base, pair_count, norm, rank,
                       qnorm, num_docs: int, block: int, k_tile: int,
                       rank_blend: float = 0.0, tile: int = TILE,
-                      reducer: str = "successive", pairs_per_step: int = 1):
+                      reducer: str = "successive"):
     """Packed candidate path (replaces ``fused_topk_packed_pallas``):
     packed i32[NB, Wpb] (u32 bit-views) + f16 tfs stay compressed and
     are decoded per routed pair; per-pair (bits, base, count) decode
     scalars.  Otherwise as ``fused_topk_blocked``."""
     _check_k_tile(k_tile, tile)
-    _check_pairs_per_step(pair_qw.shape[0], pairs_per_step)
     _check_reducer(reducer, packed.is_cuda)
     if not packed.is_cuda:
         return fused_topk_packed_plain(

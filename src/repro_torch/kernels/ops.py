@@ -205,7 +205,6 @@ def fused_batched_topk(index: BlockedIndex | PackedCsrIndex,
         index, term_ids, idf_w, cap, k, rank_blend=rank_blend,
         max_pairs=max_pairs, tile=tile, k_tile=k_tile, q_pad=q_pad,
         pairs_per_step=pairs_per_step)
-    vals, ids = kernel(*args, **kwargs, reducer=reducer,
-                       pairs_per_step=pairs_per_step)
+    vals, ids = kernel(*args, **kwargs, reducer=reducer)
     b = term_ids.shape[0]
     return vals[:b], ids[:b], overflow

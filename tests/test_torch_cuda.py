@@ -65,7 +65,7 @@ def _assert_kernel_equals_plain(ix, qh, k, cap, rank_blend=0.0, pps=1):
         ix, term_ids, idf_t, cap, k, rank_blend=rank_blend,
         pairs_per_step=pps)
     before = kernel.launches
-    gv, gi = kernel(*args, **kw, pairs_per_step=pps)
+    gv, gi = kernel(*args, **kw)
     wv, wi = plain(*args, **kw)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1

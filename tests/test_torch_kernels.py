@@ -105,7 +105,7 @@ def test_plain_kernel_equals_pallas(host, layout, case):
         got = tfds.fused_topk_blocked(
             _t(ix.block_docs), _t(ix.block_tfs), _t(pb), _t(pt), _t(pqw),
             _t(pcap), _t(ix.docs.norm), _t(ix.docs.rank), _t(qnorm), nd, kt,
-            rank_blend=rank_blend, pairs_per_step=pps)
+            rank_blend=rank_blend)
     else:
         ext = (ix.block_bits[pb], ix.block_base[pb], ix.block_count[pb])
         want = rfds.fused_topk_packed_pallas(
@@ -114,8 +114,7 @@ def test_plain_kernel_equals_pallas(host, layout, case):
         got = tfds.fused_topk_packed(
             _t(ix.packed), _t(ix.block_tfs), _t(pb), _t(pt), _t(pqw),
             _t(pcap), *map(_t, ext), _t(ix.docs.norm), _t(ix.docs.rank),
-            _t(qnorm), nd, ix.block, kt, rank_blend=rank_blend,
-            pairs_per_step=pps)
+            _t(qnorm), nd, ix.block, kt, rank_blend=rank_blend)
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
     np.testing.assert_array_equal(_bits(got[0]),
                                   np.asarray(want[0]).view(np.int32))

@@ -214,7 +214,7 @@ def test_make_scorer_rejects_unknown_engine_and_modes():
     ix = tlayouts.build_blocked(host, device="cpu")
     with pytest.raises(ValueError):
         tquery.make_scorer(ix, k=5, cap=8, engine="pallas")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="mode"):
         tquery.make_scorer(ix, k=5, cap=8, engine="fused", mode="dense")
     with pytest.raises(TypeError, match="BlockedIndex or PackedCsrIndex"):
         tquery.make_scorer(ix.docs, k=5, cap=8, engine="fused")
