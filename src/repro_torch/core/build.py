@@ -7,8 +7,8 @@ Pipeline (host-side, vectorized numpy — this is the data-ingest layer):
 
 numpy-only, and byte-for-byte the reference's ``bulk_build``: the
 device layouts (``core/layouts.py``) are built from the ``PostingsHost``
-this returns.  The incremental ``add_documents`` path goes through the
-live index and is not ported yet (ROADMAP).
+this returns.  The incremental ``add_documents`` goes through the
+segmented live index (``core/live_index.py``).
 """
 from __future__ import annotations
 
@@ -106,6 +106,48 @@ def merge_vocab(old_hashes: np.ndarray, new_hashes: np.ndarray
     merged = (np.concatenate([old, new[~found]]) if (~found).any()
               else old)
     return merged, remap
+
+
+def add_documents(host: PostingsHost, new_corpus: TokenizedCorpus,
+                  doc_id_base: int | None = None,
+                  device="cuda") -> PostingsHost:
+    """Incremental batch add (paper §3.6 semantics) through the live
+    index: seed a one-segment ``SegmentedIndex`` on ``device`` from
+    ``host``, ingest the batch through the delta, seal, compact the
+    whole stack and export — the merged ``PostingsHost``.  A
+    ``doc_id_base`` other than ``host.num_docs`` (ids overlapping or
+    leaving a gap) takes the one-shot merge of ``_merge_documents``."""
+    base = host.num_docs if doc_id_base is None else doc_id_base
+    if base != host.num_docs:
+        return _merge_documents(host, new_corpus, base)
+    from repro_torch.core.live_index import SegmentedIndex
+    si = SegmentedIndex.from_host(host, device=device)
+    si.add_batch(new_corpus)
+    si.seal()
+    si.compact(all_segments=True)
+    return si.to_host()
+
+
+def _merge_documents(host: PostingsHost, new_corpus: TokenizedCorpus,
+                     base: int) -> PostingsHost:
+    """One-shot merge: the old postings back to triples, the new ones
+    at ids ``base + i``, one merged sort."""
+    doc_of, terms, counts = _flatten(new_corpus)
+    doc_of = doc_of + base
+    merged_hashes, remap = merge_vocab(host.term_hashes,
+                                       new_corpus.term_hashes)
+    terms = remap[terms]
+    old_terms = np.repeat(np.arange(host.num_terms, dtype=np.int64),
+                          np.diff(host.offsets))
+    all_docs = np.concatenate([host.doc_ids.astype(np.int64), doc_of])
+    all_terms = np.concatenate([old_terms, terms])
+    all_counts = np.concatenate([host.tfs.astype(np.float64),
+                                 counts.astype(np.float64)])
+    num_docs = max(host.num_docs, int(doc_of.max()) + 1 if len(doc_of) else 0,
+                   base + new_corpus.num_docs)
+    return _postings_from_triples(all_docs, all_terms, all_counts,
+                                  len(merged_hashes), num_docs,
+                                  merged_hashes)
 
 
 def corpus_stats(host: PostingsHost) -> CorpusStats:

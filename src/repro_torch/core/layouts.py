@@ -1,14 +1,18 @@
 """HOR and delta+bit-packed index layouts as PyTorch tensors.
 
-The port of ``repro.core.layouts`` for the bulk query path:
+The port of ``repro.core.layouts`` for the query path and the live
+index:
 
   HOR    -> BlockedIndex    postings in fixed 128-lane blocks with per-
                             block doc-id min/max summaries (the paper's
                             hstore + GIN analogue)
   (beyond paper)
          -> PackedCsrIndex  delta + bit-packed doc ids, fp16 tf
+         -> BandedCsrIndex  per-term-band choice: a packed band with a
+                            band-local stride + an HOR tail
 
-Each index is a frozen dataclass of tensors with ``.to(device)``.
+Each index is a frozen dataclass of tensors (HOR and packed with
+``.to(device)``; a banded index pairs one of each).
 Builders are host-side numpy, byte-equal to the reference's, and put the
 result on ``device`` ("cuda" unless the caller asks for the CPU).
 Storage widths match the reference so ``nbytes()`` / ``posting_bytes()``
@@ -31,6 +35,7 @@ Tensor = torch.Tensor
 BLOCK = 128  # posting block size
 ROUTE_TILE = 512  # doc-tile width the scoring kernels route against
 INT32_MIN = -2**31
+HASH_EMPTY = -1   # u32 0xFFFFFFFF as an int32 bit-view: vocabulary padding
 
 
 def as_i32_bits(a: np.ndarray) -> np.ndarray:
@@ -59,6 +64,15 @@ def _to(obj, device):
         elif isinstance(v, DocTable):
             changes[f.name] = v.to(device)
     return dataclasses.replace(obj, **changes)
+
+
+def take_rows(t: Tensor, idx: Tensor) -> Tensor:
+    """``t[idx]``, where an empty ``t`` (the band of an unpadded banded
+    index that holds no term) reads as zeros: none of its rows is ever
+    valid, and the reference's clamped gathers read it without error."""
+    if t.shape[0] == 0:
+        return t.new_zeros(idx.shape + t.shape[1:])
+    return t[idx]
 
 
 def _nbytes(t: Tensor) -> int:
@@ -151,6 +165,10 @@ class _SortedTerms:
         return torch.where(term_ids >= 0, self.df[safe], 0)
 
     @property
+    def num_terms(self) -> int:
+        return self.df.shape[0]
+
+    @property
     def device(self) -> torch.device:
         return self.df.device
 
@@ -204,8 +222,10 @@ class BlockedIndex(_SortedTerms):
                         ) -> Tuple[Tensor, Tensor, Tensor]:
         """q_occ: term ids [..., T] -> (docs, tfs, valid) [..., T, cap]."""
         bidx, bvalid = self._term_blocks(term_ids, cap)
-        d = torch.where(bvalid[..., None], self.block_docs[bidx], -1)
-        t = torch.where(bvalid[..., None], self.block_tfs[bidx], 0.0)
+        d = torch.where(bvalid[..., None], take_rows(self.block_docs, bidx),
+                        -1)
+        t = torch.where(bvalid[..., None], take_rows(self.block_tfs, bidx),
+                        0.0)
         d = d.flatten(-2)[..., :cap]
         t = t.flatten(-2)[..., :cap]
         present = (term_ids >= 0)[..., None]
@@ -285,12 +305,97 @@ def build_blocked(h: PostingsHost, block: int = BLOCK,
 
 def size_class(n: int, base: int = 128, growth: int = 2) -> int:
     """Smallest ``base * growth**i >= max(n, 1)`` — the static size-class
-    quantizer."""
+    quantizer sealed segments are padded to."""
     n = max(int(n), 1)
     c = base
     while c < n:
         c *= growth
     return c
+
+
+def _pad(t: Tensor, n: int, value=0, cols: int = 0) -> Tensor:
+    """Append ``n`` rows (and ``cols`` columns of a 2-D tensor) of
+    ``value``."""
+    pad = (0, n) if t.dim() == 1 else (0, cols, 0, n)
+    return torch.nn.functional.pad(t, pad, value=value)
+
+
+def pad_blocked_to_class(ix: "BlockedIndex", nb_pad: int, w_pad: int,
+                         max_posting_len: int, max_blocks_per_term: int,
+                         route_pairs_max: int, route_span_max: int
+                         ) -> "BlockedIndex":
+    """Pad a BlockedIndex to a static size class, as the reference's
+    ``pad_blocked_to_class``: inert padding (empty blocks with tile_count
+    0, absent-hash vocabulary slots) and quantized upper bounds for the
+    static metadata (each only a budget or a loop bound)."""
+    w, nb = ix.num_terms, int(ix.block_docs.shape[0])
+    if nb_pad < nb or w_pad < w:
+        raise ValueError(f"size class ({nb_pad}, {w_pad}) below actual "
+                         f"({nb}, {w})")
+    if (max_posting_len < ix.max_posting_len
+            or max_blocks_per_term < ix.max_blocks_per_term
+            or route_pairs_max < ix.route_pairs_max
+            or route_span_max < ix.route_span_max):
+        raise ValueError("quantized static bounds must cover the actual "
+                         "index statics")
+    dn, dw = nb_pad - nb, w_pad - w
+    last = int(ix.block_offsets[-1])
+    return dataclasses.replace(
+        ix,
+        sorted_hash=_pad(ix.sorted_hash, dw, HASH_EMPTY),
+        df=_pad(ix.df, dw),
+        block_offsets=_pad(ix.block_offsets, dw, last),
+        block_docs=_pad(ix.block_docs, dn, -1),
+        block_tfs=_pad(ix.block_tfs, dn),
+        block_min=_pad(ix.block_min, dn),
+        block_max=_pad(ix.block_max, dn, -1),
+        tile_first=_pad(ix.tile_first, dn),
+        tile_count=_pad(ix.tile_count, dn),
+        max_posting_len=int(max_posting_len),
+        max_blocks_per_term=int(max_blocks_per_term),
+        route_pairs_max=int(route_pairs_max),
+        route_span_max=int(route_span_max),
+    )
+
+
+def pad_packed_to_class(ix: "PackedCsrIndex", nb_pad: int, w_pad: int,
+                        max_posting_len: int, words_per_block: int,
+                        route_pairs_max: int, route_span_max: int
+                        ) -> "PackedCsrIndex":
+    """Pad a PackedCsrIndex to a static size class (the packed twin of
+    ``pad_blocked_to_class``): padding blocks have bit width 1, count 0
+    and tile_count 0; the word dim pads to ``words_per_block``."""
+    w, nb = ix.num_terms, int(ix.packed.shape[0])
+    wpb = int(ix.packed.shape[1])
+    if nb_pad < nb or w_pad < w or words_per_block < wpb:
+        raise ValueError(f"size class ({nb_pad}, {w_pad}, {words_per_block})"
+                         f" below actual ({nb}, {w}, {wpb})")
+    if (max_posting_len < ix.max_posting_len
+            or route_pairs_max < ix.route_pairs_max
+            or route_span_max < ix.route_span_max):
+        raise ValueError("quantized static bounds must cover the actual "
+                         "index statics")
+    dn, dw = nb_pad - nb, w_pad - w
+    last = int(ix.block_offsets[-1])
+    return dataclasses.replace(
+        ix,
+        sorted_hash=_pad(ix.sorted_hash, dw, HASH_EMPTY),
+        df=_pad(ix.df, dw),
+        block_offsets=_pad(ix.block_offsets, dw, last),
+        block_bits=_pad(ix.block_bits, dn, 1),
+        block_base=_pad(ix.block_base, dn),
+        block_count=_pad(ix.block_count, dn),
+        packed=_pad(ix.packed, dn, cols=words_per_block - wpb),
+        block_tfs=_pad(ix.block_tfs, dn),
+        block_min=_pad(ix.block_min, dn),
+        block_max=_pad(ix.block_max, dn, -1),
+        tile_first=_pad(ix.tile_first, dn),
+        tile_count=_pad(ix.tile_count, dn),
+        max_posting_len=int(max_posting_len),
+        words_per_block=int(words_per_block),
+        route_pairs_max=int(route_pairs_max),
+        route_span_max=int(route_span_max),
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -356,15 +461,22 @@ class PackedCsrIndex(_SortedTerms):
     route_pairs_max: int = 0
     route_span_max: int = 0
 
+    @property
+    def max_blocks_per_term(self) -> int:
+        """Worst-case posting blocks one term spans, from the (possibly
+        size-class quantized) posting-length bound."""
+        return max(-(-self.max_posting_len // self.block), 1)
+
     def unpack_block(self, b: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
         """Decode blocks ``b`` [N] -> (doc_ids, tfs f32, valid) [N, BLOCK]."""
         b = b.long()
-        docs = unpack_words(self.packed[b], self.block_bits[b],
-                            self.block_base[b], self.block_count[b],
-                            self.block)
+        count = take_rows(self.block_count, b)
+        docs = unpack_words(take_rows(self.packed, b),
+                            take_rows(self.block_bits, b),
+                            take_rows(self.block_base, b), count, self.block)
         valid = (torch.arange(self.block, device=b.device)[None, :]
-                 < self.block_count[b][:, None])
-        tfs = torch.where(valid, self.block_tfs[b].float(), 0.0)
+                 < count[:, None])
+        tfs = torch.where(valid, take_rows(self.block_tfs, b).float(), 0.0)
         return docs, tfs, valid
 
     def gather_postings(self, term_ids: Tensor, cap: int
@@ -472,6 +584,156 @@ def build_packed_csr(h: PostingsHost, max_bits: int = 32,
     ).to(device)
 
 
+# ---------------------------------------------------------------------------
+# (beyond paper) BandedCsrIndex — per-term-band layout choice
+# ---------------------------------------------------------------------------
+
+
+def term_packed_words(h: PostingsHost, block: int = BLOCK,
+                      max_bits: int = 32) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-term packed width: the int32 words the WIDEST block of each
+    term would occupy under ``build_packed_csr``, plus the term's block
+    count, in ``h``'s term order (i64[W], i64[W]); terms with no
+    postings get width 0.  Bit widths come from the ``np.frexp``
+    exponent, exact for integers below 2**53."""
+    W = h.num_terms
+    lengths = np.diff(h.offsets).astype(np.int64)
+    has = lengths > 0
+    nblocks = np.maximum(-(-lengths // block), has.astype(np.int64))
+    words = np.zeros(W, dtype=np.int64)
+    P = h.num_postings
+    if P == 0 or W == 0:
+        return words, nblocks
+    docs = h.doc_ids.astype(np.int64)
+    prev = np.empty(P, dtype=np.int64)
+    prev[1:] = docs[:-1]
+    prev[h.offsets[:-1][has]] = -1          # term starts restart the delta
+    deltas = docs - prev
+    block_offsets = np.zeros(W + 1, dtype=np.int64)
+    np.cumsum(nblocks, out=block_offsets[1:])
+    NB = int(block_offsets[-1])
+    bstart = (np.repeat(h.offsets[:-1][has], nblocks[has]).astype(np.int64)
+              + (np.arange(NB, dtype=np.int64)
+                 - np.repeat(block_offsets[:-1][has], nblocks[has])) * block)
+    bmax = np.maximum.reduceat(deltas, bstart)
+    _, exp = np.frexp(np.maximum(bmax, 1).astype(np.float64))
+    bits = np.clip(exp.astype(np.int64), 1, max_bits)
+    w_blk = (block * bits + 31) // 32
+    term_of_block = np.repeat(np.arange(W, dtype=np.int64), nblocks)
+    np.maximum.at(words, term_of_block, w_blk)
+    return words, nblocks
+
+
+@dataclasses.dataclass(frozen=True)
+class BandedCsrIndex:
+    """Per-term-band sealed segment: packed band + HOR tail.
+
+    Terms whose widest packed block fits in ``<= cut`` int32 words live
+    in a ``PackedCsrIndex`` with a band-local ``words_per_block``; the
+    rest stay in a ``BlockedIndex``.  Both bands are full-vocabulary
+    sub-indexes over the same doc space (a term's postings live in one
+    band, the other holds an empty block range for it), and share one
+    ``DocTable`` and one ``sorted_hash`` tensor: one term lookup serves
+    both, and a query's score is the sum of the two band partials."""
+    packed: PackedCsrIndex
+    hor: BlockedIndex
+
+    @property
+    def docs(self) -> DocTable:
+        return self.packed.docs
+
+    @property
+    def sorted_hash(self) -> Tensor:
+        return self.packed.sorted_hash
+
+    @property
+    def df(self) -> Tensor:
+        return self.packed.df + self.hor.df
+
+    @property
+    def num_terms(self) -> int:
+        return self.packed.num_terms
+
+    @property
+    def block(self) -> int:
+        return self.packed.block
+
+    @property
+    def route_tile(self) -> int:
+        return self.packed.route_tile
+
+    @property
+    def max_posting_len(self) -> int:
+        return max(self.packed.max_posting_len, self.hor.max_posting_len)
+
+    @property
+    def device(self) -> torch.device:
+        return self.packed.device
+
+    def lookup_terms(self, hashes: Tensor) -> Tensor:
+        return self.packed.lookup_terms(hashes)
+
+    def term_df(self, term_ids: Tensor) -> Tensor:
+        return self.packed.term_df(term_ids) + self.hor.term_df(term_ids)
+
+    def gather_postings(self, term_ids: Tensor, cap: int
+                        ) -> Tuple[Tensor, Tensor, Tensor]:
+        # a term's postings live in one band; the other band yields
+        # inert fill (-1 / 0.0 / False), so the merge is lane-wise
+        dp, tp, vp = self.packed.gather_postings(term_ids, cap)
+        dh, th, vh = self.hor.gather_postings(term_ids, cap)
+        return torch.maximum(dp, dh), tp + th, vp | vh
+
+    def nbytes(self) -> int:
+        # the DocTable is shared between the bands — count it once
+        return (self.packed.nbytes() + self.hor.nbytes()
+                - self.docs.nbytes())
+
+    def posting_bytes(self) -> int:
+        return int(self.packed.posting_bytes() + self.hor.posting_bytes())
+
+
+def _band_host(h: PostingsHost, keep: np.ndarray) -> PostingsHost:
+    """Full-vocabulary sub-host: terms outside ``keep`` stay in the
+    vocabulary with df 0 and an empty posting slab, so both bands'
+    hash-sorted term ids stay aligned."""
+    lengths = np.diff(h.offsets).astype(np.int64)
+    kept = np.where(keep, lengths, 0)
+    offsets = np.zeros(h.num_terms + 1, dtype=np.int64)
+    np.cumsum(kept, out=offsets[1:])
+    mask = np.repeat(keep, lengths)
+    return PostingsHost(
+        term_hashes=h.term_hashes,
+        df=np.where(keep, h.df, 0).astype(h.df.dtype),
+        offsets=offsets, doc_ids=h.doc_ids[mask], tfs=h.tfs[mask],
+        num_docs=h.num_docs, norm=h.norm, rank=h.rank)
+
+
+def build_banded(h: PostingsHost, max_band_words: int | None = None,
+                 block: int = BLOCK, route_tile: int = ROUTE_TILE,
+                 lane_quantum: int = 1, device="cuda") -> BandedCsrIndex:
+    """Banded build, array-equal to ``repro.core.layouts.build_banded``.
+    ``max_band_words`` (the band cut, in int32 words) defaults to the
+    byte-model optimum (``size_model.choose_band_cut``, priced at the
+    packed lane quantum ``lane_quantum``)."""
+    words, nblocks = term_packed_words(h, block=block)
+    if max_band_words is None:
+        from repro_torch.core import size_model
+        cut, _ = size_model.choose_band_cut(words, nblocks, block=block,
+                                            lane_quantum=lane_quantum)
+    else:
+        cut = int(max_band_words)
+    in_packed = (words > 0) & (words <= cut)
+    packed = build_packed_csr(_band_host(h, in_packed), block=block,
+                              route_tile=route_tile, device=device)
+    hor = build_blocked(_band_host(h, ~in_packed), block=block,
+                        route_tile=route_tile, device=device)
+    # share the DocTable and the (identical-content) sorted_hash tensor
+    hor = dataclasses.replace(hor, docs=packed.docs,
+                              sorted_hash=packed.sorted_hash)
+    return BandedCsrIndex(packed=packed, hor=hor)
+
+
 LAYOUTS = {"hor": BlockedIndex, "packed": PackedCsrIndex}
 
 
@@ -479,13 +741,21 @@ def index_from_numpy(kind: str, arrays: dict, statics: dict,
                      device="cuda"):
     """Build the port's index from a reference index given as numpy.
 
-    ``kind`` is "hor" or "packed"; ``arrays`` maps each tensor field
-    name (plus ``norm`` and ``rank`` for the DocTable) to a numpy array,
-    u32 arrays included (they are stored as int32 bit-views);
+    ``kind`` is "hor", "packed" or "banded"; ``arrays`` maps each tensor
+    field name (plus ``norm`` and ``rank`` for the DocTable) to a numpy
+    array, u32 arrays included (they are stored as int32 bit-views);
     ``statics`` maps the static fields (``max_posting_len``, ``block``,
-    ``route_tile``, ...).  Lets the tests score the very index the
-    reference built.
+    ``route_tile``, ...).  For "banded", ``arrays`` and ``statics`` map
+    "packed" and "hor" to each band's dicts; the bands then share the
+    packed band's DocTable and ``sorted_hash``, as in the reference.
+    Lets the tests score the very index the reference built.
     """
+    if kind == "banded":
+        p = index_from_numpy("packed", arrays["packed"], statics["packed"],
+                             device)
+        h = index_from_numpy("hor", arrays["hor"], statics["hor"], device)
+        return BandedCsrIndex(packed=p, hor=dataclasses.replace(
+            h, docs=p.docs, sorted_hash=p.sorted_hash))
     cls = LAYOUTS[kind]
     fields = {}
     for name, a in arrays.items():

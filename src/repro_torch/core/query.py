@@ -9,9 +9,10 @@ Two engines rank by tf-idf cosine (+ static-rank blend):
 
 * ``engine="torch"`` — the dense oracle (``score_queries``): gather every
   posting, scatter-add into a [B, num_docs] accumulator, top-k;
-* ``engine="fused"`` — the fused candidate engine
-  (``fused_score_queries``): one candidate-kernel launch per batch, then
-  the candidate merge.
+* ``engine="fused"`` — the fused engine (``fused_score_queries``): one
+  kernel launch per batch, then either the candidate merge
+  (``mode="candidates"``, the default) or, with ``mode="dense"``, the
+  dense kernel's [B, num_docs] scores, the scoring tail and a top-k.
 
 The oracle's scatter-add is deterministic on CUDA too: it adds one term
 slot at a time (doc ids are unique within a slot, so no ``index_add_``
@@ -74,6 +75,21 @@ def fma_f32(a: Tensor, b: Tensor, c: Tensor) -> Tensor:
     return torch.where(fix, torch.nextafter(s, toward), s).float()
 
 
+def query_norm(idf_w: Tensor) -> Tensor:
+    """Query norms sqrt(max(sum_t w_t**2, 1e-12)) over the last axis, as
+    the reference's XLA lowering computes them on the CPU for queries of
+    up to 4 slots: the slot sum as a chain of fused multiply-adds in slot
+    order, then a correctly rounded square root (through f64, which is
+    exact for an f32 input).  Wider queries are summed in the same order;
+    XLA reduces those in another, so their norms may differ from its in
+    the last bit."""
+    acc = torch.zeros(idf_w.shape[:-1], dtype=torch.float32,
+                      device=idf_w.device)
+    for t in range(idf_w.shape[-1]):
+        acc = fma_f32(idf_w[..., t], idf_w[..., t], acc)
+    return torch.sqrt(acc.clamp_min(1e-12).double()).float()
+
+
 def final_scores(scores: Tensor, norm: Tensor, rank: Tensor, qnorm: Tensor,
                  rank_blend: float) -> Tensor:
     """Batched q_doc scoring tail: cosine + static-rank blend; deleted
@@ -112,6 +128,18 @@ def accumulate_scores(doc_ids: Tensor, weights: Tensor, valid: Tensor,
     return acc.view(b, num_docs + 1)[:, :num_docs].reshape(*lead, num_docs)
 
 
+def accumulate_counts(doc_ids: Tensor, valid: Tensor,
+                      num_docs: int) -> Tensor:
+    """Exact per-document membership counts, as integers (float32 loses
+    integer exactness past 2**24).  doc_ids/valid [..., cap] ->
+    i32[num_docs]; integer adds commute, so CUDA's atomics cannot
+    change the result."""
+    flat = torch.where(valid, doc_ids, num_docs).reshape(-1).long()
+    acc = torch.zeros(num_docs + 1, dtype=torch.int32, device=flat.device)
+    acc.index_add_(0, flat, valid.reshape(-1).to(torch.int32))
+    return acc[:num_docs]
+
+
 def _top_k(final: Tensor, k: int) -> QueryResult:
     """Dense top-k with the reference's tie order; misses -> (-1, 0)."""
     ids = torch.arange(final.shape[-1], dtype=torch.int32,
@@ -141,9 +169,8 @@ def score_queries(index: Any, query_hashes: Tensor, k: int, cap: int,
     num_docs = index.docs.num_docs
     d, tf, valid = index.gather_postings(term_ids, cap)     # q_occ
     scores = accumulate_scores(d, tf * idf_t[..., None], valid, num_docs)
-    qnorm = torch.sqrt(torch.clamp_min((idf_t * idf_t).sum(dim=-1), 1e-12))
-    final = final_scores(scores, index.docs.norm, index.docs.rank, qnorm,
-                         rank_blend)                          # q_doc
+    final = final_scores(scores, index.docs.norm, index.docs.rank,
+                         query_norm(idf_t), rank_blend)       # q_doc
     return _top_k(final, k)
 
 
@@ -154,13 +181,24 @@ def score_query(index: Any, query_hashes: Tensor, k: int, cap: int,
     return QueryResult(doc_ids=r.doc_ids[0], scores=r.scores[0])
 
 
+MODES = ("candidates", "dense")
+
+
+def _check_mode(mode: str) -> None:
+    if mode not in MODES:
+        raise ValueError(f"unknown fused-engine mode: {mode!r}")
+
+
 def fused_score_queries(index: Any, query_hashes: Tensor, k: int, cap: int,
                         rank_blend: float = 0.0,
-                        max_pairs: int | None = None, tune: Any = None):
-    """Batched evaluation through the fused candidate engine: one kernel
-    launch over the batch's shared posting blocks, per-tile candidates,
-    then ``merge_topk_candidates``.  Needs a BlockedIndex or
-    PackedCsrIndex.
+                        max_pairs: int | None = None,
+                        mode: str = "candidates", tune: Any = None):
+    """Batched evaluation through the fused engine: one kernel launch
+    over the batch's shared posting blocks.  ``mode="candidates"``
+    reduces each tile to candidates in the kernel and merges them
+    (``merge_topk_candidates``); ``mode="dense"`` takes the dense
+    kernel's [B, num_docs] scores through the oracle's scoring tail and
+    a stable-sort top-k.  Needs a BlockedIndex or PackedCsrIndex.
 
     Returns (QueryResult, stats); ``stats["pair_overflow"]`` (an int)
     counts routing pairs DROPPED because ``max_pairs`` was undersized —
@@ -170,10 +208,20 @@ def fused_score_queries(index: Any, query_hashes: Tensor, k: int, cap: int,
     """
     from repro_torch.kernels import autotune, ops
 
+    _check_mode(mode)
     if tune is None:
         tune = autotune.lookup(index.device.type, int(index.docs.num_docs),
                                autotune.layout_of(index))
     term_ids, idf_t = lookup_query(index, query_hashes)
+    if mode == "dense":
+        scores, overflow = ops.fused_batched_scores(
+            index, term_ids, idf_t, cap, max_pairs=max_pairs,
+            tile=tune.tile, q_pad=tune.q_pad)
+        overflow = int(overflow)
+        ops.warn_on_overflow(overflow, "fused engine")
+        final = final_scores(scores, index.docs.norm, index.docs.rank,
+                             query_norm(idf_t), rank_blend)
+        return _top_k(final, k), {"pair_overflow": overflow}
     cand_v, cand_i, overflow = ops.fused_batched_topk(
         index, term_ids, idf_t, cap, k, rank_blend=rank_blend,
         max_pairs=max_pairs, tile=tune.tile,
@@ -188,20 +236,37 @@ def fused_score_queries(index: Any, query_hashes: Tensor, k: int, cap: int,
     return result, {"pair_overflow": overflow}
 
 
-def make_scorer(index: Any, k: int, cap: int, rank_blend: float = 0.0,
+def make_scorer(index: Any, k: int, cap: int | None, rank_blend: float = 0.0,
                 engine: str = "torch", max_pairs: int | None = None,
-                return_stats: bool = False, tune: Any = None) -> Callable[[Any], QueryResult]:
+                mode: str = "candidates", return_stats: bool = False,
+                tune: Any = None) -> Callable[[Any], QueryResult]:
     """Batched scorer over ``index`` on the index's device.
 
     ``engine="torch"`` is the dense oracle; ``engine="fused"`` the fused
-    candidate engine (BlockedIndex / PackedCsrIndex only) — same ranked
-    results, one pass over the routed posting blocks.  The scorer takes
-    u32 query hashes [B, T] (numpy, or an int32 bit-view tensor) and
-    returns a QueryResult, or (QueryResult, stats) with
-    ``return_stats=True``.
+    engine (BlockedIndex / PackedCsrIndex only) in ``mode="candidates"``
+    or ``"dense"`` — same ranked results, one pass over the routed
+    posting blocks.  A ``SegmentedIndex`` goes to its own multi-segment
+    path (``SegmentedIndex.topk``; ``cap=None`` reads each segment's
+    full lists).  The scorer takes u32 query hashes [B, T] (numpy, or an
+    int32 bit-view tensor) and returns a QueryResult, or (QueryResult,
+    stats) with ``return_stats=True``.
     """
     if engine not in ("torch", "fused"):
         raise ValueError(f"unknown engine: {engine!r}")
+    _check_mode(mode)
+    from repro_torch.core.live_index import SegmentedIndex
+    if isinstance(index, SegmentedIndex):
+        if max_pairs is not None or tune is not None:
+            raise ValueError(
+                "max_pairs and tune are not configurable for a "
+                "SegmentedIndex: each sealed segment carries its own "
+                "size-class budget and tuned geometry")
+
+        def live_scorer(query_hashes):
+            return index.topk(query_hashes, k, cap=cap,
+                              rank_blend=rank_blend, engine=engine,
+                              mode=mode, return_stats=return_stats)
+        return live_scorer
     if engine == "fused":
         from repro_torch.core.layouts import BlockedIndex, PackedCsrIndex
         if not isinstance(index, (BlockedIndex, PackedCsrIndex)):
@@ -214,7 +279,7 @@ def make_scorer(index: Any, k: int, cap: int, rank_blend: float = 0.0,
         if engine == "fused":
             result, stats = fused_score_queries(
                 index, qh, k=k, cap=cap, rank_blend=rank_blend,
-                max_pairs=max_pairs, tune=tune)
+                max_pairs=max_pairs, mode=mode, tune=tune)
         else:
             result = score_queries(index, qh, k=k, cap=cap,
                                    rank_blend=rank_blend)

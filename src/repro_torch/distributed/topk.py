@@ -32,18 +32,37 @@ def merge_topk_candidates(values: Tensor, ids: Tensor, k: int
     return v[..., :k], torch.gather(ids, -1, pos[..., :k])
 
 
-def merge_topk_candidates_host(values, ids, k: int):
+def _host(x, dtype) -> np.ndarray:
+    if isinstance(x, Tensor):
+        x = x.cpu().numpy()
+    return np.asarray(x, dtype)
+
+
+def merge_topk_candidates_host(values, ids, k: int, trace=None):
     """numpy twin of ``merge_topk_candidates`` for host-side merges:
-    ``values`` / ``ids`` are lists of per-source candidate arrays
-    ``[..., C_i]`` (ragged last axes allowed), concatenated in source
-    order."""
-    v = np.concatenate([np.asarray(x, np.float32) for x in values], axis=-1)
-    i = np.concatenate([np.asarray(x, np.int32) for x in ids], axis=-1)
+    ``values`` / ``ids`` are lists of per-source candidate arrays or
+    tensors ``[..., C_i]`` (ragged last axes allowed), concatenated in
+    source order.  The segmented live index merges its per-segment
+    candidates here.
+
+    ``trace`` optionally records a ``"merge"`` child span (of
+    ``"score"``); it covers the device-to-host copy of every source's
+    candidates, which is where the host waits for the device."""
+    span = None
+    if trace is not None:
+        span = trace.span(
+            "merge", parent="score", sources=len(values),
+            candidates=int(sum(x.shape[-1] for x in ids)))
+    v = np.concatenate([_host(x, np.float32) for x in values], axis=-1)
+    i = np.concatenate([_host(x, np.int32) for x in ids], axis=-1)
     c = v.shape[-1]
     if c < k:
         pad = [(0, 0)] * (v.ndim - 1) + [(0, k - c)]
         v = np.pad(v, pad, constant_values=-np.inf)
         i = np.pad(i, pad, constant_values=-1)
     order = np.argsort(-v, axis=-1, kind="stable")[..., :k]
-    return (np.take_along_axis(v, order, axis=-1),
-            np.take_along_axis(i, order, axis=-1))
+    out = (np.take_along_axis(v, order, axis=-1),
+           np.take_along_axis(i, order, axis=-1))
+    if span is not None:
+        span.end()
+    return out

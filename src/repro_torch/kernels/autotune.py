@@ -42,8 +42,11 @@ _TABLE: dict[tuple[str, int, str], TuneConfig] = {}
 
 
 def layout_of(index) -> str:
-    """'packed' for a PackedCsrIndex, 'hor' otherwise."""
-    from repro_torch.core.layouts import PackedCsrIndex
+    """'banded' for a BandedCsrIndex, 'packed' for a PackedCsrIndex,
+    'hor' otherwise: the live index's layout tags."""
+    from repro_torch.core.layouts import BandedCsrIndex, PackedCsrIndex
+    if isinstance(index, BandedCsrIndex):
+        return "banded"
     return "packed" if isinstance(index, PackedCsrIndex) else "hor"
 
 

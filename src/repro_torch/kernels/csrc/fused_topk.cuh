@@ -1,8 +1,9 @@
 // Fused decode-and-score with in-kernel per-tile top-k, for sm_90a.
 //
 // Replaces the Pallas candidate kernels of repro/kernels/fused_decode_score.py
-// (fused_topk_blocked_pallas, fused_topk_packed_pallas).  Shared body; the
-// two .cu files differ only in how a posting block is loaded.
+// (fused_topk_blocked_pallas, fused_topk_packed_pallas).  The loaders and the
+// accumulation loop are shared with the dense kernels (tile_accumulate.cuh);
+// the two .cu files differ only in the loader they pass.
 //
 // What bounds it: posting bytes read.  Every routed (block, tile) pair reads
 // one 128-lane posting block (HOR: 512 B doc ids + 512 B f32 tfs; packed:
@@ -11,31 +12,29 @@
 // the 1M-doc tier that is tens of MB in, ~2 MB out, and a handful of flops
 // per posting byte: far below the card's ops:byte ridge.
 //
-// Design: one CTA of 128 threads (thread == block lane) per doc tile.  The
-// wrapper hands CTA t its pair range [tile_start[t], tile_start[t+1]) of the
-// tile-sorted routing pairs, so the [Q, tile] f32 accumulator lives in shared
-// memory for the tile's whole run and the dense score row never reaches
-// device memory (the TPU kernel's VMEM-resident accumulator).  Doc ids are
-// unique within a block, so one pair's 128 lanes never collide: plain adds,
-// no atomics, and a barrier between pairs keeps the adds in pair order, which
-// is the reference's order.  The candidate reduction is k_tile warp-wide
-// argmax passes per query row (value descending, lowest lane on ties).
+// Design: one CTA of 128 threads per doc tile; the wrapper hands CTA t its
+// pair range [tile_start[t], tile_start[t+1]) of the tile-sorted routing
+// pairs, so the [Q, tile] f32 accumulator lives in shared memory for the
+// tile's whole run and the dense score row never reaches device memory (the
+// TPU kernel's VMEM-resident accumulator).  The candidate reduction is
+// k_tile warp-wide argmax passes per query row (value descending, lowest
+// lane on ties).
 //
-// Bit parity with the reference: its XLA lowering contracts `acc + qw*tf`
-// and `cosine + rank_blend*rank` into fused multiply-adds, so these are
-// __fmaf_rn here (one rounding each); the denominator product and the IEEE
-// division (__fmul_rn, __fdiv_rn) are never contracted, and the tail is the
+// Bit parity with the reference: its XLA lowering contracts
+// `cosine + rank_blend*rank` into a fused multiply-add, so that is
+// __fmaf_rn here; the denominator product and the IEEE division
+// (__fmul_rn, __fdiv_rn) are never contracted, and the tail is the
 // reference's op sequence (query.final_scores).
 #pragma once
 
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include "tile_accumulate.cuh"
 
 namespace fused_topk {
 
-constexpr int kLanes = 128;          // posting block width == threads per CTA
-constexpr int kWarps = kLanes / 32;
+using tile_acc::kLanes;
+using tile_acc::kWarps;
 
 template <class Loader>
 __global__ void __launch_bounds__(kLanes)
@@ -63,24 +62,9 @@ topk_kernel(Loader ld, const int* __restrict__ pair_cap,
     return;
   }
 
-  for (int i = lane; i < q * tile; i += kLanes) acc[i] = 0.0f;
-  __syncthreads();
-
   const int tile_base = t * tile;
-  for (int p = p0; p < p1; ++p) {
-    int doc;
-    float tf;
-    ld.load(p, lane, warp_sums, doc, tf);  // every thread calls (barriers)
-    const int local = doc - tile_base;
-    if (doc >= 0 && local >= 0 && local < tile && lane < pair_cap[p]) {
-      const float* qw = pair_qw + (size_t)p * q;
-      for (int qi = 0; qi < q; ++qi) {
-        float* a = acc + qi * tile + local;
-        *a = __fmaf_rn(qw[qi], tf, *a);
-      }
-    }
-    __syncthreads();
-  }
+  tile_acc::accumulate_run(ld, pair_cap, pair_qw, p0, p1, tile_base, q, tile,
+                           acc, warp_sums);
 
   // scoring tail (query.final_scores): cosine + rank blend; deleted
   // (norm == 0, incl. lanes past num_docs) and zero scores -> -inf
@@ -131,12 +115,8 @@ int launch(const Loader& ld, const int* pair_cap, const float* pair_qw,
            int num_docs, int q, int tile, int k_tile, float rank_blend,
            void* stream) {
   const size_t smem = (size_t)q * tile * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        topk_kernel<Loader>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const int e = tile_acc::allow_smem(topk_kernel<Loader>, smem);
+  if (e != 0) return e;
   topk_kernel<Loader><<<n_tiles, kLanes, smem, (cudaStream_t)stream>>>(
       ld, pair_cap, pair_qw, tile_start, norm, rank, qnorm, out_vals, out_ids,
       n_tiles, num_docs, q, tile, k_tile, rank_blend);

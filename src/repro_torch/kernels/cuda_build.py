@@ -24,7 +24,8 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNELS = ("fused_topk_blocked", "fused_topk_packed")
+KERNELS = ("fused_topk_blocked", "fused_topk_packed", "fused_score_blocked",
+           "fused_score_packed")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

@@ -1,5 +1,6 @@
-"""Fused batched decode-and-score with per-tile top-k candidates: the
-port of ``repro.kernels.fused_decode_score``'s candidate path.
+"""Fused batched decode-and-score: the port of
+``repro.kernels.fused_decode_score``, its candidate kernels and its dense
+kernels.
 
 The engine walks tile-sorted, batch-deduplicated routing pairs
 ``(block, tile)``: each pair reads ONE posting block (raw HOR ids and
@@ -9,15 +10,19 @@ last pair applies the scoring tail (``core.query.final_scores``) and
 emits ``k_tile`` (value, global doc id) candidates per query (value
 descending, lowest id on ties, id -1 where not finite).  Tiles no pair
 visits come out as (-inf, -1).  A pure ``merge_topk_candidates`` over
-the tile-major lists then equals the dense oracle's top-k.
+the tile-major lists then equals the dense oracle's top-k.  The dense
+kernels (``fused_score_{blocked,packed}``) stop at the accumulator and
+return f32 [Q, num_docs] scores, 0.0 in tiles no pair visits (the
+reference's ``_finish``).
 
-Two implementations of each candidate kernel live here:
+Two implementations of each kernel live here:
 
-* the CUDA C++ kernel (``csrc/fused_topk_{blocked,packed}.cu``), which a
-  CUDA tensor always goes to — there is no fallback;
-* its plain PyTorch version (``fused_topk_{blocked,packed}_plain``), the
-  path for CPU tensors and the kernel's yardstick on the card.  It adds
-  the pairs in the kernel's order without colliding atomics: round ``r``
+* the CUDA C++ kernel (``csrc/fused_{topk,score}_{blocked,packed}.cu``),
+  which a CUDA tensor always goes to — there is no fallback;
+* its plain PyTorch version (``fused_{topk,score}_{blocked,packed}
+  _plain``), the path for CPU tensors and the kernel's yardstick on the
+  card.  It adds the pairs in the kernel's order without colliding
+  atomics: round ``r``
   updates pair ``r`` of every tile's run at once (tiles own disjoint
   docs and a block's doc ids are unique), with the same fused
   multiply-adds (``core.query.fma_f32``), so both agree to the bit.
@@ -30,7 +35,7 @@ import ctypes
 
 import torch
 
-from repro_torch.core.layouts import unpack_words
+from repro_torch.core.layouts import take_rows, unpack_words
 from repro_torch.core.query import final_scores, fma_f32
 
 Tensor = torch.Tensor
@@ -205,15 +210,46 @@ def _candidates_from_acc(acc: Tensor, pair_tile: Tensor, norm: Tensor,
                               pair_tile, n_tiles, k_tile)
 
 
+def _blocked_acc(block_docs, block_tfs, pair_block, pair_tile, pair_qw,
+                 pair_cap, n_tiles: int, tile: int) -> Tensor:
+    """The accumulator of HOR blocks: the routed blocks read in place."""
+    pb = pair_block[:_real_pairs(pair_tile, n_tiles)].long()
+    return _accumulate_pairs(block_docs[pb], block_tfs[pb], pair_tile,
+                             pair_qw, pair_cap, n_tiles, tile)
+
+
+def _packed_acc(packed, block_tfs, pair_block, pair_tile, pair_qw, pair_cap,
+                pair_bits, pair_base, pair_count, block: int, n_tiles: int,
+                tile: int) -> Tensor:
+    """The accumulator of packed blocks: the routed blocks decoded
+    (``core.layouts.unpack_words``), then as HOR."""
+    n_real = _real_pairs(pair_tile, n_tiles)
+    pb = pair_block[:n_real].long()
+    docs = unpack_words(packed[pb], pair_bits[:n_real], pair_base[:n_real],
+                        pair_count[:n_real], block)
+    return _accumulate_pairs(docs, block_tfs[pb], pair_tile, pair_qw,
+                             pair_cap, n_tiles, tile)
+
+
+def _dense_from_acc(acc: Tensor, num_docs: int) -> Tensor:
+    """[n_tiles+1, Q, tile] accumulator -> f32[Q, num_docs]: the pad tile
+    is dropped, and tiles no pair visited hold 0.0 (``_finish``)."""
+    q = acc.shape[1]
+    return acc[:-1].permute(1, 0, 2).reshape(q, -1)[:, :num_docs].contiguous()
+
+
+def _n_tiles(num_docs: int, tile: int) -> int:
+    return max(-(-num_docs // tile), 1)
+
+
 def fused_topk_blocked_plain(block_docs, block_tfs, pair_block, pair_tile,
                              pair_qw, pair_cap, norm, rank, qnorm,
                              num_docs: int, k_tile: int,
                              rank_blend: float = 0.0, tile: int = TILE):
     """Plain PyTorch version of the HOR candidate kernel."""
-    n_tiles = max(-(-num_docs // tile), 1)
-    pb = pair_block[:_real_pairs(pair_tile, n_tiles)].long()
-    acc = _accumulate_pairs(block_docs[pb], block_tfs[pb], pair_tile,
-                            pair_qw, pair_cap, n_tiles, tile)
+    n_tiles = _n_tiles(num_docs, tile)
+    acc = _blocked_acc(block_docs, block_tfs, pair_block, pair_tile,
+                       pair_qw, pair_cap, n_tiles, tile)
     return _candidates_from_acc(acc, pair_tile, norm, rank, qnorm, n_tiles,
                                 tile, k_tile, rank_blend)
 
@@ -223,17 +259,33 @@ def fused_topk_packed_plain(packed, block_tfs, pair_block, pair_tile,
                             pair_count, norm, rank, qnorm, num_docs: int,
                             block: int, k_tile: int,
                             rank_blend: float = 0.0, tile: int = TILE):
-    """Plain PyTorch version of the packed candidate kernel: decode the
-    routed blocks (``core.layouts.unpack_words``), then as HOR."""
-    n_tiles = max(-(-num_docs // tile), 1)
-    n_real = _real_pairs(pair_tile, n_tiles)
-    pb = pair_block[:n_real].long()
-    docs = unpack_words(packed[pb], pair_bits[:n_real], pair_base[:n_real],
-                        pair_count[:n_real], block)
-    acc = _accumulate_pairs(docs, block_tfs[pb], pair_tile, pair_qw,
-                            pair_cap, n_tiles, tile)
+    """Plain PyTorch version of the packed candidate kernel."""
+    n_tiles = _n_tiles(num_docs, tile)
+    acc = _packed_acc(packed, block_tfs, pair_block, pair_tile, pair_qw,
+                      pair_cap, pair_bits, pair_base, pair_count, block,
+                      n_tiles, tile)
     return _candidates_from_acc(acc, pair_tile, norm, rank, qnorm, n_tiles,
                                 tile, k_tile, rank_blend)
+
+
+def fused_score_blocked_plain(block_docs, block_tfs, pair_block, pair_tile,
+                              pair_qw, pair_cap, num_docs: int,
+                              tile: int = TILE):
+    """Plain PyTorch version of the HOR dense kernel."""
+    acc = _blocked_acc(block_docs, block_tfs, pair_block, pair_tile,
+                       pair_qw, pair_cap, _n_tiles(num_docs, tile), tile)
+    return _dense_from_acc(acc, num_docs)
+
+
+def fused_score_packed_plain(packed, block_tfs, pair_block, pair_tile,
+                             pair_qw, pair_cap, pair_bits, pair_base,
+                             pair_count, num_docs: int, block: int,
+                             tile: int = TILE):
+    """Plain PyTorch version of the packed dense kernel."""
+    acc = _packed_acc(packed, block_tfs, pair_block, pair_tile, pair_qw,
+                      pair_cap, pair_bits, pair_base, pair_count, block,
+                      _n_tiles(num_docs, tile), tile)
+    return _dense_from_acc(acc, num_docs)
 
 
 # ---------------------------------------------------------------------------
@@ -246,10 +298,16 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # block pointers, then pair_cap, pair_qw, [packed: bits, base, count,
 # wpb], tile_start, norm, rank, qnorm, out_vals, out_ids, n_tiles,
 # num_docs, q, tile, k_tile, rank_blend, stream
+# csrc/fused_score_{blocked,packed}.cu take the same head, then
+# tile_start, out, n_tiles, num_docs, q, tile, stream
 _TAIL = [_P] * 6 + [_I] * 5 + [_F, _P]
+_DENSE_TAIL = [_P] * 2 + [_I] * 4 + [_P]
 _ARGTYPES = {
     "fused_topk_blocked": [_P] * 3 + [_P, _P] + _TAIL,
     "fused_topk_packed": [_P] * 3 + [_P, _P] + [_P] * 3 + [_I] + _TAIL,
+    "fused_score_blocked": [_P] * 3 + [_P, _P] + _DENSE_TAIL,
+    "fused_score_packed": [_P] * 3 + [_P, _P] + [_P] * 3 + [_I]
+    + _DENSE_TAIL,
 }
 
 
@@ -283,31 +341,65 @@ def _tile_start(pair_tile: Tensor, n_tiles: int) -> Tensor:
     return torch.searchsorted(pair_tile, bounds).to(torch.int32)
 
 
-def _launch(name, blocks, pair_tile, pair_qw, pair_cap, decode, norm, rank,
-            qnorm, num_docs, tile, k_tile, rank_blend):
-    """Allocate the outputs and launch kernel ``name`` on the current
-    stream; ``blocks`` / ``decode`` are its layout-specific tensors and
-    ints.  Raises if the launch is refused."""
+def _run(name, pointers, ints, pair_qw):
+    """Launch kernel ``name`` on the current stream with ``pointers``
+    (tensors or ints) then ``ints``; raises if the launch is refused."""
     from repro_torch.kernels import cuda_build
-    q = pair_qw.shape[1]
-    n_tiles = max(-(-num_docs // tile), 1)
+    fn = getattr(cuda_build.load(name, _ARGTYPES[name]), f"{name}_launch")
+    ptr = [t.data_ptr() if isinstance(t, Tensor) else t for t in pointers]
+    stream = torch.cuda.current_stream(pair_qw.device).cuda_stream
+    err = fn(*ptr, *ints, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
+
+
+def _check_smem(name: str, q: int, tile: int) -> None:
     if q * tile * 4 > 227 * 1024:
         raise ValueError(f"{name}: Q={q} x tile={tile} f32 accumulator "
                          "exceeds a CTA's 227 KB of shared memory")
+
+
+def _launch(name, blocks, pair_tile, pair_qw, pair_cap, decode, norm, rank,
+            qnorm, num_docs, tile, k_tile, rank_blend):
+    """Allocate the candidate outputs and launch kernel ``name``;
+    ``blocks`` / ``decode`` are its layout-specific tensors and ints."""
+    q = pair_qw.shape[1]
+    n_tiles = _n_tiles(num_docs, tile)
+    _check_smem(name, q, tile)
     vals = torch.empty((q, n_tiles * k_tile), dtype=torch.float32,
                        device=pair_qw.device)
     ids = torch.empty((q, n_tiles * k_tile), dtype=torch.int32,
                       device=pair_qw.device)
     tile_start = _tile_start(pair_tile, n_tiles)
-    fn = getattr(cuda_build.load(name, _ARGTYPES[name]), f"{name}_launch")
-    ptr = [t.data_ptr() if isinstance(t, Tensor) else t
-           for t in (*blocks, pair_cap, pair_qw, *decode, tile_start, norm,
-                     rank, qnorm, vals, ids)]
-    stream = torch.cuda.current_stream(pair_qw.device).cuda_stream
-    err = fn(*ptr, n_tiles, num_docs, q, tile, k_tile, rank_blend, stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
+    _run(name, (*blocks, pair_cap, pair_qw, *decode, tile_start, norm, rank,
+                qnorm, vals, ids),
+         (n_tiles, num_docs, q, tile, k_tile, rank_blend), pair_qw)
     return vals, ids
+
+
+def _launch_dense(name, blocks, pair_tile, pair_qw, pair_cap, decode,
+                  num_docs, tile):
+    """Allocate f32[Q, num_docs] and launch dense kernel ``name``: every
+    element is written (zeros in unvisited tiles)."""
+    q = pair_qw.shape[1]
+    n_tiles = _n_tiles(num_docs, tile)
+    _check_smem(name, q, tile)
+    out = torch.empty((q, num_docs), dtype=torch.float32,
+                      device=pair_qw.device)
+    tile_start = _tile_start(pair_tile, n_tiles)
+    _run(name, (*blocks, pair_cap, pair_qw, *decode, tile_start, out),
+         (n_tiles, num_docs, q, tile), pair_qw)
+    return out
+
+
+def _pair_checks(pair_block, pair_tile, pair_qw, pair_cap):
+    """Shape/dtype specs of the arrays every launcher takes."""
+    i32, f32 = torch.int32, torch.float32
+    np_, q = pair_qw.shape
+    return dict(pair_block=(pair_block, i32, (np_,)),
+                pair_tile=(pair_tile, i32, (np_,)),
+                pair_qw=(pair_qw, f32, (np_, q)),
+                pair_cap=(pair_cap, i32, (np_,)))
 
 
 def _launch_blocked_cuda(block_docs, block_tfs, pair_block, pair_tile,
@@ -315,13 +407,10 @@ def _launch_blocked_cuda(block_docs, block_tfs, pair_block, pair_tile,
                          k_tile, rank_blend, tile):
     name = "fused_topk_blocked"
     i32, f32 = torch.int32, torch.float32
-    nb, (np_, q) = block_docs.shape[0], pair_qw.shape
+    nb, q = block_docs.shape[0], pair_qw.shape[1]
     _check_cuda(name, block_docs=(block_docs, i32, (nb, BLOCK)),
                 block_tfs=(block_tfs, f32, (nb, BLOCK)),
-                pair_block=(pair_block, i32, (np_,)),
-                pair_tile=(pair_tile, i32, (np_,)),
-                pair_qw=(pair_qw, f32, (np_, q)),
-                pair_cap=(pair_cap, i32, (np_,)),
+                **_pair_checks(pair_block, pair_tile, pair_qw, pair_cap),
                 norm=(norm, f32, (num_docs,)), rank=(rank, f32, (num_docs,)),
                 qnorm=(qnorm, f32, (q,)))
     return _launch(name, (block_docs, block_tfs, pair_block), pair_tile,
@@ -337,10 +426,7 @@ def _launch_packed_cuda(packed, block_tfs, pair_block, pair_tile, pair_qw,
     (nb, wpb), (np_, q) = packed.shape, pair_qw.shape
     _check_cuda(name, packed=(packed, i32, (nb, max(wpb, 1))),
                 block_tfs=(block_tfs, torch.float16, (nb, BLOCK)),
-                pair_block=(pair_block, i32, (np_,)),
-                pair_tile=(pair_tile, i32, (np_,)),
-                pair_qw=(pair_qw, f32, (np_, q)),
-                pair_cap=(pair_cap, i32, (np_,)),
+                **_pair_checks(pair_block, pair_tile, pair_qw, pair_cap),
                 pair_bits=(pair_bits, i32, (np_,)),
                 pair_base=(pair_base, i32, (np_,)),
                 pair_count=(pair_count, i32, (np_,)),
@@ -352,8 +438,38 @@ def _launch_packed_cuda(packed, block_tfs, pair_block, pair_tile, pair_qw,
                    norm, rank, qnorm, num_docs, tile, k_tile, rank_blend)
 
 
+def _launch_score_blocked_cuda(block_docs, block_tfs, pair_block, pair_tile,
+                               pair_qw, pair_cap, num_docs, tile):
+    name = "fused_score_blocked"
+    nb = block_docs.shape[0]
+    _check_cuda(name, block_docs=(block_docs, torch.int32, (nb, BLOCK)),
+                block_tfs=(block_tfs, torch.float32, (nb, BLOCK)),
+                **_pair_checks(pair_block, pair_tile, pair_qw, pair_cap))
+    return _launch_dense(name, (block_docs, block_tfs, pair_block),
+                         pair_tile, pair_qw, pair_cap, (), num_docs, tile)
+
+
+def _launch_score_packed_cuda(packed, block_tfs, pair_block, pair_tile,
+                              pair_qw, pair_cap, pair_bits, pair_base,
+                              pair_count, num_docs, tile):
+    name = "fused_score_packed"
+    i32 = torch.int32
+    nb, wpb = packed.shape
+    np_ = pair_qw.shape[0]
+    _check_cuda(name, packed=(packed, i32, (nb, max(wpb, 1))),
+                block_tfs=(block_tfs, torch.float16, (nb, BLOCK)),
+                **_pair_checks(pair_block, pair_tile, pair_qw, pair_cap),
+                pair_bits=(pair_bits, i32, (np_,)),
+                pair_base=(pair_base, i32, (np_,)),
+                pair_count=(pair_count, i32, (np_,)))
+    return _launch_dense(name, (packed, block_tfs, pair_block), pair_tile,
+                         pair_qw, pair_cap,
+                         (pair_bits, pair_base, pair_count, wpb), num_docs,
+                         tile)
+
+
 # ---------------------------------------------------------------------------
-# the candidate-kernel wrappers
+# the kernel wrappers
 # ---------------------------------------------------------------------------
 
 
@@ -412,8 +528,51 @@ def fused_topk_packed(packed, block_tfs, pair_block, pair_tile, pair_qw,
     return out
 
 
+def fused_score_blocked(block_docs, block_tfs, pair_block, pair_tile,
+                        pair_qw, pair_cap, num_docs: int, tile: int = TILE):
+    """HOR dense path (replaces ``fused_score_blocked_pallas``):
+    block_docs i32[NB, 128], block_tfs f32[NB, 128] read in place;
+    pair_* [NP] tile-sorted routing, pair_qw f32[NP, Q] weight rows,
+    pair_cap i32[NP] valid lanes per pair.  Returns f32[Q, num_docs]
+    accumulated scores, 0.0 in tiles no pair visits.  CUDA tensors
+    launch the kernel; CPU tensors take the plain version."""
+    if not block_docs.is_cuda:
+        return fused_score_blocked_plain(block_docs, block_tfs, pair_block,
+                                         pair_tile, pair_qw, pair_cap,
+                                         num_docs, tile)
+    out = _launch_score_blocked_cuda(block_docs, block_tfs, pair_block,
+                                     pair_tile, pair_qw, pair_cap, num_docs,
+                                     tile)
+    fused_score_blocked.launches += 1
+    return out
+
+
+def fused_score_packed(packed, block_tfs, pair_block, pair_tile, pair_qw,
+                       pair_cap, pair_bits, pair_base, pair_count,
+                       num_docs: int, block: int, tile: int = TILE):
+    """Packed dense path (replaces ``fused_score_packed_pallas``): packed
+    i32[NB, Wpb] (u32 bit-views) + f16 tfs decoded per routed pair from
+    the per-pair (bits, base, count).  Otherwise as
+    ``fused_score_blocked``."""
+    if not packed.is_cuda:
+        return fused_score_packed_plain(packed, block_tfs, pair_block,
+                                        pair_tile, pair_qw, pair_cap,
+                                        pair_bits, pair_base, pair_count,
+                                        num_docs, block, tile)
+    if block != BLOCK:
+        raise ValueError(f"fused_score_packed: block={block}, the CUDA "
+                         f"kernel decodes {BLOCK}-lane blocks")
+    out = _launch_score_packed_cuda(packed, block_tfs, pair_block, pair_tile,
+                                    pair_qw, pair_cap, pair_bits, pair_base,
+                                    pair_count, num_docs, tile)
+    fused_score_packed.launches += 1
+    return out
+
+
 fused_topk_blocked.launches = 0
 fused_topk_packed.launches = 0
+fused_score_blocked.launches = 0
+fused_score_packed.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -474,8 +633,9 @@ def build_batched_pairs(cand_block: Tensor, cand_valid: Tensor,
     uvalid = torch.arange(s, dtype=i32, device=dev) < total_u
 
     # expand unique blocks to their (build-time cached) tile spans
-    t0 = tile_first[ublock.long()]
-    cnt = torch.where(uvalid, tile_count[ublock.long()], 0).to(i32)
+    t0 = take_rows(tile_first, ublock.long())
+    cnt = torch.where(uvalid, take_rows(tile_count, ublock.long()),
+                      0).to(i32)
     offs = torch.cat([torch.zeros(1, dtype=i32, device=dev),
                       torch.cumsum(cnt, 0, dtype=i32)])
     total = offs[-1]

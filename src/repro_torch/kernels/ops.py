@@ -1,14 +1,25 @@
-"""Engine layer of the fused query path: the port of the candidate
-engine in ``repro.kernels.ops``.
+"""Engine layer of the fused query path: the port of the fused
+engines and the per-segment engines of ``repro.kernels.ops``.
 
 ``fused_batched_topk`` routes a whole query batch through ONE candidate
 kernel launch (``fused_decode_score.fused_topk_{blocked,packed}``): the
 batch's posting blocks are deduplicated into tile-sorted routing pairs,
 each read once, scored against a ``[Q, tile]`` accumulator and reduced
 to per-tile candidates, so only O(B * n_tiles * k_tile) candidates
-reach device memory.  The index's device decides the implementation:
-a CUDA index launches the CUDA kernels, a CPU index runs their plain
-versions.
+reach device memory.  ``fused_batched_scores`` is the dense engine
+(``fused_score_{blocked,packed}``): the same routing, f32 [B, num_docs]
+scores out.  The index's device decides the implementation: a CUDA
+index launches the CUDA kernels, a CPU index runs their plain versions.
+
+The per-segment engines of the live index (``fused_segment_topk``,
+``fused_segment_dense_topk``, ``fused_segment_banded_topk`` and the
+gather oracles ``torch_segment_topk`` / ``torch_segment_conjunctive``)
+return per-tile candidate lists of FINAL scores with GLOBAL doc ids
+(segment-local ids shifted by ``doc_base``), merged on the host by
+``distributed.topk.merge_topk_candidates_host``.  They score with the
+GLOBAL idf weights the live index computes, so a multi-segment ranking
+matches a rebuild.  They are plain functions: eager PyTorch compiles
+nothing, so the reference's jit-cache keying has no counterpart.
 """
 from __future__ import annotations
 
@@ -16,10 +27,15 @@ import warnings
 
 import torch
 
-from repro_torch.core.layouts import BlockedIndex, PackedCsrIndex
+from repro_torch.core.layouts import (BandedCsrIndex, BlockedIndex,
+                                      PackedCsrIndex, take_rows)
+from repro_torch.core.query import (accumulate_counts, accumulate_scores,
+                                    final_scores, query_norm)
 from repro_torch.kernels.fused_decode_score import (
-    Q_PAD, TILE, build_batched_pairs, default_k_tile, fused_topk_blocked,
-    fused_topk_blocked_plain, fused_topk_packed, fused_topk_packed_plain)
+    Q_PAD, TILE, build_batched_pairs, default_k_tile, extract_tile_candidates,
+    fused_score_blocked, fused_score_blocked_plain, fused_score_packed,
+    fused_score_packed_plain, fused_topk_blocked, fused_topk_blocked_plain,
+    fused_topk_packed, fused_topk_packed_plain)
 
 Tensor = torch.Tensor
 
@@ -35,6 +51,15 @@ def warn_on_overflow(overflow: int, label: str) -> None:
         warnings.warn(f"{label}: routing overflow dropped {overflow} "
                       "(block, tile) pairs — raise max_pairs",
                       RuntimeWarning, stacklevel=2)
+
+
+def record_truncated(truncated: int) -> None:
+    """Count conjunctive cap-truncation into the process-global
+    ``engine_truncated_terms`` counter (callers also return it as a
+    stat)."""
+    if truncated > 0:
+        from repro_torch.obs.registry import GLOBAL
+        GLOBAL.counter("engine_truncated_terms").inc(int(truncated))
 
 
 def routing_spans(index: BlockedIndex | PackedCsrIndex, tile: int):
@@ -66,14 +91,29 @@ def default_max_pairs(index: BlockedIndex | PackedCsrIndex, num_queries: int,
     m = max(-(-min(cap, max(index.max_posting_len, 1)) // index.block), 1)
     cands = num_queries * num_terms * m
     span = index.route_span_max
-    pairs_max = index.route_pairs_max
     if tile != index.route_tile:
-        scale = max(-(-index.route_tile // tile), 1)
-        nb = (index.packed.shape[0] if isinstance(index, PackedCsrIndex)
-              else index.block_docs.shape[0])
-        span = span * scale + 1
-        pairs_max = pairs_max * scale + nb
-    return max(min(pairs_max, cands * max(span, 1)), 8)
+        span = span * _tile_scale(index, tile) + 1
+    return max(min(scaled_pairs_budget(index, tile), cands * max(span, 1)),
+               8)
+
+
+def _tile_scale(index: BlockedIndex | PackedCsrIndex, tile: int) -> int:
+    """Tiles of width ``tile`` one route tile's span may split into."""
+    return max(-(-index.route_tile // tile), 1)
+
+
+def scaled_pairs_budget(index: BlockedIndex | PackedCsrIndex,
+                        tile: int = TILE) -> int:
+    """Whole-index routing-pair bound at an arbitrary tile width:
+    ``route_pairs_max`` at the route tile; narrower tiles split each
+    block's span into at most ``ceil(route_tile/tile)`` tiles, and the
+    +NB term covers straddles either way."""
+    if tile == index.route_tile:
+        return int(index.route_pairs_max)
+    nb = (index.packed.shape[0] if isinstance(index, PackedCsrIndex)
+          else index.block_docs.shape[0])
+    return max(int(index.route_pairs_max) * _tile_scale(index, tile)
+               + int(nb), 8)
 
 
 def round_up_pairs(max_pairs: int, pairs_per_step: int) -> int:
@@ -91,6 +131,16 @@ def widen_pairs_for_step(max_pairs: int, num_docs: int, tile: int,
         n_tiles = max(-(-int(num_docs) // max(int(tile), 1)), 1)
         max_pairs = int(max_pairs) + n_tiles * (pps - 1)
     return round_up_pairs(max_pairs, pps)
+
+
+def padded_pairs_budget(index: BlockedIndex | PackedCsrIndex,
+                        tile: int = TILE, pairs_per_step: int = 1) -> int:
+    """``scaled_pairs_budget`` widened for run-aligned padding and
+    rounded to the unroll quantum: the budget the per-segment query
+    paths use."""
+    return widen_pairs_for_step(
+        scaled_pairs_budget(index, tile), index.docs.num_docs, tile,
+        pairs_per_step)
 
 
 def expand_block_candidates(block_offsets: Tensor, term_ids: Tensor,
@@ -123,6 +173,72 @@ def expand_block_candidates(block_offsets: Tensor, term_ids: Tensor,
     return cand_block, cand_valid, cand_q, cand_w, cand_cap
 
 
+def _fanout(index: BlockedIndex | PackedCsrIndex, cap: int) -> int:
+    """Posting blocks one term may contribute under ``cap``."""
+    m = max(-(-min(cap, max(index.max_posting_len, 1)) // index.block), 1)
+    if isinstance(index, BlockedIndex):
+        m = min(m, max(index.max_blocks_per_term, 1))
+    return m
+
+
+def _decode_scalars(index: PackedCsrIndex, pb: Tensor):
+    """Per-pair (bits, base, count) of the routed packed blocks."""
+    pbl = pb.long()
+    return tuple(take_rows(t, pbl) for t in (index.block_bits,
+                                             index.block_base,
+                                             index.block_count))
+
+
+def _pad_queries(pqw: Tensor, b: int, q_pad: int) -> Tensor:
+    """Pad the weight rows' query axis to the accumulator quantum."""
+    bp = -(-b // max(q_pad, 1)) * max(q_pad, 1)
+    return torch.nn.functional.pad(pqw, (0, bp - b)) if bp != b else pqw
+
+
+def fused_score_args(index: BlockedIndex | PackedCsrIndex, term_ids: Tensor,
+                     idf_w: Tensor, cap: int, max_pairs: int | None = None,
+                     tile: int = TILE, q_pad: int = Q_PAD):
+    """One batch's routing pairs as the arguments of the layout's dense
+    kernel: returns (kernel, plain, args, kwargs, overflow) so that
+    ``kernel(*args, **kwargs)`` (or ``plain(...)``) computes the
+    f32 [Q, num_docs] scores; arguments as ``fused_topk_args``."""
+    b, t = term_ids.shape
+    num_docs = index.docs.num_docs
+    if max_pairs is None:
+        max_pairs = default_max_pairs(index, b, t, cap, tile)
+    cand_block, cand_valid, cand_q, cand_w, cand_cap = \
+        expand_block_candidates(index.block_offsets, term_ids, idf_w,
+                                _fanout(index, cap), index.block, cap)
+    tfirst, tcount, n_tiles = routing_spans(index, tile)
+    pb, pt, pqw, pcap, overflow = build_batched_pairs(
+        cand_block, cand_valid, cand_q, cand_w.float(), tfirst, tcount,
+        n_tiles, b, max_pairs, cand_cap=cand_cap)
+    pqw = _pad_queries(pqw, b, q_pad)
+    kwargs = {"tile": tile}
+    if isinstance(index, PackedCsrIndex):
+        args = (index.packed, index.block_tfs, pb, pt, pqw, pcap,
+                *_decode_scalars(index, pb), num_docs, index.block)
+        return (fused_score_packed, fused_score_packed_plain, args, kwargs,
+                overflow)
+    args = (index.block_docs, index.block_tfs, pb, pt, pqw, pcap, num_docs)
+    return fused_score_blocked, fused_score_blocked_plain, args, kwargs, \
+        overflow
+
+
+def fused_batched_scores(index: BlockedIndex | PackedCsrIndex,
+                         term_ids: Tensor, idf_w: Tensor, cap: int,
+                         max_pairs: int | None = None, tile: int = TILE,
+                         q_pad: int = Q_PAD):
+    """Dense scores f32[B, num_docs] for a batch of queries in one dense
+    kernel launch, plus the routing-overflow count (a 0-d tensor).
+    term_ids i32[B, T] (-1 absent), idf_w f32[B, T]; ``cap`` bounds the
+    postings read per term at posting granularity."""
+    kernel, _, args, kwargs, overflow = fused_score_args(
+        index, term_ids, idf_w, cap, max_pairs=max_pairs, tile=tile,
+        q_pad=q_pad)
+    return kernel(*args, **kwargs)[:term_ids.shape[0]], overflow
+
+
 def fused_topk_args(index: BlockedIndex | PackedCsrIndex, term_ids: Tensor,
                     idf_w: Tensor, cap: int, k: int, rank_blend: float = 0.0,
                     max_pairs: int | None = None, tile: int = TILE,
@@ -144,12 +260,10 @@ def fused_topk_args(index: BlockedIndex | PackedCsrIndex, term_ids: Tensor,
     k_tile = min(k_tile, tile)
     # per-query norm of the idf weight vector (duplicate slots carry 0
     # after dedup) — the same reduction the oracle's scoring tail does
-    qnorm = torch.sqrt(torch.clamp_min((idf_w * idf_w).sum(dim=1), 1e-12))
+    qnorm = query_norm(idf_w)
 
     block = index.block
-    m = max(-(-min(cap, max(index.max_posting_len, 1)) // block), 1)
-    if isinstance(index, BlockedIndex):
-        m = min(m, max(index.max_blocks_per_term, 1))
+    m = _fanout(index, cap)
     if max_pairs is None:
         max_pairs = widen_pairs_for_step(
             default_max_pairs(index, b, t, cap, tile), num_docs, tile,
@@ -167,18 +281,14 @@ def fused_topk_args(index: BlockedIndex | PackedCsrIndex, term_ids: Tensor,
 
     # pad the query batch to the accumulator quantum (padding queries
     # get qnorm 1.0 — their zero accumulator masks them to -inf anyway)
-    bp = -(-b // max(q_pad, 1)) * max(q_pad, 1)
-    if bp != b:
-        pqw = torch.nn.functional.pad(pqw, (0, bp - b))
-        qnorm = torch.nn.functional.pad(qnorm, (0, bp - b), value=1.0)
+    pqw = _pad_queries(pqw, b, q_pad)
+    qnorm = torch.nn.functional.pad(qnorm, (0, pqw.shape[1] - b), value=1.0)
 
     kwargs = {"rank_blend": rank_blend, "tile": tile}
     docs = index.docs
     if isinstance(index, PackedCsrIndex):
-        pbl = pb.long()
         args = (index.packed, index.block_tfs, pb, pt, pqw, pcap,
-                index.block_bits[pbl], index.block_base[pbl],
-                index.block_count[pbl], docs.norm, docs.rank, qnorm,
+                *_decode_scalars(index, pb), docs.norm, docs.rank, qnorm,
                 num_docs, block, k_tile)
         return (fused_topk_packed, fused_topk_packed_plain, args, kwargs,
                 overflow)
@@ -208,3 +318,129 @@ def fused_batched_topk(index: BlockedIndex | PackedCsrIndex,
     vals, ids = kernel(*args, **kwargs, reducer=reducer)
     b = term_ids.shape[0]
     return vals[:b], ids[:b], overflow
+
+
+# ---------------------------------------------------------------------------
+# per-segment engines of the segmented live index (core/live_index.py)
+# ---------------------------------------------------------------------------
+
+
+def _segment_terms(index, query_hashes: Tensor) -> Tensor:
+    """Dedup'd query hashes -> this segment's term ids (-1 absent)."""
+    return torch.where(query_hashes != 0, index.lookup_terms(query_hashes),
+                       -1)
+
+
+def _global_ids(ids: Tensor, doc_base: int) -> Tensor:
+    return torch.where(ids >= 0, ids + int(doc_base), -1)
+
+
+def _tile_candidates(index, scores: Tensor, idf_w: Tensor, doc_base: int,
+                     k_tile: int, rank_blend: float, tile: int):
+    """Scoring tail + per-tile candidates of dense accumulated scores."""
+    final = final_scores(scores, index.docs.norm, index.docs.rank,
+                         query_norm(idf_w), rank_blend)
+    vals, ids = extract_tile_candidates(final, tile, k_tile)
+    return vals, _global_ids(ids, doc_base)
+
+
+def fused_segment_topk(index: BlockedIndex | PackedCsrIndex,
+                       query_hashes: Tensor, idf_w: Tensor, doc_base: int, *,
+                       k_tile: int, cap: int, max_pairs: int,
+                       rank_blend: float = 0.0, tile: int = TILE,
+                       q_pad: int = Q_PAD, reducer: str = "successive",
+                       pairs_per_step: int = 1):
+    """Candidate engine over one HOR or packed segment: the candidate
+    kernel with in-kernel per-tile top-k (tombstones ride in as norm 0).
+    query_hashes i32[B, T] dedup'd hash bit-views, idf_w f32[B, T]
+    global weights.  Returns (vals, global ids, overflow)."""
+    vals, ids, overflow = fused_batched_topk(
+        index, _segment_terms(index, query_hashes), idf_w, cap, k=k_tile,
+        rank_blend=rank_blend, max_pairs=max_pairs, tile=tile,
+        k_tile=k_tile, q_pad=q_pad, reducer=reducer,
+        pairs_per_step=pairs_per_step)
+    return vals, _global_ids(ids, doc_base), overflow
+
+
+def fused_segment_dense_topk(index: BlockedIndex | PackedCsrIndex,
+                             query_hashes: Tensor, idf_w: Tensor,
+                             doc_base: int, *, k_tile: int, cap: int,
+                             max_pairs: int, rank_blend: float = 0.0,
+                             tile: int = TILE, q_pad: int = Q_PAD):
+    """Dense engine over one segment: the dense kernel's score rows,
+    then the scoring tail and the per-tile candidate reduction."""
+    scores, overflow = fused_batched_scores(
+        index, _segment_terms(index, query_hashes), idf_w, cap,
+        max_pairs=max_pairs, tile=tile, q_pad=q_pad)
+    vals, gids = _tile_candidates(index, scores, idf_w, doc_base, k_tile,
+                                  rank_blend, tile)
+    return vals, gids, overflow
+
+
+def banded_pairs_budgets(index: BandedCsrIndex, tile: int = TILE,
+                         pairs_per_step: int = 1) -> tuple[int, int]:
+    """Per-band pair budgets of a banded segment (each band is its own
+    launch with its own pair buffer), floored at 8 for an empty band."""
+    return (max(padded_pairs_budget(index.packed, tile, pairs_per_step), 8),
+            max(padded_pairs_budget(index.hor, tile, pairs_per_step), 8))
+
+
+def fused_segment_banded_topk(index: BandedCsrIndex, query_hashes: Tensor,
+                              idf_w: Tensor, doc_base: int, *, k_tile: int,
+                              cap_packed: int, cap_hor: int,
+                              max_pairs_packed: int, max_pairs_hor: int,
+                              rank_blend: float = 0.0, tile: int = TILE,
+                              q_pad: int = Q_PAD):
+    """Engine over one banded segment: one dense launch per band (packed
+    band, then HOR tail), the partials summed as ``acc_p + acc_h`` — the
+    reference's order, so the sum is bit-equal to it — then the scoring
+    tail and the per-tile candidates.  A term lives in one band, so a
+    doc whose terms all sit in one band gets an exact 0.0 from the
+    other."""
+    tids = _segment_terms(index.packed, query_hashes)
+    acc_p, ov_p = fused_batched_scores(
+        index.packed, tids, idf_w, cap_packed, max_pairs=max_pairs_packed,
+        tile=tile, q_pad=q_pad)
+    acc_h, ov_h = fused_batched_scores(
+        index.hor, tids, idf_w, cap_hor, max_pairs=max_pairs_hor,
+        tile=tile, q_pad=q_pad)
+    vals, gids = _tile_candidates(index, acc_p + acc_h, idf_w, doc_base,
+                                  k_tile, rank_blend, tile)
+    return vals, gids, ov_p + ov_h
+
+
+def torch_segment_topk(index, query_hashes: Tensor, idf_w: Tensor,
+                       doc_base: int, *, k_tile: int, cap: int,
+                       rank_blend: float = 0.0, tile: int = TILE):
+    """Gather oracle over one segment (``jnp_segment_topk``'s
+    counterpart): gather + slot-major scatter-add, reduced to the same
+    per-tile candidate lists as the fused engines."""
+    tids = _segment_terms(index, query_hashes)
+    d, tf, valid = index.gather_postings(tids, cap)
+    scores = accumulate_scores(d, tf * idf_w[..., None], valid,
+                               index.docs.num_docs)
+    vals, gids = _tile_candidates(index, scores, idf_w, doc_base, k_tile,
+                                  rank_blend, tile)
+    return vals, gids, 0
+
+
+def torch_segment_conjunctive(index, query_hashes: Tensor, idf_w: Tensor,
+                              needed: int, doc_base: int, *, k_tile: int,
+                              cap: int, tile: int = TILE):
+    """AND-semantics counts + scores over one segment for ONE query
+    (query_hashes i32[T]; ``jnp_segment_conjunctive``'s counterpart).
+    Returns (vals, global ids, truncated_terms): the terms whose LOCAL
+    posting list exceeds ``cap``, which the live index sums over its
+    segments."""
+    num_docs = index.docs.num_docs
+    tids = _segment_terms(index, query_hashes)
+    df_local = index.term_df(tids)
+    d, tf, valid = index.gather_postings(tids, cap)
+    scores = accumulate_scores(d, tf * idf_w[:, None], valid, num_docs)
+    counts = accumulate_counts(d, valid, num_docs)
+    truncated = int(((df_local > cap) & (tids >= 0)).sum())
+    norm = index.docs.norm
+    final = torch.where((counts >= needed) & (norm > 0),
+                        scores / norm.clamp_min(1e-12), float("-inf"))
+    vals, ids = extract_tile_candidates(final[None], tile, k_tile)
+    return vals[0], _global_ids(ids[0], doc_base), truncated

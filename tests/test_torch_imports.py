@@ -52,8 +52,23 @@ def test_cuda_launchers_refuse_cpu_tensors():
                                                   dtype=torch.float16),
             *pairs, torch.ones(8, **i32), torch.zeros(8, **i32),
             torch.zeros(8, **i32), *meta, 600, 16, 0.0, 512)
-    assert fds.fused_topk_blocked.launches == 0
-    assert fds.fused_topk_packed.launches == 0
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        fds._launch_score_blocked_cuda(
+            torch.zeros(4, 128, **i32), torch.zeros(4, 128, **f32), *pairs,
+            600, 512)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        fds._launch_score_packed_cuda(
+            torch.zeros(4, 8, **i32), torch.zeros(4, 128,
+                                                  dtype=torch.float16),
+            *pairs, torch.ones(8, **i32), torch.zeros(8, **i32),
+            torch.zeros(8, **i32), 600, 512)
+    # the wrappers send CPU tensors to the plain versions
+    out = fds.fused_score_blocked(torch.zeros(4, 128, **i32),
+                                  torch.zeros(4, 128, **f32), *pairs, 600)
+    assert out.shape == (8, 600) and not out.any()
+    for name in ("fused_topk_blocked", "fused_topk_packed",
+                 "fused_score_blocked", "fused_score_packed"):
+        assert getattr(fds, name).launches == 0
 
 
 @pytest.mark.parametrize("bad", ["pair_cap", "norm", "qnorm", "block_tfs",
@@ -62,7 +77,7 @@ def test_cuda_launchers_check_shapes(bad):
     """Every extent the kernels trust is checked before any pointer is
     taken: a short pair array, a doc table that is not num_docs long, a
     qnorm that is not Q long, tfs that do not match the blocks, packed
-    blocks with no words."""
+    blocks with no words — in the candidate and the dense launchers."""
     from repro_torch.kernels import fused_decode_score as fds
     i32 = dict(dtype=torch.int32)
     f32 = dict(dtype=torch.float32)
@@ -83,8 +98,21 @@ def test_cuda_launchers_check_shapes(bad):
             torch.zeros(tf_rows, 128, dtype=torch.float16), *pairs,
             torch.ones(8, **i32), torch.zeros(8, **i32),
             torch.zeros(8, **i32), *meta, 600, 16, 0.0, 512)
+    dense = bad not in ("norm", "qnorm")   # the dense kernels take no meta
+    if dense:
+        with pytest.raises(ValueError, match="has shape"):
+            fds._launch_score_packed_cuda(
+                torch.zeros(4, words, **i32),
+                torch.zeros(tf_rows, 128, dtype=torch.float16), *pairs,
+                torch.ones(8, **i32), torch.zeros(8, **i32),
+                torch.zeros(8, **i32), 600, 512)
     if bad != "empty_words":
         with pytest.raises(ValueError, match="has shape"):
             fds._launch_blocked_cuda(
                 torch.zeros(4, 128, **i32), torch.zeros(tf_rows, 128, **f32),
                 *pairs, *meta, 600, 16, 0.0, 512)
+    if dense and bad != "empty_words":
+        with pytest.raises(ValueError, match="has shape"):
+            fds._launch_score_blocked_cuda(
+                torch.zeros(4, 128, **i32), torch.zeros(tf_rows, 128, **f32),
+                *pairs, 600, 512)

@@ -245,3 +245,19 @@ def test_fma_f32_single_rounding():
     assert float(hard[0]) == 2.0**30 + 2.0**7
     assert np.float32(np.float64(ha) * np.float64(hb) + np.float64(hc)) \
         == np.float32(2.0**30)                    # the double-rounding trap
+
+
+@pytest.mark.parametrize("slots", [1, 3, 4])
+def test_query_norm_matches_xla(slots):
+    """``query_norm`` is the reference's qnorm, bit for bit, for queries of
+    up to 4 slots: XLA on the CPU chains the slot sum through FMAs in
+    slot order and rounds the square root correctly; torch's own ``sum``
+    and ``sqrt`` do neither."""
+    from repro_torch.core.query import query_norm
+    rng = np.random.default_rng(slots)
+    w = (rng.random((50000, slots)) * 6).astype(np.float32)
+    w[::7, 0] = 0.0                               # absent slots
+    want = np.asarray(jax.jit(lambda a: jnp.sqrt(jnp.maximum(
+        jnp.sum(a * a, axis=1), 1e-12)))(w))
+    got = query_norm(_t(w)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))

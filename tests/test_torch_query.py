@@ -75,17 +75,23 @@ def _absent_hash(host):
 
 
 def _assert_slice_parity(kind, ix, qh, k, cap, rank_blend=0.0):
-    """Four engines, one answer.  Returns the port's fused result."""
+    """Five engines, one answer: the reference's fused engine and oracle,
+    and the port's fused engine in both modes and its oracle.  Returns
+    the port's fused (candidates) result."""
     kw = dict(k=k, cap=cap, rank_blend=rank_blend)
     want = rquery.make_scorer(ix, engine="pallas", **kw)(jnp.asarray(qh))
     oracle = rquery.make_scorer(ix, **kw)(jnp.asarray(qh))
     tix = _port_index(kind, ix)
     got = tquery.make_scorer(tix, engine="fused", **kw)(qh)
+    got_dense = tquery.make_scorer(tix, engine="fused", mode="dense",
+                                   **kw)(qh)
     got_oracle = tquery.make_scorer(tix, engine="torch", **kw)(qh)
     ids = np.asarray(want.doc_ids)
     np.testing.assert_array_equal(np.asarray(oracle.doc_ids), ids)
-    np.testing.assert_array_equal(got.doc_ids.numpy(), ids)
-    np.testing.assert_array_equal(got_oracle.doc_ids.numpy(), ids)
+    for g in (got, got_dense, got_oracle):
+        np.testing.assert_array_equal(g.doc_ids.numpy(), ids)
+    # the dense and candidate engines share the accumulator and the tail
+    assert torch.equal(got_dense.scores, got.scores)
     for g in (got, got_oracle):
         np.testing.assert_allclose(g.scores.numpy(), np.asarray(want.scores),
                                    rtol=1e-5, atol=1e-7)
@@ -209,13 +215,22 @@ def test_overflow_is_surfaced(layout):
 
 
 def test_make_scorer_rejects_unknown_engine_and_modes():
+    """Both of the reference's modes are accepted and rank alike; an
+    unknown engine or mode is a ValueError, as in the reference."""
     host = tbuild.bulk_build(tcorpus.generate(tcorpus.CorpusSpec(
         num_docs=60, vocab=80, avg_distinct=5)))
     ix = tlayouts.build_blocked(host, device="cpu")
+    qh = tcorpus.sample_query_terms(host.df, host.term_hashes, 3, 2,
+                                    num_docs=host.num_docs, seed=1)
+    got = [tquery.make_scorer(ix, k=5, cap=8, engine="fused", mode=m)(qh)
+           for m in ("candidates", "dense")]
+    assert torch.equal(got[0].doc_ids, got[1].doc_ids)
     with pytest.raises(ValueError):
         tquery.make_scorer(ix, k=5, cap=8, engine="pallas")
-    with pytest.raises(TypeError, match="mode"):
-        tquery.make_scorer(ix, k=5, cap=8, engine="fused", mode="dense")
+    with pytest.raises(ValueError, match="mode"):
+        tquery.make_scorer(ix, k=5, cap=8, engine="fused", mode="sparse")
+    with pytest.raises(ValueError, match="mode"):
+        rquery.make_scorer(ix, k=5, cap=8, engine="pallas", mode="sparse")
     with pytest.raises(TypeError, match="BlockedIndex or PackedCsrIndex"):
         tquery.make_scorer(ix.docs, k=5, cap=8, engine="fused")
 
