@@ -38,8 +38,32 @@
    that all four kernels launched, that there was no routing overflow,
    and that ids and scores hold to the gather oracle
    (``engine="torch"``).
-7. Prints per-phase wall times, a ``{"kernels": [...]}`` line with all
-   four kernels (means per launch over every counted call site of both
+7. The paper phase, on the same corpus: the paper's four
+   representations as Table 7 compares them, PR (``CooIndex``) and OR
+   (``CsrIndex``) each with a B+tree (``SortedLookup``) and a hash
+   (``HashLookup``) lookup, COR (``CompactCsrIndex``), HOR and packed,
+   plus the direct index.  Table 7's protocol: 8 queries of each of 1-4
+   terms (``sample_query_terms``, seed = the term count), k = 10, cap =
+   max_posting_len.  With every launch counter reset just before and
+   read just after, it runs ``blocked_query_scores`` on the HOR index
+   for each of the 32 queries (``posting_score``) and ``unpack_postings``
+   over every block of the packed index (``unpack_blocks``).  Checks:
+   the seven oracles (``make_scorer(engine="torch")``) give identical
+   ids and bit-equal scores; both lookups give the same term ids for
+   the queries and for 64 absent hashes; every ``posting_score`` launch
+   equals its plain version and the oracle's raw accumulation to the
+   bit, with no routing overflow; the decode equals its plain version
+   and, term by term, the host's doc ids; ``conjunctive_filter`` gives
+   identical ids on all seven and every returned doc holds every query
+   term (``BlockedIndex.contains``); ``expand_query`` on each query's
+   top 10 equals ``expand_query_scan`` over PR and over OR;
+   ``relevance_feedback`` runs; after ``delete_docs`` of each query's
+   top doc, no representation returns it.  Prints Tables 5-7 (bytes
+   beside the size model, lookup bytes, ms per query) and times both
+   kernels, their plain versions and, for the posting scorer, the one
+   PyTorch call that computes its sum (``index_add_``).
+8. Prints per-phase wall times, a ``{"kernels": [...]}`` line with all
+   six kernels (means per launch over every counted call site of the
    paths) and, last, ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -76,13 +100,26 @@ DENSE_KERNELS = {
     "fused_score_packed": ("packed",
                            "src/repro/kernels/fused_decode_score.py:342"),
 }
-ALL_KERNELS = (*KERNELS, *DENSE_KERNELS)
+FUSED_KERNELS = (*KERNELS, *DENSE_KERNELS)
+PAPER_KERNELS = {
+    "posting_score": "src/repro/kernels/posting_score.py:87",
+    "unpack_blocks": "src/repro/kernels/packed_postings.py:46",
+}
+ALL_KERNELS = (*FUSED_KERNELS, *PAPER_KERNELS)
 # live phase: the 1m tier's ingest batch and delta (benchmarks/campaign.py)
 NEW_DOCS, DELTA_DOCS = 50_000, 16_384
 SEALS = ((0, 10_000, None), (10_000, 20_000, None), (20_000, 30_000, None),
          (30_000, 40_000, None), (40_000, 44_850, "hor"),
          (44_850, 49_700, "packed"))     # then 49_700..50_000 stay in delta
 NEAR_TIE = 1e-6
+# paper phase: Table 7's seven indexes and its protocol
+# (benchmarks/table7_query.py)
+SEVEN = ("pr_btree", "pr_hash", "or_btree", "or_hash", "cor", "hor",
+         "packed")
+SIZE_LAYOUT = {"pr_btree": "pr", "pr_hash": "pr", "or_btree": "or",
+               "or_hash": "or", "cor": "cor", "hor": "hor",
+               "packed": "packed"}
+PAPER_TERMS = (1, 2, 3, 4)
 
 
 def smi(fields: str) -> str:
@@ -169,10 +206,41 @@ def dense_work(kind, args, tile, q_real):
     return nbytes, ops, real, blocks
 
 
+# the side kernels' symbols, as the profiler names their device activity
+SYMBOLS = {"posting_score": "posting_score_kernel",
+           "unpack_blocks": "unpack_kernel"}
+
+
+def device_ms(runs):
+    """Mean device time per launch of each kernel alone (no wrapper
+    work, no other kernel), from ONE ``torch.profiler`` trace of a round
+    of ``fn(*c)`` over ``calls`` for every ``name: (fn, calls)`` of
+    ``runs``; None for a kernel the trace shows no device time for.  A
+    trace slows the launches timed after it, so it runs once, after
+    every event timing of the script."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for fn, calls in runs.values():
+            for c in calls:
+                fn(*c)
+        torch.cuda.synchronize()
+    out = {}
+    for name in runs:
+        total, count = 0.0, 0
+        for e in prof.key_averages():
+            if SYMBOLS[name] in e.key:
+                total += getattr(e, "device_time_total", 0.0)
+                count += e.count
+        out[name] = total / count / 1e3 if count and total > 0 else None
+    return out
+
+
 def time_in_turns(run, run_plain, calls):
     """Kernel, plain, kernel timings (ms per call) of ``run(*c)`` and
-    ``run_plain(*c)`` over ``calls``, and the card's clocks read right
-    after, while it is warm."""
+    ``run_plain(*c)`` over ``calls`` (CUDA events, wrapper included),
+    and the card's clocks read right after, while it is warm."""
     ms_first = event_ms(run, calls, REPS)
     plain_ms = event_ms(run_plain, calls, 1)
     ms_second = event_ms(run, calls, REPS)
@@ -181,9 +249,23 @@ def time_in_turns(run, run_plain, calls):
         clocks
 
 
-def reset_launches(fds):
-    for name in ALL_KERNELS:
-        getattr(fds, name).launches = 0
+def wrappers():
+    """Each kernel's wrapper, by name (its ``.launches`` count)."""
+    from repro_torch.kernels import fused_decode_score as fds
+    from repro_torch.kernels import packed_postings, posting_score
+    out = {n: getattr(fds, n) for n in FUSED_KERNELS}
+    out.update(posting_score=posting_score.posting_score,
+               unpack_blocks=packed_postings.unpack_blocks)
+    return out
+
+
+def reset_launches():
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {n: fn.launches for n, fn in wrappers().items()}
 
 
 def near_tie_swaps(ids, scores, ref_ids, ref_scores, k):
@@ -301,7 +383,7 @@ def main() -> int:
         fused(batches[0])                 # warm-up (allocator, lib load)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        reset_launches(fds)
+        reset_launches()
         results, e2e_ms = [], []
         for qb in batches:
             t0 = time.perf_counter()
@@ -309,7 +391,7 @@ def main() -> int:
             torch.cuda.synchronize()
             e2e_ms.append((time.perf_counter() - t0) * 1e3)
             results.append((res, stats))
-        launches = {n: getattr(fds, n).launches for n in ALL_KERNELS}
+        launches = read_launches()
         peak = torch.cuda.max_memory_allocated(dev)
         if launches[name] < len(batches):
             raise AssertionError(f"{name}: {launches[name]} launches for "
@@ -408,6 +490,11 @@ def main() -> int:
     sites += live_phase(host, batches, a.seed, dev, report)
     phase_s["live"] = time.perf_counter() - t_phase
     print(f"phase live: {phase_s['live']:.1f} s")
+
+    t_phase = time.perf_counter()
+    sites += paper_phase(host, dev, report)
+    phase_s["paper"] = time.perf_counter() - t_phase
+    print(f"phase paper: {phase_s['paper']:.1f} s")
     report["phase_s"] = phase_s
 
     kinfo = {"kernels": kernel_rows(sites)}
@@ -430,7 +517,7 @@ def recording(ops, on=True):
     still launching the real wrappers, so the calls checked afterwards
     are the path's own."""
     calls = []
-    saved = {n: getattr(ops, n) for n in ALL_KERNELS}
+    saved = {n: getattr(ops, n) for n in FUSED_KERNELS}
 
     def rec(name, fn):
         def call(*args, **kw):
@@ -576,7 +663,7 @@ def live_phase(host, batches, seed, dev, report):
     # recorded, then each is held to its plain version and timed
     served, launches, sites = {}, {}, []
     for mode in ("candidates", "dense"):
-        reset_launches(fds)
+        reset_launches()
         out, e2e_ms = [], []
         for i, qb in enumerate(batches):
             with recording(ops, on=i == len(batches) - 1) as calls:
@@ -587,7 +674,7 @@ def live_phase(host, batches, seed, dev, report):
             if stats["pair_overflow"] != 0:
                 raise AssertionError(f"live {mode}: overflow {stats}")
             out.append(res)
-        launches[mode] = {n: getattr(fds, n).launches for n in ALL_KERNELS}
+        launches[mode] = read_launches()
         served[mode] = (out, e2e_ms)
         for site in replay(calls, fds, mode):
             # every batch launches each of the path's sites once
@@ -596,7 +683,7 @@ def live_phase(host, batches, seed, dev, report):
         del calls
         torch.cuda.empty_cache()
     print(f"live launches: {json.dumps(launches)}")
-    for name in ALL_KERNELS:
+    for name in FUSED_KERNELS:
         n = sum(c[name] for c in launches.values())
         if n == 0:
             raise AssertionError(f"{name} never launched on the live path")
@@ -669,6 +756,355 @@ def live_phase(host, batches, seed, dev, report):
     return sites
 
 
+def absent_hashes(term_hashes, n, seed):
+    """``n`` u32 hashes that are not in the vocabulary (nor 0)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    taken = set(int(x) for x in term_hashes)
+    out = []
+    while len(out) < n:
+        h = int(rng.integers(1, 2**32))
+        if h not in taken:
+            out.append(h)
+            taken.add(h)
+    return np.asarray(out, np.uint32)
+
+
+def paper_phase(host, dev, report):
+    """The paper's representation comparison at the 1M tier (step 7 of
+    the module docstring); returns the two side kernels' sites."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import direct_index, layouts, query, size_model
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import packed_postings as pp
+    from repro_torch.kernels import posting_score as ps
+    from repro_torch.text import corpus
+
+    paper: dict = {}
+    cap = host.max_posting_len
+    W, D = host.num_terms, host.num_docs
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # builds: each posting set once; the _hash twins swap the lookup
+    build_s = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        build_s[name] = time.perf_counter() - t0
+        return out
+    btree = timed("btree_lookup",
+                  lambda: layouts.build_sorted_lookup(host.term_hashes, dev))
+    hashlk = timed("hash_lookup",
+                   lambda: layouts.build_hash_lookup(host.term_hashes, dev))
+    pr = timed("pr", lambda: layouts.build_coo(host, device=dev))
+    orr = timed("or", lambda: layouts.build_csr(host, device=dev))
+    ix = {"pr_btree": pr,
+          "pr_hash": dataclasses.replace(pr, lookup=hashlk),
+          "or_btree": orr,
+          "or_hash": dataclasses.replace(orr, lookup=hashlk),
+          "cor": timed("cor", lambda: layouts.build_compact_csr(
+              host, device=dev)),
+          "hor": timed("hor", lambda: layouts.build_blocked(host,
+                                                            device=dev)),
+          "packed": timed("packed", lambda: layouts.build_packed_csr(
+              host, device=dev))}
+    direct = timed("direct", lambda: direct_index.build_direct(
+        host, device=dev))
+    paper["build_s"] = build_s
+    paper["device_bytes_allocated"] = torch.cuda.memory_allocated(dev)
+    print(f"paper builds (s): {json.dumps(build_s)}")
+
+    # Table 5: bytes per representation beside the size model
+    seg = size_model.SegmentStats(num_docs=D, num_postings=host.num_postings,
+                                  num_terms=W)
+    cs = size_model.CorpusStats(D=D, W=W, N_d=host.num_postings)
+    table5 = {name: {"nbytes": x.nbytes(), "posting_bytes": x.posting_bytes(),
+                     "est_posting_bytes": size_model.est_posting_bytes(
+                         seg, SIZE_LAYOUT[name])}
+              for name, x in ix.items()}
+    table5["direct"] = {"nbytes": direct.nbytes()}
+    table5["model"] = {
+        "pr_bytes": size_model.pr_bytes(cs),
+        "orif_bytes": size_model.orif_bytes(cs),
+        "pr_over_orif": size_model.pr_over_orif(cs),
+        "pr_pages": size_model.pages(size_model.pr_bytes(cs)),
+        "orif_pages": size_model.pages(size_model.orif_bytes(cs)),
+        "coo_layout_bytes": size_model.coo_layout_bytes(cs),
+        "csr_layout_bytes": size_model.csr_layout_bytes(cs),
+        "packed_csr_layout_bytes": size_model.packed_csr_layout_bytes(cs)}
+    for name in ("pr_btree", "or_btree", "cor"):
+        if table5[name]["posting_bytes"] != table5[name]["est_posting_bytes"]:
+            raise AssertionError(f"table 5 {name}: {table5[name]}")
+    paper["table5"] = table5
+    print(f"table 5 (bytes): {json.dumps(table5)}")
+
+    # Table 7's protocol: 8 queries of 1-4 terms from the df band
+    batches = {n: corpus.sample_query_terms(
+        host.df, host.term_hashes, BATCH, n, num_docs=D, seed=n)
+        for n in PAPER_TERMS}
+    qhs = {n: layouts.hash_tensor(qb, dev) for n, qb in batches.items()}
+
+    # Table 6: both lookups on the queries' hashes and on absent ones
+    probe = layouts.hash_tensor(np.concatenate(
+        [np.concatenate([b.reshape(-1) for b in batches.values()]),
+         absent_hashes(host.term_hashes, 64, 6)]), dev)
+    got_b, got_h = btree.lookup(probe), hashlk.lookup(probe)
+    if not torch.equal(got_b, got_h) or bool((got_b[:-64] < 0).any()) \
+            or bool((got_b[-64:] != -1).any()):
+        raise AssertionError("btree and hash lookups disagree")
+    look_ms = {k: event_ms(lk.lookup, [(probe,)], REPS)
+               for k, lk in (("btree", btree), ("hash", hashlk))}
+    paper["table6"] = {
+        "btree_bytes": btree.nbytes(), "hash_bytes": hashlk.nbytes(),
+        "hash_slots": int(hashlk.keys.shape[0]),
+        "cor_folded_bytes": (ix["cor"].sorted_hash.numel()
+                             + ix["cor"].df.numel()) * 4,
+        "lookup_ms_per_call": look_ms, "hashes_per_call": probe.numel()}
+    print(f"table 6: {json.dumps(paper['table6'])}")
+
+    # 1. the seven representations through the oracle (Table 7)
+    ms7, results = {}, {}
+    for name, x in ix.items():
+        scorer = query.make_scorer(x, k=K, cap=cap, engine="torch")
+        scorer(qhs[1])                                   # warm-up
+        ms7[name], results[name] = {}, {}
+        for n, qh in qhs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = scorer(qh)
+            torch.cuda.synchronize()
+            ms7[name][n] = (time.perf_counter() - t0) * 1e3 / BATCH
+            results[name][n] = r
+    base = results["pr_btree"]
+    for name in SEVEN:
+        for n in PAPER_TERMS:
+            r = results[name][n]
+            if r.doc_ids.shape != (BATCH, K) or \
+                    not bool(torch.isfinite(r.scores).all()) or \
+                    bool((r.doc_ids < 0).any()):
+                raise AssertionError(f"{name} {n}t: bad result")
+            if not torch.equal(r.doc_ids, base[n].doc_ids) or not \
+                    torch.equal(r.scores.view(torch.int32),
+                                base[n].scores.view(torch.int32)):
+                raise AssertionError(f"{name} {n}t ranks unlike pr_btree")
+
+    hor, packed = ix["hor"], ix["packed"]
+    tfirst, tcount, n_tiles = ops.routing_spans(hor, ps.TILE)
+    # warm-up (library loads), then the main path: every counter from
+    # zero just before, read just after
+    tids, idf_w = query.lookup_query(hor, qhs[1])
+    ops.blocked_query_scores(hor, tids[0], idf_w[0], hor.max_blocks_per_term,
+                             1 << 16)
+    pp.unpack_blocks(packed.packed[:1], packed.block_bits[:1],
+                     packed.block_base[:1], packed.block_count[:1],
+                     packed.block)
+    torch.cuda.synchronize()
+    reset_launches()
+    single, ms_single = [], {}
+    for n, qh in qhs.items():
+        tids, idf_w = query.lookup_query(hor, qh)
+        ms = []
+        for t, w in zip(tids, idf_w):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sel, valid, sw = ops.select_query_blocks(
+                hor, t, w, hor.max_blocks_per_term)
+            max_pairs = max(int(tcount[sel.long()][valid].sum()), 1)
+            scores, ovf = ops.blocked_query_scores(
+                hor, t, w, hor.max_blocks_per_term, max_pairs)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            single.append((t, w, sel, valid, sw, max_pairs, scores,
+                           int(ovf)))
+        ms_single[n] = ms
+    t0 = time.perf_counter()
+    decoded = ops.unpack_postings(packed)
+    torch.cuda.synchronize()
+    unpack_e2e_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    print(f"paper launches: {json.dumps(launches)}")
+    if launches["posting_score"] != BATCH * len(PAPER_TERMS) or \
+            launches["unpack_blocks"] != 1 or \
+            any(launches[k] for k in FUSED_KERNELS):
+        raise AssertionError(f"paper path launches {launches}")
+    ms7["hor_posting_score"] = {n: float(np.mean(v))
+                                for n, v in ms_single.items()}
+    paper["table7_ms_per_query"] = ms7
+    print(f"table 7 (ms per query): {json.dumps(ms7)}")
+
+    # 2. each posting_score launch against its plain version and the
+    # oracle's raw accumulation, to the bit
+    calls, lib_calls, work = [], [], []
+    nb_docs = hor.block_docs.shape[1]
+    for t, w, sel, valid, sw, max_pairs, scores, ovf in single:
+        if ovf != 0:
+            raise AssertionError(f"posting_score overflow {ovf}")
+        pb, pt, pw, _ = ps.build_pairs(sel, valid, sw, tfirst, tcount,
+                                       n_tiles, max_pairs)
+        args = (hor.block_docs, hor.block_tfs, pb, pt, pw, D)
+        want = ps.posting_score_plain(*args)
+        d, tf, v = hor.gather_postings(t, cap)
+        raw = query.accumulate_scores(d, tf * w[:, None], v, D)
+        torch.cuda.synchronize()
+        for label, other in (("plain", want), ("oracle", raw)):
+            if not torch.equal(scores.view(torch.int32),
+                               other.view(torch.int32)):
+                err = float((scores - other).abs().max())
+                raise AssertionError(f"posting_score != {label} "
+                                     f"(max abs err {err})")
+        calls.append(args)
+        blocks = sel[valid].long()
+        bd = hor.block_docs[blocks].reshape(-1)
+        lib_calls.append((torch.where(bd >= 0, bd, D).long(),
+                          (hor.block_tfs[blocks] * sw[valid][:, None])
+                          .reshape(-1)))
+        real = max_pairs
+        work.append((int(torch.unique(pb).numel()) * nb_docs * 8
+                     + real * 12 + (n_tiles + 1) * 4 + D * 4,
+                     real * nb_docs * 2))
+    ms, turns, plain_ms, clocks = time_in_turns(
+        ps.posting_score, ps.posting_score_plain, calls)
+    acc = torch.zeros(D + 1, dtype=torch.float32, device=dev)
+    lib_ms = event_ms(lambda i, v: acc.index_add_(0, i, v), lib_calls, REPS)
+    nbytes = float(np.mean([x[0] for x in work]))
+    nops = float(np.mean([x[1] for x in work]))
+    sites = [{"site": f"paper:posting_score@hor{D}", "kernel": "posting_score",
+              "launches": launches["posting_score"], "max_abs_err": 0.0,
+              "kernel_ms": ms, "kernel_ms_turns": turns,
+              "plain_ms": plain_ms, "library_ms": lib_ms,
+              "bytes": nbytes, "ops": nops,
+              "real_pairs_per_query": [x[5] for x in single],
+              "t_bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+              "t_ops_ms": nops / F32_OPS_PER_S * 1e3,
+              "clocks_sm_mem_power_temp": clocks}]
+    del lib_calls, acc
+
+    # 3. the decode against its plain version and the host, term by term
+    args = (packed.packed, packed.block_bits, packed.block_base,
+            packed.block_count, packed.block)
+    want = pp.unpack_blocks_plain(*args)
+    if not torch.equal(decoded, want):
+        raise AssertionError("unpack_blocks != plain version")
+    del want
+    _, _, _, _, src, brow, lane = layouts._block_layout(host, packed.block)
+    expect = torch.full((decoded.numel(),), -1, dtype=torch.int32,
+                        device=dev)
+    expect[torch.from_numpy(brow * packed.block + lane).to(dev)] = \
+        torch.from_numpy(host.doc_ids[src].astype(np.int32)).to(dev)
+    if not torch.equal(decoded.reshape(-1), expect):
+        raise AssertionError("unpack_postings != the host's doc ids")
+    del expect, src, brow, lane
+    nb, wpb = packed.packed.shape
+    u_bytes = nb * wpb * 4 + nb * 12 + nb * packed.block * 4
+    u_ops = nb * packed.block * 5
+    ms_u, turns_u, plain_u, clocks_u = time_in_turns(
+        pp.unpack_blocks, pp.unpack_blocks_plain, [args])
+    sites.append({
+        "site": f"paper:unpack_blocks@packed{D}", "kernel": "unpack_blocks",
+        "launches": launches["unpack_blocks"], "max_abs_err": 0.0,
+        "kernel_ms": ms_u, "kernel_ms_turns": turns_u, "plain_ms": plain_u,
+        "library_ms": None, "e2e_ms": unpack_e2e_ms, "blocks": nb,
+        "words_per_block": wpb, "bytes": u_bytes, "ops": u_ops,
+        "t_bytes_ms": u_bytes / HBM_BYTES_PER_S * 1e3,
+        "t_ops_ms": u_ops / F32_OPS_PER_S * 1e3,
+        "clocks_sm_mem_power_temp": clocks_u})
+    del decoded
+
+    # 4. conjunctive_filter on all seven; every hit holds every term
+    conj_hits, conj_ms = 0, {}
+    for n, qb in batches.items():
+        for q in range(BATCH):
+            got = {}
+            for name, x in ix.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r, st = query.conjunctive_filter(x, qb[q], K, cap)
+                torch.cuda.synchronize()
+                conj_ms.setdefault(name, []).append(
+                    (time.perf_counter() - t0) * 1e3)
+                if st["truncated_terms"] != 0:
+                    raise AssertionError(f"conjunctive {name}: {st}")
+                got[name] = r
+            for name, r in got.items():
+                if not torch.equal(r.doc_ids, got["pr_btree"].doc_ids):
+                    raise AssertionError(f"conjunctive {name} {n}t q{q}")
+            tids = hor.lookup_terms(qhs[n][q])
+            for doc in got["hor"].doc_ids.tolist():
+                if doc >= 0:
+                    conj_hits += 1
+                    if not bool(hor.contains(tids, doc).all()):
+                        raise AssertionError(f"conjunctive hit {doc} lacks "
+                                             f"a term of {n}t q{q}")
+    if conj_hits == 0:
+        raise AssertionError("conjunctive_filter found no doc at all")
+    paper["conjunctive"] = {
+        "hits_checked": conj_hits,
+        "ms_per_query": {k: float(np.mean(v)) for k, v in conj_ms.items()}}
+    print(f"conjunctive: {json.dumps(paper['conjunctive'])}")
+
+    # 5. the direct index: expansion beside the full scans, feedback,
+    # deletion
+    exp_ms = {"direct": [], "scan_pr": [], "scan_or": []}
+    for n in PAPER_TERMS:
+        tids_or = orr.lookup_terms(qhs[n])
+        for q in range(BATCH):
+            top = base[n].doc_ids[q]
+            t0 = time.perf_counter()
+            e = direct_index.expand_query(direct, top, W, direct.max_doc_len)
+            torch.cuda.synchronize()
+            exp_ms["direct"].append((time.perf_counter() - t0) * 1e3)
+            for key, x in (("scan_pr", pr), ("scan_or", orr)):
+                t0 = time.perf_counter()
+                s_ = direct_index.expand_query_scan(x, top, W)
+                torch.cuda.synchronize()
+                exp_ms[key].append((time.perf_counter() - t0) * 1e3)
+                if not (torch.equal(s_.term_ids, e.term_ids) and torch.equal(
+                        s_.weights.view(torch.int32),
+                        e.weights.view(torch.int32))):
+                    raise AssertionError(f"expand_query != {key} "
+                                         f"({n}t q{q})")
+            fb = direct_index.relevance_feedback(direct, top, tids_or[q], W,
+                                                 direct.max_doc_len)
+            if fb.term_ids.shape != (10,) or \
+                    not bool(torch.isfinite(fb.weights).all()) or \
+                    not bool((fb.term_ids[:1] >= 0).all()):
+                raise AssertionError(f"relevance_feedback {fb}")
+    victims = torch.stack([base[n].doc_ids[:, 0] for n in PAPER_TERMS])
+    victims = victims.reshape(-1)
+    norm = direct_index.delete_docs(pr.docs.norm, victims)
+    if bool((norm[victims.long()] != 0).any()):
+        raise AssertionError("delete_docs left a norm")
+    for name, x in ix.items():
+        dead = dataclasses.replace(x, docs=layouts.DocTable(
+            norm=norm, rank=x.docs.rank))
+        scorer = query.make_scorer(dead, k=K, cap=cap, engine="torch")
+        for n, qh in qhs.items():
+            if bool(torch.isin(scorer(qh).doc_ids, victims).any()):
+                raise AssertionError(f"{name} returned a deleted doc")
+    paper["direct"] = {
+        "max_doc_len": direct.max_doc_len, "deleted": victims.numel(),
+        "expand_ms_per_query": {k: float(np.mean(v))
+                                for k, v in exp_ms.items()}}
+    print(f"direct index: {json.dumps(paper['direct'])}")
+
+    paper["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    # last: each side kernel's own device time (the trace would slow the
+    # launches timed after it)
+    dev_ms = device_ms({"posting_score": (ps.posting_score, calls),
+                        "unpack_blocks": (pp.unpack_blocks, [args])})
+    for site in sites:
+        site["device_ms"] = dev_ms[site["kernel"]]
+        print(f"paper kernel site: {json.dumps(site)}")
+    report["paper"] = {**paper, "kernel_sites": sites}
+    del ix, pr, orr, hor, packed, direct, results, base, single, calls, args
+    torch.cuda.empty_cache()
+    return sites
+
+
 def kernel_rows(sites):
     """One row per kernel for the ``kernels`` line: ``launches`` sums
     the counted runs of every path, and ``ms``, ``plain_ms`` and
@@ -676,7 +1112,8 @@ def kernel_rows(sites):
     launches); the per-site numbers are printed above."""
     import numpy as np
     rows = []
-    for name, (_, replaces) in {**KERNELS, **DENSE_KERNELS}.items():
+    replaced = {n: r for n, (_, r) in {**KERNELS, **DENSE_KERNELS}.items()}
+    for name, replaces in {**replaced, **PAPER_KERNELS}.items():
         mine = [x for x in sites if x["kernel"] == name]
         if not mine:
             raise AssertionError(f"{name}: no call site on any path")
@@ -685,6 +1122,7 @@ def kernel_rows(sites):
         def mean(key):
             return float(np.average([x[key] for x in mine], weights=w))
         t_bytes, t_ops = mean("t_bytes_ms"), mean("t_ops_ms")
+        lib = [x.get("library_ms") for x in mine]
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
@@ -693,7 +1131,8 @@ def kernel_rows(sites):
             "ms": mean("kernel_ms"), "plain_ms": mean("plain_ms"),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None})
+            "library_ms": (mean("library_ms")
+                           if None not in lib else None)})
     return rows
 
 

@@ -1,8 +1,18 @@
-"""HOR and delta+bit-packed index layouts as PyTorch tensors.
+"""The paper's four index representations, and the beyond-paper packed
+and banded layouts, as PyTorch tensors: the port of
+``repro.core.layouts``.
 
-The port of ``repro.core.layouts`` for the query path and the live
-index:
-
+  PR     -> CooIndex        heap of (word, doc, tf) tuples in arrival
+                            (doc) order plus a B+tree analogue: a
+                            (term, doc)-sorted permutation with per-term
+                            starts.  A term's postings are scattered over
+                            the heap, so q_occ gathers at random.
+  OR     -> CsrIndex        postings packed contiguously per term
+                            (offsets + doc ids + tfs), beside a separate
+                            word table (lookup + df)
+  COR    -> CompactCsrIndex the word table folded into the posting
+                            relation: terms in hash order, the sorted
+                            hashes are the lookup structure
   HOR    -> BlockedIndex    postings in fixed 128-lane blocks with per-
                             block doc-id min/max summaries (the paper's
                             hstore + GIN analogue)
@@ -11,16 +21,20 @@ index:
          -> BandedCsrIndex  per-term-band choice: a packed band with a
                             band-local stride + an HOR tail
 
-Each index is a frozen dataclass of tensors (HOR and packed with
-``.to(device)``; a banded index pairs one of each).
-Builders are host-side numpy, byte-equal to the reference's, and put the
-result on ``device`` ("cuda" unless the caller asks for the CPU).
+PR and OR take either term lookup of the paper's Table 6: a
+``SortedLookup`` (the B+tree analogue, binary search) or a
+``HashLookup`` (open addressing).
+Each index is a frozen dataclass of tensors with ``.to(device)`` (a
+banded index pairs one HOR and one packed index).
+Index builds are host-side numpy (the PR heap's two sorts run in torch on
+the target device), byte-equal to the reference's, and put the result
+on ``device`` ("cuda" unless the caller asks for the CPU).
 Storage widths match the reference so ``nbytes()`` / ``posting_bytes()``
-agree; u32 arrays (term hashes, packed words) are held as int32
-bit-views because torch has no unsigned shifts or ``searchsorted``:
-hashes are searched on ``x ^ INT32_MIN``, which keeps the unsigned
-order, and shifted words are masked after ``>>`` (int32 shifts are
-arithmetic).
+agree; u32 arrays (term hashes, hash-table keys, packed words) are held
+as int32 bit-views because torch has no unsigned shifts or
+``searchsorted``: hashes are searched on ``x ^ INT32_MIN``, which keeps
+the unsigned order, and shifted words are masked after ``>>`` (int32
+shifts are arithmetic).
 """
 from __future__ import annotations
 
@@ -29,6 +43,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.core.segments import gather_segments, take_rows
 
 Tensor = torch.Tensor
 
@@ -55,24 +71,16 @@ def hash_tensor(hashes, device=None) -> Tensor:
 
 
 def _to(obj, device):
-    """Move every tensor field (and nested DocTable) of a frozen layout."""
+    """Move every tensor field (and nested DocTable or lookup) of a
+    frozen layout."""
     changes = {}
     for f in dataclasses.fields(obj):
         v = getattr(obj, f.name)
         if isinstance(v, Tensor):
             changes[f.name] = v.to(device)
-        elif isinstance(v, DocTable):
-            changes[f.name] = v.to(device)
+        elif dataclasses.is_dataclass(v):
+            changes[f.name] = _to(v, device)
     return dataclasses.replace(obj, **changes)
-
-
-def take_rows(t: Tensor, idx: Tensor) -> Tensor:
-    """``t[idx]``, where an empty ``t`` (the band of an unpadded banded
-    index that holds no term) reads as zeros: none of its rows is ever
-    valid, and the reference's clamped gathers read it without error."""
-    if t.shape[0] == 0:
-        return t.new_zeros(idx.shape + t.shape[1:])
-    return t[idx]
 
 
 def _nbytes(t: Tensor) -> int:
@@ -120,6 +128,114 @@ class DocTable:
         return DocTable(norm=self.norm.to(device), rank=self.rank.to(device))
 
 
+def _sorted_positions(sorted_hash: Tensor, hashes: Tensor):
+    """Binary search of int32 hash bit-views in an unsigned-ascending
+    ``sorted_hash``: (clamped positions, hit) of the same shape."""
+    keys = sorted_hash ^ INT32_MIN
+    pos = torch.searchsorted(keys, (hashes ^ INT32_MIN).contiguous())
+    pos = pos.clamp(0, sorted_hash.shape[0] - 1)
+    return pos, sorted_hash[pos] == hashes
+
+
+@dataclasses.dataclass(frozen=True)
+class SortedLookup:
+    """B+tree analogue: binary search over sorted term hashes."""
+    sorted_hash: Tensor  # i32[W]  u32 hash bit-views, unsigned-ascending
+    perm: Tensor         # i32[W]  sorted position -> term id
+
+    def lookup(self, hashes: Tensor) -> Tensor:
+        """int32 hash bit-views [...] -> term ids, -1 where absent."""
+        pos, hit = _sorted_positions(self.sorted_hash, hashes)
+        return torch.where(hit, self.perm[pos], -1).to(torch.int32)
+
+    def nbytes(self) -> int:
+        return _nbytes(self.sorted_hash) + _nbytes(self.perm)
+
+
+HASH_MULT = 2654435761   # Knuth's multiplicative hash, as the reference
+MAX_PROBES = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class HashLookup:
+    """Open-addressed hash table analogue of a DBMS Hash index: slot
+    ``(hash * HASH_MULT) mod S`` and the next ``MAX_PROBES - 1`` slots."""
+    keys: Tensor   # i32[S]  u32 bit-views, HASH_EMPTY where empty; S = 2**i
+    vals: Tensor   # i32[S]  term id, -1 where empty
+
+    def lookup(self, hashes: Tensor) -> Tensor:
+        """int32 hash bit-views [...] -> term ids, -1 where absent.
+
+        The reference computes the slot as a u32 product masked to
+        ``S - 1``.  Here both factors are reduced mod S first, which
+        leaves the product mod S unchanged (S is a power of two) and
+        keeps it below 2**62 in int64, so nothing relies on overflow."""
+        size = self.keys.shape[0]
+        if size > 2**31:
+            raise ValueError(f"hash table of {size} slots: the slot "
+                             "arithmetic holds tables of up to 2**31")
+        mask = size - 1
+        h = hashes.long() & 0xFFFFFFFF
+        base = ((h & mask) * (HASH_MULT & mask)) & mask
+        k = torch.arange(MAX_PROBES, device=hashes.device)
+        probe = (base[..., None] + k) & mask
+        hit = self.keys[probe] == hashes[..., None]
+        first = torch.where(hit, k, MAX_PROBES).min(dim=-1).values
+        slot = torch.gather(probe, -1,
+                            first.clamp_max(MAX_PROBES - 1)[..., None])[..., 0]
+        return torch.where(hit.any(dim=-1), self.vals[slot],
+                           -1).to(torch.int32)
+
+    def nbytes(self) -> int:
+        return _nbytes(self.keys) + _nbytes(self.vals)
+
+
+def build_sorted_lookup(term_hashes: np.ndarray,
+                        device="cuda") -> SortedLookup:
+    order = np.argsort(term_hashes, kind="stable")
+    return _to(SortedLookup(
+        sorted_hash=torch.from_numpy(as_i32_bits(term_hashes[order])),
+        perm=torch.from_numpy(order.astype(np.int32))), device)
+
+
+def build_hash_lookup(term_hashes: np.ndarray, device="cuda") -> HashLookup:
+    """The reference's build, unchanged: linear probing from each term's
+    home slot, doubling the table until every key fits within
+    ``MAX_PROBES`` slots."""
+    w = len(term_hashes)
+    size = 1 << int(np.ceil(np.log2(max(4 * w, 16))))
+    while True:
+        keys = np.full(size, 0xFFFFFFFF, dtype=np.uint32)
+        vals = np.full(size, -1, dtype=np.int32)
+        ok = True
+        base = (term_hashes.astype(np.uint64) * HASH_MULT) % size
+        for tid, b in enumerate(base.astype(np.int64)):
+            placed = False
+            for p in range(MAX_PROBES):
+                s = (b + p) & (size - 1)
+                if keys[s] == 0xFFFFFFFF:
+                    keys[s] = term_hashes[tid]
+                    vals[s] = tid
+                    placed = True
+                    break
+            if not placed:
+                ok = False
+                break
+        if ok:
+            return _to(HashLookup(keys=torch.from_numpy(as_i32_bits(keys)),
+                                  vals=torch.from_numpy(vals)), device)
+        size *= 2  # grow until every key fits within MAX_PROBES
+
+
+def build_lookup(term_hashes: np.ndarray, lookup: str, device="cuda"):
+    """``lookup`` "btree" (a SortedLookup) or "hash" (a HashLookup)."""
+    if lookup == "btree":
+        return build_sorted_lookup(term_hashes, device)
+    if lookup == "hash":
+        return build_hash_lookup(term_hashes, device)
+    raise ValueError(f"unknown lookup {lookup!r}: 'btree' or 'hash'")
+
+
 @dataclasses.dataclass(frozen=True)
 class PostingsHost:
     """Host (numpy) canonical postings: the logical index content."""
@@ -148,17 +264,9 @@ class PostingsHost:
         return int((self.offsets[1:] - self.offsets[:-1]).max())
 
 
-class _SortedTerms:
-    """Hash-sorted vocabulary shared by both layouts (COR-style folded
-    word table): ``lookup_terms`` / ``term_df`` over ``sorted_hash``."""
-
-    def lookup_terms(self, hashes: Tensor) -> Tensor:
-        """int32 hash bit-views [...] -> term ids, -1 where absent."""
-        keys = self.sorted_hash ^ INT32_MIN
-        pos = torch.searchsorted(keys, (hashes ^ INT32_MIN).contiguous())
-        pos = pos.clamp(0, self.sorted_hash.shape[0] - 1)
-        hit = self.sorted_hash[pos] == hashes
-        return torch.where(hit, pos, -1).to(torch.int32)
+class _Terms:
+    """The per-term df table every layout carries: ``term_df``,
+    ``num_terms``, ``device`` and ``to``."""
 
     def term_df(self, term_ids: Tensor) -> Tensor:
         safe = term_ids.clamp_min(0).long()
@@ -175,10 +283,20 @@ class _SortedTerms:
     def to(self, device):
         return _to(self, device)
 
-    def _term_blocks(self, term_ids: Tensor, cap: int):
-        """Block ids [..., nblk] covering ``cap`` postings of each term,
+
+class _SortedTerms(_Terms):
+    """Hash-sorted vocabulary (COR-style folded word table):
+    ``lookup_terms`` binary-searches ``sorted_hash``, and a term id is
+    its position there."""
+
+    def lookup_terms(self, hashes: Tensor) -> Tensor:
+        """int32 hash bit-views [...] -> term ids, -1 where absent."""
+        pos, hit = _sorted_positions(self.sorted_hash, hashes)
+        return torch.where(hit, pos, -1).to(torch.int32)
+
+    def _term_blocks(self, term_ids: Tensor, nblk: int):
+        """Block ids [..., nblk] of each term's first ``nblk`` blocks,
         and their validity (inside the term's block range)."""
-        nblk = -(-cap // self.block)
         safe = term_ids.clamp_min(0).long()
         start = self.block_offsets[safe].long()
         nb = self.block_offsets[safe + 1].long() - start
@@ -186,6 +304,214 @@ class _SortedTerms:
         bvalid = k < nb[..., None]
         bidx = torch.where(bvalid, start[..., None] + k, 0)
         return bidx, bvalid
+
+
+class _LookupTerms(_Terms):
+    """A separate word table (the paper's PR and OR): term ids come from
+    the index's ``lookup`` (a SortedLookup or a HashLookup)."""
+
+    def lookup_terms(self, hashes: Tensor) -> Tensor:
+        return self.lookup.lookup(hashes)
+
+
+def _present(term_ids: Tensor, d: Tensor, t: Tensor, v: Tensor):
+    """Mask the postings of absent terms (id -1) to (-1, 0.0, False)."""
+    present = (term_ids >= 0)[..., None]
+    return (torch.where(present, d, -1), torch.where(present, t, 0.0),
+            v & present)
+
+
+def _gather_csr(ix, term_ids: Tensor, cap: int):
+    """q_occ for the CSR layouts (OR, COR): one contiguous slab per
+    term, (docs, tfs, valid) [..., T, cap]."""
+    safe = term_ids.clamp_min(0)
+    d, v = gather_segments(ix.doc_ids, ix.offsets, safe, cap, fill=-1)
+    t, _ = gather_segments(ix.tfs, ix.offsets, safe, cap, fill=0.0)
+    return _present(term_ids, d, t, v)
+
+
+# ---------------------------------------------------------------------------
+# (PR) CooIndex
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class CooIndex(_LookupTerms):
+    """Plain-Relational analogue: heap of tuples + B+tree permutation."""
+    # heap columns, in arrival (doc-major) order, like tuples in a heap file
+    word_ids: Tensor     # i32[P]  the redundant column PR pays for
+    doc_ids: Tensor      # i32[P]
+    tfs: Tensor          # f32[P]
+    # "B+tree": (term, doc)-sorted permutation + per-term starts
+    perm: Tensor         # i32[P]  sorted posting -> heap position
+    term_starts: Tensor  # i32[W+1]
+    df: Tensor           # i32[W]
+    lookup: SortedLookup | HashLookup
+    docs: DocTable
+    max_posting_len: int
+
+    def gather_postings(self, term_ids: Tensor, cap: int
+                        ) -> Tuple[Tensor, Tensor, Tensor]:
+        """q_occ for PR: read the index leaves (``perm``), then gather
+        each posting from the heap at random.  The word-id column is
+        read too and folded in as ``t + 0.0 * w``, as the reference
+        does: streaming it is the cost PR pays."""
+        idx, valid = gather_segments(self.perm, self.term_starts,
+                                     term_ids.clamp_min(0), cap)
+        idx = idx.long()
+        d = take_rows(self.doc_ids, idx)
+        t = take_rows(self.tfs, idx)
+        w = take_rows(self.word_ids, idx)
+        t = t + 0.0 * w.to(t.dtype)
+        d = torch.where(valid, d, -1)
+        t = torch.where(valid, t, 0.0)
+        return _present(term_ids, d, t, valid)
+
+    def nbytes(self) -> int:
+        n = sum(_nbytes(x) for x in
+                (self.word_ids, self.doc_ids, self.tfs, self.perm,
+                 self.term_starts, self.df))
+        return n + self.lookup.nbytes() + self.docs.nbytes()
+
+    def posting_bytes(self) -> int:
+        return sum(_nbytes(x) for x in
+                   (self.word_ids, self.doc_ids, self.tfs, self.perm))
+
+
+def build_coo(h: PostingsHost, lookup: str = "btree",
+              device="cuda") -> CooIndex:
+    """PR build, byte-equal to ``repro.core.layouts.build_coo``.
+
+    The reference synthesizes the heap with ``lexsort`` by (doc, term)
+    and the B+tree with ``lexsort`` by (term, doc).  Both key pairs are
+    unique, so each order equals the order of one combined int64 key,
+    sorted here with torch on ``device`` (at the 1M tier, two 52.7M-row
+    host sorts become two device sorts).  The term starts of a
+    (term, doc)-sorted posting list are the host's own term offsets."""
+    dev = torch.device(device)
+    W = h.num_terms
+    lengths = torch.from_numpy(np.diff(h.offsets).astype(np.int64)).to(dev)
+    term_of = torch.repeat_interleave(torch.arange(W, device=dev), lengths)
+    docs = torch.from_numpy(h.doc_ids.astype(np.int32)).to(dev)
+    tfs = torch.from_numpy(h.tfs.astype(np.float32)).to(dev)
+    heap_order = torch.argsort(docs.long() * max(W, 1) + term_of)
+    heap_word = term_of[heap_order]
+    heap_doc = docs[heap_order]
+    span = int(h.doc_ids.max()) + 1 if h.num_postings else 1
+    perm = torch.argsort(heap_word * span + heap_doc.long())
+    return CooIndex(
+        word_ids=heap_word.to(torch.int32), doc_ids=heap_doc,
+        tfs=tfs[heap_order], perm=perm.to(torch.int32),
+        term_starts=torch.from_numpy(h.offsets.astype(np.int32)).to(dev),
+        df=torch.from_numpy(h.df.astype(np.int32)).to(dev),
+        lookup=build_lookup(h.term_hashes, lookup, dev),
+        docs=_docs(h).to(dev), max_posting_len=h.max_posting_len)
+
+
+# ---------------------------------------------------------------------------
+# (OR) CsrIndex
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class CsrIndex(_LookupTerms):
+    """Object-Relational analogue: contiguous per-term posting slabs."""
+    offsets: Tensor   # i32[W+1]
+    doc_ids: Tensor   # i32[P]
+    tfs: Tensor       # f32[P]
+    df: Tensor        # i32[W]   (separate word table, as in OR)
+    lookup: SortedLookup | HashLookup
+    docs: DocTable
+    max_posting_len: int
+
+    def gather_postings(self, term_ids: Tensor, cap: int
+                        ) -> Tuple[Tensor, Tensor, Tensor]:
+        """q_occ for ORIF: one contiguous slab per term."""
+        return _gather_csr(self, term_ids, cap)
+
+    def nbytes(self) -> int:
+        n = sum(_nbytes(x) for x in
+                (self.offsets, self.doc_ids, self.tfs, self.df))
+        return n + self.lookup.nbytes() + self.docs.nbytes()
+
+    def posting_bytes(self) -> int:
+        return sum(_nbytes(x) for x in (self.offsets, self.doc_ids,
+                                        self.tfs))
+
+
+def build_csr(h: PostingsHost, lookup: str = "btree",
+              device="cuda") -> CsrIndex:
+    """OR build, byte-equal to ``repro.core.layouts.build_csr``."""
+    t = torch.from_numpy
+    return CsrIndex(
+        offsets=t(h.offsets.astype(np.int32)),
+        doc_ids=t(h.doc_ids.astype(np.int32)),
+        tfs=t(h.tfs.astype(np.float32)),
+        df=t(h.df.astype(np.int32)),
+        lookup=build_lookup(h.term_hashes, lookup, "cpu"),
+        docs=_docs(h), max_posting_len=h.max_posting_len).to(device)
+
+
+# ---------------------------------------------------------------------------
+# (COR) CompactCsrIndex
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class CompactCsrIndex(_SortedTerms):
+    """Compact OR: the word table folded into the posting relation.
+
+    Terms are stored in hash-sorted order; the sorted hash array doubles
+    as the lookup structure and df sits alongside, so q_word and q_occ
+    fuse into one phase, the paper's "one fewer query"."""
+    sorted_hash: Tensor  # i32[W]    u32 bit-views, unsigned-ascending
+    df: Tensor           # i32[W]    (aligned with sorted_hash)
+    offsets: Tensor      # i32[W+1]  (aligned with sorted_hash)
+    doc_ids: Tensor      # i32[P]
+    tfs: Tensor          # f32[P]
+    docs: DocTable
+    max_posting_len: int
+
+    def gather_postings(self, term_ids: Tensor, cap: int
+                        ) -> Tuple[Tensor, Tensor, Tensor]:
+        return _gather_csr(self, term_ids, cap)
+
+    def nbytes(self) -> int:
+        return sum(_nbytes(x) for x in
+                   (self.sorted_hash, self.df, self.offsets, self.doc_ids,
+                    self.tfs)) + self.docs.nbytes()
+
+    def posting_bytes(self) -> int:
+        return sum(_nbytes(x) for x in (self.offsets, self.doc_ids,
+                                        self.tfs))
+
+
+def _term_sorted(h: PostingsHost):
+    """Hash-sorted term order, per-term lengths, the new term offsets,
+    and each posting's position within its term and source index."""
+    order = np.argsort(h.term_hashes, kind="stable")
+    lengths = np.diff(h.offsets)[order]
+    new_offsets = np.zeros(h.num_terms + 1, dtype=np.int64)
+    np.cumsum(lengths, out=new_offsets[1:])
+    within = (np.arange(h.num_postings, dtype=np.int64)
+              - np.repeat(new_offsets[:-1], lengths))
+    src = np.repeat(h.offsets[order].astype(np.int64), lengths) + within
+    return order, lengths, new_offsets, within, src
+
+
+def build_compact_csr(h: PostingsHost, device="cuda") -> CompactCsrIndex:
+    """COR build, byte-equal to ``repro.core.layouts.build_compact_csr``:
+    the reference permutes the slabs term by term in a Python loop; here
+    every posting's source index is computed at once."""
+    order, _, new_offsets, _, src = _term_sorted(h)
+    t = torch.from_numpy
+    return CompactCsrIndex(
+        sorted_hash=t(as_i32_bits(h.term_hashes[order])),
+        df=t(h.df[order].astype(np.int32)),
+        offsets=t(new_offsets.astype(np.int32)),
+        doc_ids=t(h.doc_ids[src].astype(np.int32)),
+        tfs=t(h.tfs[src].astype(np.float32)),
+        docs=_docs(h), max_posting_len=h.max_posting_len).to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -221,16 +547,25 @@ class BlockedIndex(_SortedTerms):
     def gather_postings(self, term_ids: Tensor, cap: int
                         ) -> Tuple[Tensor, Tensor, Tensor]:
         """q_occ: term ids [..., T] -> (docs, tfs, valid) [..., T, cap]."""
-        bidx, bvalid = self._term_blocks(term_ids, cap)
+        bidx, bvalid = self._term_blocks(term_ids, -(-cap // self.block))
         d = torch.where(bvalid[..., None], take_rows(self.block_docs, bidx),
                         -1)
         t = torch.where(bvalid[..., None], take_rows(self.block_tfs, bidx),
                         0.0)
         d = d.flatten(-2)[..., :cap]
         t = t.flatten(-2)[..., :cap]
-        present = (term_ids >= 0)[..., None]
-        v = (d >= 0) & present
-        return torch.where(present, d, -1), torch.where(present, t, 0.0), v
+        return _present(term_ids, d, t, d >= 0)
+
+    def contains(self, term_ids: Tensor, doc_id) -> Tensor:
+        """Doc-membership probe with block skipping (the GIN-style
+        path): term ids [..., T] and one doc id -> bool [..., T]; only
+        blocks whose [min, max] covers the doc count."""
+        bidx, bvalid = self._term_blocks(term_ids, self.max_blocks_per_term)
+        doc = torch.as_tensor(doc_id, device=bidx.device)
+        hit_range = ((take_rows(self.block_min, bidx) <= doc)
+                     & (take_rows(self.block_max, bidx) >= doc) & bvalid)
+        inblock = (take_rows(self.block_docs, bidx) == doc).any(dim=-1)
+        return (hit_range & inblock).any(dim=-1) & (term_ids >= 0)
 
     def nbytes(self) -> int:
         return sum(_nbytes(x) for x in
@@ -247,17 +582,10 @@ class BlockedIndex(_SortedTerms):
 def _block_layout(h: PostingsHost, block: int):
     """Hash-sorted term order, per-term lengths and block counts, block
     offsets, and each posting's (source index, block row, lane)."""
-    order = np.argsort(h.term_hashes, kind="stable")
-    lengths = np.diff(h.offsets)[order]
+    order, lengths, _, within, src = _term_sorted(h)
     nblocks = np.maximum(-(-lengths // block), (lengths > 0).astype(np.int64))
     block_offsets = np.zeros(h.num_terms + 1, dtype=np.int64)
     np.cumsum(nblocks, out=block_offsets[1:])
-    P = h.num_postings
-    new_offsets = np.zeros(h.num_terms + 1, dtype=np.int64)
-    np.cumsum(lengths, out=new_offsets[1:])
-    within = np.arange(P, dtype=np.int64) - np.repeat(new_offsets[:-1],
-                                                      lengths)
-    src = np.repeat(h.offsets[order].astype(np.int64), lengths) + within
     brow = np.repeat(block_offsets[:-1], lengths) + within // block
     lane = within % block
     return order, nblocks, block_offsets, within, src, brow, lane
@@ -482,7 +810,7 @@ class PackedCsrIndex(_SortedTerms):
     def gather_postings(self, term_ids: Tensor, cap: int
                         ) -> Tuple[Tensor, Tensor, Tensor]:
         """q_occ: term ids [..., T] -> (docs, tfs, valid) [..., T, cap]."""
-        bidx, bvalid = self._term_blocks(term_ids, cap)
+        bidx, bvalid = self._term_blocks(term_ids, -(-cap // self.block))
         d, t, v = self.unpack_block(bidx.reshape(-1))
         shape = bidx.shape + (self.block,)
         d, t, v = d.view(shape), t.view(shape), v.view(shape)
@@ -490,9 +818,7 @@ class PackedCsrIndex(_SortedTerms):
         d = torch.where(bv, d, -1).flatten(-2)[..., :cap]
         t = torch.where(bv, t, 0.0).flatten(-2)[..., :cap]
         v = (bv & v).flatten(-2)[..., :cap]
-        present = (term_ids >= 0)[..., None]
-        return (torch.where(present, d, -1), torch.where(present, t, 0.0),
-                v & present)
+        return _present(term_ids, d, t, v)
 
     def nbytes(self) -> int:
         return sum(_nbytes(x) for x in
@@ -734,20 +1060,39 @@ def build_banded(h: PostingsHost, max_band_words: int | None = None,
     return BandedCsrIndex(packed=packed, hor=hor)
 
 
-LAYOUTS = {"hor": BlockedIndex, "packed": PackedCsrIndex}
+LAYOUTS = {"coo": CooIndex, "csr": CsrIndex, "compact_csr": CompactCsrIndex,
+           "hor": BlockedIndex, "packed": PackedCsrIndex}
+LOOKUPS = {"sorted": SortedLookup, "hash": HashLookup}
+
+
+def _tensors(arrays: dict, skip=()) -> dict:
+    """numpy arrays -> tensors, u32 stored as int32 bit-views."""
+    out = {}
+    for name, a in arrays.items():
+        if name in skip:
+            continue
+        a = np.asarray(a)
+        if a.dtype == np.uint32:
+            a = as_i32_bits(a)
+        out[name] = torch.from_numpy(np.array(a))
+    return out
 
 
 def index_from_numpy(kind: str, arrays: dict, statics: dict,
                      device="cuda"):
     """Build the port's index from a reference index given as numpy.
 
-    ``kind`` is "hor", "packed" or "banded"; ``arrays`` maps each tensor
-    field name (plus ``norm`` and ``rank`` for the DocTable) to a numpy
-    array, u32 arrays included (they are stored as int32 bit-views);
-    ``statics`` maps the static fields (``max_posting_len``, ``block``,
-    ``route_tile``, ...).  For "banded", ``arrays`` and ``statics`` map
-    "packed" and "hor" to each band's dicts; the bands then share the
-    packed band's DocTable and ``sorted_hash``, as in the reference.
+    ``kind`` is "coo", "csr", "compact_csr", "hor", "packed", "banded"
+    or "direct"; ``arrays`` maps each tensor field name (plus ``norm``
+    and ``rank`` for the DocTable) to a numpy array, u32 arrays included
+    (they are stored as int32 bit-views); ``statics`` maps the static
+    fields (``max_posting_len``, ``block``, ``route_tile``, ...).  For
+    "coo" and "csr", ``arrays["lookup"]`` is ``{"sorted": {"sorted_hash",
+    "perm"}}`` or ``{"hash": {"keys", "vals"}}``.  For "banded",
+    ``arrays`` and ``statics`` map "packed" and "hor" to each band's
+    dicts; the bands then share the packed band's DocTable and
+    ``sorted_hash``, as in the reference.  "direct" builds a
+    ``direct_index.DirectIndex`` (no DocTable).
     Lets the tests score the very index the reference built.
     """
     if kind == "banded":
@@ -756,15 +1101,14 @@ def index_from_numpy(kind: str, arrays: dict, statics: dict,
         h = index_from_numpy("hor", arrays["hor"], statics["hor"], device)
         return BandedCsrIndex(packed=p, hor=dataclasses.replace(
             h, docs=p.docs, sorted_hash=p.sorted_hash))
+    if kind == "direct":
+        from repro_torch.core.direct_index import DirectIndex
+        return DirectIndex(**_tensors(arrays), **statics).to(device)
     cls = LAYOUTS[kind]
-    fields = {}
-    for name, a in arrays.items():
-        if name in ("norm", "rank"):
-            continue
-        a = np.asarray(a)
-        if a.dtype == np.uint32:
-            a = as_i32_bits(a)
-        fields[name] = torch.from_numpy(np.array(a))
+    fields = _tensors(arrays, skip=("norm", "rank", "lookup"))
+    if "lookup" in arrays:
+        (lk_kind, lk_arrays), = arrays["lookup"].items()
+        fields["lookup"] = LOOKUPS[lk_kind](**_tensors(lk_arrays))
     docs = DocTable(norm=torch.from_numpy(np.asarray(arrays["norm"],
                                                      np.float32).copy()),
                     rank=torch.from_numpy(np.asarray(arrays["rank"],

@@ -62,6 +62,7 @@ from repro_torch.core import build as build_mod
 from repro_torch.core import compaction, layouts, size_model
 from repro_torch.core.build import TokenizedCorpus
 from repro_torch.core.layouts import DocTable, PostingsHost
+from repro_torch.core.segments import run_ranks
 from repro_torch.core.query import QueryResult, final_scores, query_norm
 from repro_torch.distributed.topk import merge_topk_candidates_host
 from repro_torch.kernels import autotune, ops
@@ -112,10 +113,7 @@ def _sum_in_posting_order(contrib: Tensor, doc_of: Tensor,
     if idx.numel() == 0:
         return acc
     d = doc_of[idx].long()
-    pos = torch.arange(idx.numel(), device=d.device)
-    first = torch.ones_like(d, dtype=torch.bool)
-    first[1:] = d[1:] != d[:-1]
-    rnd = pos - torch.cummax(torch.where(first, pos, 0), 0).values
+    rnd = run_ranks(d)
     for r in range(int(rnd.max()) + 1):
         sel = torch.nonzero(rnd == r).squeeze(1)
         acc[:, d[sel]] += contrib[:, idx[sel]]

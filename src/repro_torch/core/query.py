@@ -1,14 +1,17 @@
-"""Query evaluation — the paper's §3.7 elementary queries over the HOR
-and packed layouts: the port of ``repro.core.query``.
+"""Query evaluation — the paper's §3.7 elementary queries over any
+layout: the port of ``repro.core.query``.
 
   q_word : term name -> (term id, df)         [lookup phase]
   q_occ  : term id   -> posting list (doc,tf) [gather phase]
   q_doc  : doc ids   -> (norm, rank)          [doc-metadata phase]
 
-Two engines rank by tf-idf cosine (+ static-rank blend):
+Every layout in ``core/layouts.py`` (PR, OR, COR, HOR, packed, banded)
+exposes ``lookup_terms`` / ``term_df`` / ``gather_postings``.  Two
+engines rank by tf-idf cosine (+ static-rank blend):
 
-* ``engine="torch"`` — the dense oracle (``score_queries``): gather every
-  posting, scatter-add into a [B, num_docs] accumulator, top-k;
+* ``engine="torch"`` — the dense oracle (``score_queries``), over any
+  layout: gather every posting, scatter-add into a [B, num_docs]
+  accumulator, top-k;
 * ``engine="fused"`` — the fused engine (``fused_score_queries``): one
   kernel launch per batch, then either the candidate merge
   (``mode="candidates"``, the default) or, with ``mode="dense"``, the
@@ -16,7 +19,8 @@ Two engines rank by tf-idf cosine (+ static-rank blend):
 
 The oracle's scatter-add is deterministic on CUDA too: it adds one term
 slot at a time (doc ids are unique within a slot, so no ``index_add_``
-collides), in the reference's slot-major order.
+collides), in the reference's slot-major order.  ``conjunctive_filter``
+is the AND-semantics filter of one query over any layout.
 """
 from __future__ import annotations
 
@@ -181,6 +185,50 @@ def score_query(index: Any, query_hashes: Tensor, k: int, cap: int,
     return QueryResult(doc_ids=r.doc_ids[0], scores=r.scores[0])
 
 
+def conjunctive_scores(index: Any, term_ids: Tensor, idf_w: Tensor,
+                       needed: int, cap: int) -> tuple[Tensor, int]:
+    """AND semantics over one query's term ids i32[T] and weights
+    f32[T]: f32[num_docs] scores ``scores / max(norm, 1e-12)`` of the live
+    docs that hold at least ``needed`` of the terms, -inf elsewhere, and
+    the count of present terms whose posting list is longer than
+    ``cap`` (their tails were not read, so matches may be lost)."""
+    num_docs = index.docs.num_docs
+    df = index.term_df(term_ids)
+    d, tf, valid = index.gather_postings(term_ids, cap)
+    scores = accumulate_scores(d, tf * idf_w[:, None], valid, num_docs)
+    counts = accumulate_counts(d, valid, num_docs)
+    truncated = int(((df > cap) & (term_ids >= 0)).sum())
+    norm = index.docs.norm
+    final = torch.where((counts >= needed) & (norm > 0),
+                        scores / norm.clamp_min(1e-12), float("-inf"))
+    return final, truncated
+
+
+def conjunctive_filter(index: Any, query_hashes, k: int,
+                       cap: int) -> tuple[QueryResult, dict]:
+    """AND semantics for ONE query (u32 hashes [T], numpy or an int32
+    bit-view tensor): docs must contain every present query term.
+
+    Duplicate hashes are deduplicated first, so ``needed`` counts unique
+    present terms (a term absent from the vocabulary still counts, so
+    it matches nothing).  Returns (QueryResult, stats);
+    ``stats["truncated_terms"]`` counts present terms whose posting list
+    is longer than ``cap``: their tails are not read, so AND matches
+    may be lost, and the count is surfaced (and added to the
+    ``engine_truncated_terms`` counter) instead of passing silently.
+    """
+    from repro_torch.kernels import ops
+    qh = hash_tensor(query_hashes, index.device)
+    needed = int((dedup_query_hashes(qh) != 0).sum())
+    term_ids, idf_t = lookup_query(index, qh)
+    final, truncated = conjunctive_scores(index, term_ids, idf_t, needed,
+                                          cap)
+    r = _top_k(final[None], k)
+    ops.record_truncated(truncated)
+    return (QueryResult(doc_ids=r.doc_ids[0], scores=r.scores[0]),
+            {"truncated_terms": truncated})
+
+
 MODES = ("candidates", "dense")
 
 
@@ -242,7 +290,9 @@ def make_scorer(index: Any, k: int, cap: int | None, rank_blend: float = 0.0,
                 tune: Any = None) -> Callable[[Any], QueryResult]:
     """Batched scorer over ``index`` on the index's device.
 
-    ``engine="torch"`` is the dense oracle; ``engine="fused"`` the fused
+    ``engine="torch"`` is the dense oracle, over any layout (the
+    paper's Table 7 compares PR and OR with either lookup, COR, HOR and
+    packed through it); ``engine="fused"`` the fused
     engine (BlockedIndex / PackedCsrIndex only) in ``mode="candidates"``
     or ``"dense"`` — same ranked results, one pass over the routed
     posting blocks.  A ``SegmentedIndex`` goes to its own multi-segment

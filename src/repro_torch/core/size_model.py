@@ -1,9 +1,15 @@
-"""The parts of the reference's analytic size model (``repro.core.
-size_model``) that the query path and the live index need: the corpus
-statistics record of paper Table 4, the tuning-table size-class key,
-the per-layout posting-byte models, the band-cut chooser of banded
-segments and the per-segment layout chooser (``LayoutCostModel``,
+"""The reference's analytic size model (``repro.core.size_model``): the
+paper's Table 4 corpus statistics and its §4.1 size formulas (Table 5:
+PR against ORIF in a DBMS with per-tuple overhead, and the device
+layouts' true array bytes), the tuning-table size-class key, the
+per-layout posting-byte models, the band-cut chooser of banded segments
+and the per-segment layout chooser (``LayoutCostModel``,
 ``resolve_layout``).
+
+Notation (paper Table 4): N total word occurrences, D documents, N_d
+total postings (sum over docs of distinct words), W distinct words, t
+the per-tuple DBMS overhead (40 bytes in PSQL), f the field size (4
+bytes for int4/float4).
 
 The chooser's measured rung (tuning-table costs of both layouts) waits
 for the H100 tuning sweep; until then every decision comes from the
@@ -27,6 +33,74 @@ class CorpusStats:
     @property
     def w_avg(self) -> float:
         return self.N_d / max(self.D, 1)
+
+
+PSQL_FIELD_BYTES = 4      # int4 / float4
+PSQL_TUPLE_OVERHEAD = 40  # paper §4.1
+PSQL_PAGE_BYTES = 8 * 1024
+PSQL_POINT_BYTES = 16     # paper footnote 8 (point = 2 float8)
+
+# The paper's own collection (§4): 1,004,721 docs, 216,449 terms, 239
+# distinct words per doc on average.
+PAPER_COLLECTION = CorpusStats(D=1_004_721, W=216_449,
+                               N_d=1_004_721 * 239, N=1_004_721 * 239 * 3)
+
+
+def pr_bytes(s: CorpusStats, positions: bool = False,
+             f: int = PSQL_FIELD_BYTES, t: int = PSQL_TUPLE_OVERHEAD) -> int:
+    """PR: N_d * (3f + t), plus N * (3f + t) with positions."""
+    base = s.N_d * (3 * f + t)
+    if positions:
+        base += s.N * (3 * f + t)
+    return base
+
+
+def orif_bytes(s: CorpusStats, positions: bool = False,
+               f: int = PSQL_FIELD_BYTES, t: int = PSQL_TUPLE_OVERHEAD) -> int:
+    """ORIF: W * (f + t) + 2 f N_d, plus f N with positions."""
+    base = s.W * (f + t) + 2 * f * s.N_d
+    if positions:
+        base += f * s.N
+    return base
+
+
+def pr_over_orif(s: CorpusStats, positions: bool = False) -> float:
+    return pr_bytes(s, positions) / orif_bytes(s, positions)
+
+
+def pages(nbytes: int, page: int = PSQL_PAGE_BYTES) -> int:
+    return -(-nbytes // page)
+
+
+def coo_layout_bytes(s: CorpusStats, id_bytes: int = 4,
+                     tf_bytes: int = 4) -> int:
+    """PR analogue: word_id + doc_id + tf columns, plus word and doc
+    tables."""
+    postings = s.N_d * (2 * id_bytes + tf_bytes)
+    word_table = s.W * (id_bytes + id_bytes)          # hash, df
+    doc_table = s.D * (tf_bytes + tf_bytes)           # norm, rank
+    return postings + word_table + doc_table
+
+
+def csr_layout_bytes(s: CorpusStats, id_bytes: int = 4,
+                     tf_bytes: int = 4) -> int:
+    """OR/COR analogue: offsets + packed doc_id, tf; no word_id column."""
+    postings = s.N_d * (id_bytes + tf_bytes)
+    offsets = (s.W + 1) * id_bytes
+    word_table = s.W * (id_bytes + id_bytes)          # hash, df
+    doc_table = s.D * (tf_bytes + tf_bytes)
+    return postings + offsets + word_table + doc_table
+
+
+def packed_csr_layout_bytes(s: CorpusStats, mean_bits: float = 12.0,
+                            tf_bytes: int = 2, id_bytes: int = 4) -> int:
+    """Beyond the paper: delta+bit-packed doc ids (``mean_bits`` per
+    posting) + fp16 tf."""
+    postings = int(s.N_d * mean_bits / 8) + s.N_d * tf_bytes
+    offsets = (s.W + 1) * id_bytes
+    word_table = s.W * (id_bytes + id_bytes)
+    doc_table = s.D * (2 * tf_bytes)
+    return postings + offsets + word_table + doc_table
 
 
 def tuning_size_class(num_docs: int, route_tile: int = 512) -> int:

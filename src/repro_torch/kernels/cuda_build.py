@@ -25,7 +25,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("fused_topk_blocked", "fused_topk_packed", "fused_score_blocked",
-           "fused_score_packed")
+           "fused_score_packed", "posting_score", "unpack_blocks")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -104,3 +104,38 @@ def load(name: str, argtypes) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
+
+
+def check_tensors(name: str, **tensors) -> None:
+    """Validate each ``arg=(tensor, dtype, shape)`` before its pointer
+    reaches kernel ``name``, which trusts every extent it is given:
+    shapes first, then one CUDA device, dtype and contiguity."""
+    for arg, (t, _, shape) in tensors.items():
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, "
+                             f"needs {tuple(shape)}")
+    dev = None
+    for arg, (t, dtype, _) in tensors.items():
+        if not t.is_cuda:
+            raise ValueError(f"{name}: {arg} is on {t.device}; the CUDA "
+                             "kernel takes CUDA tensors only")
+        if dev is None:
+            dev = t.device
+        if t.device != dev:
+            raise ValueError(f"{name}: {arg} on {t.device}, others on {dev}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: {arg} is {t.dtype}, needs {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+def launch(name: str, argtypes, args, device) -> None:
+    """Call kernel ``name``'s C entry point with ``args`` (tensors passed
+    as their data pointers, numbers as given) and the current stream of
+    ``device``; raises if the launch is refused."""
+    import torch
+    fn = getattr(load(name, argtypes), f"{name}_launch")
+    vals = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    err = fn(*vals, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")

@@ -36,7 +36,9 @@ import ctypes
 import torch
 
 from repro_torch.core.layouts import take_rows, unpack_words
+from repro_torch.core.segments import run_ranks
 from repro_torch.core.query import final_scores, fma_f32
+from repro_torch.kernels.cuda_build import check_tensors, launch
 
 Tensor = torch.Tensor
 
@@ -76,16 +78,6 @@ def _check_reducer(reducer: str, cuda: bool) -> None:
         raise NotImplementedError(
             f"reducer={reducer!r} has no CUDA kernel yet (ROADMAP queue 2, "
             "item 4: the bitonic tile reducer); use reducer='successive'")
-
-
-def _pair_first(pair_tile: Tensor) -> Tensor:
-    one = torch.ones(1, dtype=torch.int32, device=pair_tile.device)
-    return torch.cat([one, (pair_tile[1:] != pair_tile[:-1]).int()])
-
-
-def _pair_last(pair_tile: Tensor) -> Tensor:
-    one = torch.ones(1, dtype=torch.int32, device=pair_tile.device)
-    return torch.cat([(pair_tile[1:] != pair_tile[:-1]).int(), one])
 
 
 def _doc_tiles(norm: Tensor, rank: Tensor, n_tiles: int, tile: int):
@@ -177,10 +169,7 @@ def _accumulate_pairs(docs: Tensor, tfs: Tensor, pair_tile: Tensor,
     pt = pair_tile[:n_real].long()
     docs, tfs = docs.long(), tfs.float()
     qw, cap = pair_qw[:n_real], pair_cap[:n_real]
-    pos = torch.arange(n_real, device=dev)
-    run_start = torch.cummax(
-        torch.where(_pair_first(pt) == 1, pos, 0), 0).values
-    rnd = pos - run_start
+    rnd = run_ranks(pt)
     lane = torch.arange(docs.shape[1], device=dev)
     local = docs - pt[:, None] * tile
     inb = ((docs >= 0) & (local >= 0) & (local < tile)
@@ -311,49 +300,14 @@ _ARGTYPES = {
 }
 
 
-def _check_cuda(name: str, **tensors) -> None:
-    """Validate each ``arg=(tensor, dtype, shape)`` before its pointer
-    reaches the kernel, which trusts every extent it is given: shapes
-    first, then one CUDA device, dtype and contiguity."""
-    for arg, (t, _, shape) in tensors.items():
-        if tuple(t.shape) != tuple(shape):
-            raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, "
-                             f"needs {tuple(shape)}")
-    dev = None
-    for arg, (t, dtype, _) in tensors.items():
-        if not t.is_cuda:
-            raise ValueError(f"{name}: {arg} is on {t.device}; the CUDA "
-                             "kernel takes CUDA tensors only")
-        if dev is None:
-            dev = t.device
-        if t.device != dev:
-            raise ValueError(f"{name}: {arg} on {t.device}, others on {dev}")
-        if t.dtype != dtype:
-            raise ValueError(f"{name}: {arg} is {t.dtype}, needs {dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {arg} must be contiguous")
-
-
-def _tile_start(pair_tile: Tensor, n_tiles: int) -> Tensor:
+def tile_starts(pair_tile: Tensor, n_tiles: int) -> Tensor:
     """CTA t walks pairs [tile_start[t], tile_start[t+1])."""
     bounds = torch.arange(n_tiles + 1, dtype=torch.int32,
                           device=pair_tile.device)
     return torch.searchsorted(pair_tile, bounds).to(torch.int32)
 
 
-def _run(name, pointers, ints, pair_qw):
-    """Launch kernel ``name`` on the current stream with ``pointers``
-    (tensors or ints) then ``ints``; raises if the launch is refused."""
-    from repro_torch.kernels import cuda_build
-    fn = getattr(cuda_build.load(name, _ARGTYPES[name]), f"{name}_launch")
-    ptr = [t.data_ptr() if isinstance(t, Tensor) else t for t in pointers]
-    stream = torch.cuda.current_stream(pair_qw.device).cuda_stream
-    err = fn(*ptr, *ints, stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
-
-
-def _check_smem(name: str, q: int, tile: int) -> None:
+def check_smem(name: str, q: int, tile: int) -> None:
     if q * tile * 4 > 227 * 1024:
         raise ValueError(f"{name}: Q={q} x tile={tile} f32 accumulator "
                          "exceeds a CTA's 227 KB of shared memory")
@@ -365,15 +319,16 @@ def _launch(name, blocks, pair_tile, pair_qw, pair_cap, decode, norm, rank,
     ``blocks`` / ``decode`` are its layout-specific tensors and ints."""
     q = pair_qw.shape[1]
     n_tiles = _n_tiles(num_docs, tile)
-    _check_smem(name, q, tile)
+    check_smem(name, q, tile)
     vals = torch.empty((q, n_tiles * k_tile), dtype=torch.float32,
                        device=pair_qw.device)
     ids = torch.empty((q, n_tiles * k_tile), dtype=torch.int32,
                       device=pair_qw.device)
-    tile_start = _tile_start(pair_tile, n_tiles)
-    _run(name, (*blocks, pair_cap, pair_qw, *decode, tile_start, norm, rank,
-                qnorm, vals, ids),
-         (n_tiles, num_docs, q, tile, k_tile, rank_blend), pair_qw)
+    tile_start = tile_starts(pair_tile, n_tiles)
+    launch(name, _ARGTYPES[name],
+           (*blocks, pair_cap, pair_qw, *decode, tile_start, norm, rank,
+            qnorm, vals, ids, n_tiles, num_docs, q, tile, k_tile,
+            rank_blend), pair_qw.device)
     return vals, ids
 
 
@@ -383,12 +338,13 @@ def _launch_dense(name, blocks, pair_tile, pair_qw, pair_cap, decode,
     element is written (zeros in unvisited tiles)."""
     q = pair_qw.shape[1]
     n_tiles = _n_tiles(num_docs, tile)
-    _check_smem(name, q, tile)
+    check_smem(name, q, tile)
     out = torch.empty((q, num_docs), dtype=torch.float32,
                       device=pair_qw.device)
-    tile_start = _tile_start(pair_tile, n_tiles)
-    _run(name, (*blocks, pair_cap, pair_qw, *decode, tile_start, out),
-         (n_tiles, num_docs, q, tile), pair_qw)
+    tile_start = tile_starts(pair_tile, n_tiles)
+    launch(name, _ARGTYPES[name],
+           (*blocks, pair_cap, pair_qw, *decode, tile_start, out, n_tiles,
+            num_docs, q, tile), pair_qw.device)
     return out
 
 
@@ -408,11 +364,11 @@ def _launch_blocked_cuda(block_docs, block_tfs, pair_block, pair_tile,
     name = "fused_topk_blocked"
     i32, f32 = torch.int32, torch.float32
     nb, q = block_docs.shape[0], pair_qw.shape[1]
-    _check_cuda(name, block_docs=(block_docs, i32, (nb, BLOCK)),
-                block_tfs=(block_tfs, f32, (nb, BLOCK)),
-                **_pair_checks(pair_block, pair_tile, pair_qw, pair_cap),
-                norm=(norm, f32, (num_docs,)), rank=(rank, f32, (num_docs,)),
-                qnorm=(qnorm, f32, (q,)))
+    check_tensors(name, block_docs=(block_docs, i32, (nb, BLOCK)),
+                  block_tfs=(block_tfs, f32, (nb, BLOCK)),
+                  **_pair_checks(pair_block, pair_tile, pair_qw, pair_cap),
+                  norm=(norm, f32, (num_docs,)), rank=(rank, f32, (num_docs,)),
+                  qnorm=(qnorm, f32, (q,)))
     return _launch(name, (block_docs, block_tfs, pair_block), pair_tile,
                    pair_qw, pair_cap, (), norm, rank, qnorm, num_docs, tile,
                    k_tile, rank_blend)
@@ -424,14 +380,14 @@ def _launch_packed_cuda(packed, block_tfs, pair_block, pair_tile, pair_qw,
     name = "fused_topk_packed"
     i32, f32 = torch.int32, torch.float32
     (nb, wpb), (np_, q) = packed.shape, pair_qw.shape
-    _check_cuda(name, packed=(packed, i32, (nb, max(wpb, 1))),
-                block_tfs=(block_tfs, torch.float16, (nb, BLOCK)),
-                **_pair_checks(pair_block, pair_tile, pair_qw, pair_cap),
-                pair_bits=(pair_bits, i32, (np_,)),
-                pair_base=(pair_base, i32, (np_,)),
-                pair_count=(pair_count, i32, (np_,)),
-                norm=(norm, f32, (num_docs,)), rank=(rank, f32, (num_docs,)),
-                qnorm=(qnorm, f32, (q,)))
+    check_tensors(name, packed=(packed, i32, (nb, max(wpb, 1))),
+                  block_tfs=(block_tfs, torch.float16, (nb, BLOCK)),
+                  **_pair_checks(pair_block, pair_tile, pair_qw, pair_cap),
+                  pair_bits=(pair_bits, i32, (np_,)),
+                  pair_base=(pair_base, i32, (np_,)),
+                  pair_count=(pair_count, i32, (np_,)),
+                  norm=(norm, f32, (num_docs,)), rank=(rank, f32, (num_docs,)),
+                  qnorm=(qnorm, f32, (q,)))
     return _launch(name, (packed, block_tfs, pair_block), pair_tile, pair_qw,
                    pair_cap, (pair_bits, pair_base, pair_count,
                               packed.shape[1]),
@@ -442,9 +398,9 @@ def _launch_score_blocked_cuda(block_docs, block_tfs, pair_block, pair_tile,
                                pair_qw, pair_cap, num_docs, tile):
     name = "fused_score_blocked"
     nb = block_docs.shape[0]
-    _check_cuda(name, block_docs=(block_docs, torch.int32, (nb, BLOCK)),
-                block_tfs=(block_tfs, torch.float32, (nb, BLOCK)),
-                **_pair_checks(pair_block, pair_tile, pair_qw, pair_cap))
+    check_tensors(name, block_docs=(block_docs, torch.int32, (nb, BLOCK)),
+                  block_tfs=(block_tfs, torch.float32, (nb, BLOCK)),
+                  **_pair_checks(pair_block, pair_tile, pair_qw, pair_cap))
     return _launch_dense(name, (block_docs, block_tfs, pair_block),
                          pair_tile, pair_qw, pair_cap, (), num_docs, tile)
 
@@ -456,12 +412,12 @@ def _launch_score_packed_cuda(packed, block_tfs, pair_block, pair_tile,
     i32 = torch.int32
     nb, wpb = packed.shape
     np_ = pair_qw.shape[0]
-    _check_cuda(name, packed=(packed, i32, (nb, max(wpb, 1))),
-                block_tfs=(block_tfs, torch.float16, (nb, BLOCK)),
-                **_pair_checks(pair_block, pair_tile, pair_qw, pair_cap),
-                pair_bits=(pair_bits, i32, (np_,)),
-                pair_base=(pair_base, i32, (np_,)),
-                pair_count=(pair_count, i32, (np_,)))
+    check_tensors(name, packed=(packed, i32, (nb, max(wpb, 1))),
+                  block_tfs=(block_tfs, torch.float16, (nb, BLOCK)),
+                  **_pair_checks(pair_block, pair_tile, pair_qw, pair_cap),
+                  pair_bits=(pair_bits, i32, (np_,)),
+                  pair_base=(pair_base, i32, (np_,)),
+                  pair_count=(pair_count, i32, (np_,)))
     return _launch_dense(name, (packed, block_tfs, pair_block), pair_tile,
                          pair_qw, pair_cap,
                          (pair_bits, pair_base, pair_count, wpb), num_docs,

@@ -20,6 +20,11 @@ return per-tile candidate lists of FINAL scores with GLOBAL doc ids
 GLOBAL idf weights the live index computes, so a multi-segment ranking
 matches a rebuild.  They are plain functions: eager PyTorch compiles
 nothing, so the reference's jit-cache keying has no counterpart.
+
+Two side paths of the paper run their own kernels:
+``blocked_query_scores`` scores ONE query over a HOR index through the
+posting scorer (``posting_score``), and ``unpack_postings`` decodes every
+block of a packed index (``packed_postings.unpack_blocks``).
 """
 from __future__ import annotations
 
@@ -29,8 +34,10 @@ import torch
 
 from repro_torch.core.layouts import (BandedCsrIndex, BlockedIndex,
                                       PackedCsrIndex, take_rows)
-from repro_torch.core.query import (accumulate_counts, accumulate_scores,
+from repro_torch.core.query import (accumulate_scores, conjunctive_scores,
                                     final_scores, query_norm)
+from repro_torch.kernels.packed_postings import unpack_blocks
+from repro_torch.kernels.posting_score import build_pairs, posting_score
 from repro_torch.kernels.fused_decode_score import (
     Q_PAD, TILE, build_batched_pairs, default_k_tile, extract_tile_candidates,
     fused_score_blocked, fused_score_blocked_plain, fused_score_packed,
@@ -80,6 +87,45 @@ def routing_spans(index: BlockedIndex | PackedCsrIndex, tile: int):
                      0, n_tiles - 1)
     return (torch.where(has, t0, 0).to(torch.int32),
             torch.where(has, t1 - t0 + 1, 0).to(torch.int32), n_tiles)
+
+
+def select_query_blocks(index: BlockedIndex, term_ids: Tensor,
+                        idf_w: Tensor, max_blocks_per_term: int):
+    """One query's selected blocks: (global block ids i32, validity,
+    per-block weight f32), each [T * max_blocks_per_term], term-major."""
+    safe = term_ids.clamp_min(0).long()
+    start = index.block_offsets[safe]
+    nb = index.block_offsets[safe + 1] - start
+    k = torch.arange(max_blocks_per_term, dtype=torch.int32,
+                     device=term_ids.device)
+    valid = (k[None, :] < nb[:, None]) & (term_ids >= 0)[:, None]
+    sel = torch.where(valid, start[:, None] + k[None, :], 0)
+    w = idf_w[:, None].expand(sel.shape)
+    return (sel.reshape(-1).to(torch.int32), valid.reshape(-1),
+            w.reshape(-1).float())
+
+
+def blocked_query_scores(index: BlockedIndex, term_ids: Tensor,
+                         idf_w: Tensor, max_blocks_per_term: int,
+                         max_pairs: int, tile: int = TILE):
+    """Dense per-doc scores f32[num_docs] of ONE query (term ids i32[T],
+    -1 absent; idf weights f32[T]) through the posting scorer, and the
+    routing overflow (a 0-d tensor; warned and counted when nonzero, so
+    an undersized ``max_pairs`` is never silent)."""
+    sel, valid, w = select_query_blocks(index, term_ids, idf_w,
+                                        max_blocks_per_term)
+    tfirst, tcount, n_tiles = routing_spans(index, tile)
+    pb, pt, pw, overflow = build_pairs(sel, valid, w, tfirst, tcount,
+                                       n_tiles, max_pairs)
+    warn_on_overflow(int(overflow), "blocked_query_scores")
+    return posting_score(index.block_docs, index.block_tfs, pb, pt, pw,
+                         index.docs.num_docs, tile), overflow
+
+
+def unpack_postings(index: PackedCsrIndex) -> Tensor:
+    """Decode ALL blocks of a PackedCsrIndex -> doc ids i32[NB, block]."""
+    return unpack_blocks(index.packed, index.block_bits, index.block_base,
+                         index.block_count, index.block)
 
 
 def default_max_pairs(index: BlockedIndex | PackedCsrIndex, num_queries: int,
@@ -432,15 +478,7 @@ def torch_segment_conjunctive(index, query_hashes: Tensor, idf_w: Tensor,
     Returns (vals, global ids, truncated_terms): the terms whose LOCAL
     posting list exceeds ``cap``, which the live index sums over its
     segments."""
-    num_docs = index.docs.num_docs
-    tids = _segment_terms(index, query_hashes)
-    df_local = index.term_df(tids)
-    d, tf, valid = index.gather_postings(tids, cap)
-    scores = accumulate_scores(d, tf * idf_w[:, None], valid, num_docs)
-    counts = accumulate_counts(d, valid, num_docs)
-    truncated = int(((df_local > cap) & (tids >= 0)).sum())
-    norm = index.docs.norm
-    final = torch.where((counts >= needed) & (norm > 0),
-                        scores / norm.clamp_min(1e-12), float("-inf"))
+    final, truncated = conjunctive_scores(
+        index, _segment_terms(index, query_hashes), idf_w, needed, cap)
     vals, ids = extract_tile_candidates(final[None], tile, k_tile)
     return vals[0], _global_ids(ids[0], doc_base), truncated

@@ -16,6 +16,8 @@ from repro_torch.core import build, layouts, live_index, query  # noqa: E402
 from repro_torch.core.layouts import DocTable, PostingsHost  # noqa: E402
 from repro_torch.kernels import fused_decode_score as fds  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import packed_postings as pp  # noqa: E402
+from repro_torch.kernels import posting_score as ps  # noqa: E402
 from repro_torch.text import corpus  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -245,3 +247,107 @@ def test_live_index_on_card_equals_cpu(gpu):
     (g, gs), (w, ws) = card.conjunctive(qh[0], 10, 200), cpu.conjunctive(
         qh[0], 10, 200)
     assert gs == ws and torch.equal(g.doc_ids.cpu(), w.doc_ids)
+
+
+@pytest.mark.parametrize("block", [16, 32, 128])
+def test_posting_score_kernel_equals_plain(gpu, host, block):
+    """The single-query scorer on the card: each query's pairs (sized
+    exactly from the routing spans, plus padding pairs) through the
+    kernel and the plain version, to the bit; the scores equal the
+    oracle's raw accumulation to the bit; one rare term leaves most
+    tiles unvisited, at 0.0."""
+    ix = layouts.build_blocked(host, block=block, device=gpu)
+    qh = corpus.sample_query_terms(host.df, host.term_hashes, 4, 4,
+                                   num_docs=host.num_docs, seed=block)
+    rare = np.zeros((1, 4), np.uint32)
+    rare[0, 0] = host.term_hashes[int(np.argmin(np.where(
+        host.df > 0, host.df, 10**9)))]
+    tids, idf_w = query.lookup_query(
+        ix, layouts.hash_tensor(np.concatenate([qh, rare]), gpu))
+    tfirst, tcount, n_tiles = ops.routing_spans(ix, ps.TILE)
+    for t, w in zip(tids, idf_w):
+        sel, valid, sw = ops.select_query_blocks(ix, t, w,
+                                                 ix.max_blocks_per_term)
+        max_pairs = int(tcount[sel.long()][valid].sum()) + 3
+        pb, pt, pw, ovf = ps.build_pairs(sel, valid, sw, tfirst, tcount,
+                                         n_tiles, max_pairs)
+        before = ps.posting_score.launches
+        got = ps.posting_score(ix.block_docs, ix.block_tfs, pb, pt, pw,
+                               host.num_docs)
+        want = ps.posting_score_plain(ix.block_docs, ix.block_tfs, pb, pt,
+                                      pw, host.num_docs)
+        torch.cuda.synchronize()
+        assert int(ovf) == 0 and ps.posting_score.launches == before + 1
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        scores, _ = ops.blocked_query_scores(ix, t, w,
+                                             ix.max_blocks_per_term,
+                                             max_pairs)
+        d, tf, v = ix.gather_postings(t, host.max_posting_len)
+        raw = query.accumulate_scores(d, tf * w[:, None], v, host.num_docs)
+        assert torch.equal(scores.view(torch.int32), raw.view(torch.int32))
+    assert (got != 0).sum() <= block
+
+
+@pytest.mark.parametrize("bits", list(range(4, 33)))
+@pytest.mark.parametrize("block", [16, 32, 128])
+def test_unpack_kernel_equals_plain(gpu, bits, block):
+    """Random words with all-ones high bytes, bases that wrap int32,
+    counts below the block width: kernel and plain version agree."""
+    rng = np.random.default_rng(bits * 1000 + block)
+    nb = 64
+    wpb = (block * bits + 31) // 32
+    words = rng.integers(0, 2**32, size=(nb, wpb), dtype=np.uint32)
+    words[:, -1] |= np.uint32(0xFF000000)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(gpu)  # noqa
+    args = (t(words.view(np.int32)), t(np.full(nb, bits, np.int32)),
+            t(np.r_[rng.integers(-5, 1000, nb - 1), [2**31 - 7]]
+              .astype(np.int32)),
+            t(rng.integers(0, block + 1, nb).astype(np.int32)))
+    before = pp.unpack_blocks.launches
+    got = pp.unpack_blocks(*args, block)
+    want = pp.unpack_blocks_plain(*args, block)
+    torch.cuda.synchronize()
+    assert pp.unpack_blocks.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("block", [100, 128, 1024])
+def test_unpack_postings_on_card(gpu, host, block):
+    """Every block of a packed index (a block width that is not a
+    multiple of a warp, the default, the widest) decoded on the card:
+    equal to the plain decode and to the CPU build's."""
+    ix = layouts.build_packed_csr(host, block=block, device=gpu)
+    got = ops.unpack_postings(ix)
+    want = pp.unpack_blocks_plain(ix.packed, ix.block_bits, ix.block_base,
+                                  ix.block_count, block)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    cpu = ops.unpack_postings(layouts.build_packed_csr(host, block=block,
+                                                       device="cpu"))
+    assert torch.equal(got.cpu(), cpu)
+    with pytest.raises(ValueError, match="lanes"):
+        pp.unpack_blocks(ix.packed, ix.block_bits, ix.block_base,
+                         ix.block_count, 2048)
+
+
+def test_representations_rank_alike_on_card(gpu, host):
+    """PR, OR (both lookups), COR, HOR and packed on the card: identical
+    ids and bit-equal scores through the oracle, equal to the CPU's ids."""
+    ixs = [layouts.build_coo(host, device=gpu),
+           layouts.build_coo(host, lookup="hash", device=gpu),
+           layouts.build_csr(host, device=gpu),
+           layouts.build_csr(host, lookup="hash", device=gpu),
+           layouts.build_compact_csr(host, device=gpu),
+           layouts.build_blocked(host, device=gpu),
+           layouts.build_packed_csr(host, device=gpu)]
+    qh = corpus.sample_query_terms(host.df, host.term_hashes, 8, 4,
+                                   num_docs=host.num_docs, seed=4)
+    res = [query.make_scorer(ix, k=10, cap=host.max_posting_len)(qh)
+           for ix in ixs]
+    for r in res[1:]:
+        assert torch.equal(r.doc_ids, res[0].doc_ids)
+        assert torch.equal(r.scores.view(torch.int32),
+                           res[0].scores.view(torch.int32))
+    cpu = query.make_scorer(layouts.build_csr(host, device="cpu"), k=10,
+                            cap=host.max_posting_len)(qh)
+    assert torch.equal(res[0].doc_ids.cpu(), cpu.doc_ids)

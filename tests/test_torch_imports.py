@@ -24,7 +24,12 @@ def test_port_imports_neither_jax_nor_repro():
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
-        "assert len(mods) >= 14, mods\n"
+        "assert len(mods) >= 18, mods\n"
+        "new = {'repro_torch.core.segments',\n"
+        "       'repro_torch.core.direct_index',\n"
+        "       'repro_torch.kernels.posting_score',\n"
+        "       'repro_torch.kernels.packed_postings'}\n"
+        "assert new <= set(mods), sorted(new - set(mods))\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", code], env=env,
@@ -116,3 +121,64 @@ def test_cuda_launchers_check_shapes(bad):
             fds._launch_score_blocked_cuda(
                 torch.zeros(4, 128, **i32), torch.zeros(tf_rows, 128, **f32),
                 *pairs, 600, 512)
+
+
+def test_side_launchers_refuse_cpu_tensors():
+    from repro_torch.kernels import packed_postings as tpp
+    from repro_torch.kernels import posting_score as tps
+    i32 = dict(dtype=torch.int32)
+    f32 = dict(dtype=torch.float32)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        tps._launch_posting_score_cuda(
+            torch.zeros(4, 16, **i32), torch.zeros(4, 16, **f32),
+            torch.zeros(8, **i32), torch.ones(8, **i32),
+            torch.zeros(8, **f32), 600, 512)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        tpp._launch_unpack_cuda(torch.zeros(4, 8, **i32),
+                                torch.ones(4, **i32), torch.zeros(4, **i32),
+                                torch.zeros(4, **i32), 128)
+    assert tps.posting_score.launches == 0
+    assert tpp.unpack_blocks.launches == 0
+
+
+@pytest.mark.parametrize("bad", ["block_docs", "block_tfs", "pair_block",
+                                 "pair_tile", "pair_w", "tile"])
+def test_posting_score_launcher_checks_extents(bad):
+    """Each tensor the posting scorer reads is checked before any
+    pointer is taken: one wrong extent per case, and a tile whose
+    accumulator cannot fit in shared memory."""
+    from repro_torch.kernels import posting_score as tps
+    i32 = dict(dtype=torch.int32)
+    f32 = dict(dtype=torch.float32)
+    args = [torch.zeros(4, 16, **i32), torch.zeros(4, 16, **f32),
+            torch.zeros(8, **i32), torch.ones(8, **i32),
+            torch.zeros(8, **f32)]
+    wrong = {"block_docs": torch.zeros(4, 16, 1, **i32),
+             "block_tfs": torch.zeros(4, 17, **f32),
+             "pair_block": torch.zeros(9, **i32),
+             "pair_tile": torch.ones(7, **i32),
+             "pair_w": torch.zeros(8, 2, **f32)}
+    names = ["block_docs", "block_tfs", "pair_block", "pair_tile", "pair_w"]
+    if bad in wrong:
+        args[names.index(bad)] = wrong[bad]
+    tile = 2**16 if bad == "tile" else 512
+    with pytest.raises(ValueError, match="has shape|shared memory"):
+        tps._launch_posting_score_cuda(*args, 600, tile)
+
+
+@pytest.mark.parametrize("bad", ["packed", "bits", "base", "count",
+                                 "block_0", "block_1025"])
+def test_unpack_launcher_checks_extents(bad):
+    """Each tensor the decoder reads is checked before any pointer is
+    taken (packed blocks with no words included), and a block width the
+    kernel does not decode (past 1024 lanes, or none) raises instead of
+    falling back."""
+    from repro_torch.kernels import packed_postings as tpp
+    i32 = dict(dtype=torch.int32)
+    packed = torch.zeros(4, 0 if bad == "packed" else 8, **i32)
+    bits = torch.ones(4 + (bad == "bits"), **i32)
+    base = torch.zeros(4 - (bad == "base"), **i32)
+    count = torch.zeros(4 if bad != "count" else 5, **i32)
+    block = {"block_0": 0, "block_1025": 1025}.get(bad, 128)
+    with pytest.raises(ValueError, match="has shape|lanes"):
+        tpp._launch_unpack_cuda(packed, bits, base, count, block)

@@ -22,6 +22,7 @@ from repro.core import query as rquery  # noqa: E402
 from repro.kernels import fused_decode_score as rfds, ops as rops  # noqa: E402
 from repro.text import corpus as rcorpus  # noqa: E402
 from repro_torch.core import layouts as tlayouts  # noqa: E402
+from repro_torch.core.segments import run_ranks  # noqa: E402
 from repro_torch.kernels import fused_decode_score as tfds  # noqa: E402
 
 K = 10
@@ -199,10 +200,17 @@ def test_pair_and_tile_helpers_match_reference():
     rng = np.random.default_rng(9)
     n_tiles, tile, k_tile, q = 5, 64, 8, 3
     pt = np.sort(rng.integers(0, n_tiles + 1, size=40)).astype(np.int32)
-    for fn in ("_pair_first", "_pair_last"):
-        np.testing.assert_array_equal(
-            getattr(tfds, fn)(torch.from_numpy(pt)).numpy(),
-            np.asarray(getattr(rfds, fn)(jnp.asarray(pt))))
+    # the port's run ranks start a run exactly where the reference's
+    # pair_first marks one, and end it where its pair_last does
+    rnk = run_ranks(torch.from_numpy(pt)).numpy()
+    first = np.asarray(rfds._pair_first(jnp.asarray(pt)))
+    last = np.asarray(rfds._pair_last(jnp.asarray(pt)))
+    np.testing.assert_array_equal((rnk == 0).astype(np.int32), first)
+    np.testing.assert_array_equal(
+        np.r_[rnk[1:] == 0, True].astype(np.int32), last)
+    np.testing.assert_array_equal(
+        rnk, np.arange(len(pt)) - np.maximum.accumulate(
+            np.where(first == 1, np.arange(len(pt)), 0)))
     norm = rng.random(300).astype(np.float32)
     rank = rng.random(300).astype(np.float32)
     for g, w in zip(tfds._doc_tiles(_t(norm), _t(rank), n_tiles, tile),
