@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's query paths on one GPU and check them.
+"""Drive the PyTorch/CUDA port's paths on one GPU and check them.
 
     python3 chip_smoke.py [--seed 7] [--out FILE]
 
@@ -62,8 +62,33 @@
    beside the size model, lookup bytes, ms per query) and times both
    kernels, their plain versions and, for the posting scorer, the one
    PyTorch call that computes its sum (``index_add_``).
-8. Prints per-phase wall times, a ``{"kernels": [...]}`` line with all
-   six kernels (means per launch over every counted call site of the
+8. The model phase: the three model kernels through their entry points
+   (``ops.embedding_bag``, ``ops.pna_multi_agg``, ``ops.attention``) at
+   the widths of the repository's model configurations, inputs made on
+   the card from ``--seed``: xDeepFM's fused field table (39 fields x
+   1,000,000 rows, d = 10, rows padded to 512) under a serve_bulk batch
+   of 262,144 one-hot rows and a serve_p99 batch of 512 multi-hot rows
+   (8 slots, a quarter padding); PNA's hidden features (d = 75) over
+   ogbn-products (2,449,408 nodes, padded degree 64, degrees 37-64) and
+   a Reddit minibatch (fanout 15, 10 from 1,024 seeds, a tenth of the
+   nodes without neighbours); causal attention at S = 4,096 for
+   Qwen3-0.6B (16 q / 8 kv heads, d 128, bf16 at batch 2, f32 at batch
+   1) and Gemma-3-4B (8 / 4 heads, d 256, bf16, batch 2, a local layer's
+   1,024 window and a global layer).  With every launch counter reset
+   just before and read just after, each site is called once; each
+   kernel must launch once per site and the six others never.  Checks:
+   the bag and PNA equal their plain versions to the bit, attention
+   within 2e-4 (f32) or 3e-2 (bf16), and a bf16 site also within one
+   bf16 rounding (rtol 8e-3, atol 1e-3) of the plain version run in f32
+   on the same inputs; PNA equals the model's segment
+   aggregation written as ``scatter_reduce`` (a 1/16 slice of
+   ogbn-products); Qwen3's bf16 site equals a mirror of the models'
+   ``chunked_attention`` within 3e-2.  Times each site in turns with
+   its plain version, beside its bound and the one PyTorch call that
+   computes it (``F.embedding_bag``, ``F.scaled_dot_product_attention``;
+   none for PNA).
+9. Prints per-phase wall times, a ``{"kernels": [...]}`` line with all
+   nine kernels (means per launch over every counted call site of the
    paths) and, last, ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -105,7 +130,12 @@ PAPER_KERNELS = {
     "posting_score": "src/repro/kernels/posting_score.py:87",
     "unpack_blocks": "src/repro/kernels/packed_postings.py:46",
 }
-ALL_KERNELS = (*FUSED_KERNELS, *PAPER_KERNELS)
+MODEL_KERNELS = {
+    "embedding_bag": "src/repro/kernels/embedding_bag.py:46",
+    "pna_multi_agg": "src/repro/kernels/segment_multi_agg.py:59",
+    "flash_attention": "src/repro/kernels/flash_attention.py:78",
+}
+ALL_KERNELS = (*FUSED_KERNELS, *PAPER_KERNELS, *MODEL_KERNELS)
 # live phase: the 1m tier's ingest batch and delta (benchmarks/campaign.py)
 NEW_DOCS, DELTA_DOCS = 50_000, 16_384
 SEALS = ((0, 10_000, None), (10_000, 20_000, None), (20_000, 30_000, None),
@@ -120,6 +150,24 @@ SIZE_LAYOUT = {"pr_btree": "pr", "pr_hash": "pr", "or_btree": "or",
                "or_hash": "or", "cor": "cor", "hor": "hor",
                "packed": "packed"}
 PAPER_TERMS = (1, 2, 3, 4)
+# model phase: the model kernels at the widths of the repository's configs
+XDEEPFM_FIELDS, XDEEPFM_VOCAB, XDEEPFM_DIM = 39, 1_000_000, 10  # xdeepfm.py
+XDEEPFM_BULK, XDEEPFM_P99, MULTI_HOT = 262_144, 512, 8
+PNA_DIM = 75                                     # pna.py d_hidden
+OGB_NODES, OGB_K, OGB_DEG = 2_449_408, 64, (37, 64)   # pna.py ogb_products
+MB_SEEDS, MB_FANOUT = 1024, (15, 10)             # pna.py minibatch_lg
+MB_NODES = MB_SEEDS * (1 + 15 + 150)
+ATTN_SEQ = 4096                                  # the LM configs' train_4k
+ATTN_SITES = {       # site: (batch, Hq, Hkv, head dim, window, dtype name)
+    "attn@qwen3_0.6b": (2, 16, 8, 128, 0, "bfloat16"),
+    "attn@gemma3_4b_local": (2, 8, 4, 256, 1024, "bfloat16"),
+    "attn@gemma3_4b_global": (2, 8, 4, 256, 0, "bfloat16"),
+    "attn@qwen3_0.6b_f32": (1, 16, 8, 128, 0, "float32"),
+}
+# a bf16 site's kernel against the plain version in f32, rounded to bf16:
+# one bf16 rounding apart at most (2**-7 of the value), above a floor
+BF16_RTOL, BF16_ATOL = 8e-3, 1e-3
+BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core rate
 
 
 def smi(fields: str) -> str:
@@ -256,6 +304,11 @@ def wrappers():
     out = {n: getattr(fds, n) for n in FUSED_KERNELS}
     out.update(posting_score=posting_score.posting_score,
                unpack_blocks=packed_postings.unpack_blocks)
+    from repro_torch.kernels import embedding_bag, flash_attention
+    from repro_torch.kernels import segment_multi_agg
+    out.update(embedding_bag=embedding_bag.embedding_bag,
+               pna_multi_agg=segment_multi_agg.pna_multi_agg,
+               flash_attention=flash_attention.flash_attention)
     return out
 
 
@@ -495,6 +548,11 @@ def main() -> int:
     sites += paper_phase(host, dev, report)
     phase_s["paper"] = time.perf_counter() - t_phase
     print(f"phase paper: {phase_s['paper']:.1f} s")
+
+    t_phase = time.perf_counter()
+    sites += model_phase(a.seed, dev, report)
+    phase_s["model"] = time.perf_counter() - t_phase
+    print(f"phase model: {phase_s['model']:.1f} s")
     report["phase_s"] = phase_s
 
     kinfo = {"kernels": kernel_rows(sites)}
@@ -1105,6 +1163,316 @@ def paper_phase(host, dev, report):
     return sites
 
 
+def model_inputs(seed, dev):
+    """Every input of the model phase, made on the card from ``seed``:
+    xDeepFM's fused field table and its serve_bulk and multi-hot id
+    batches, PNA's hidden features and padded neighbour lists at
+    ogbn-products and a Reddit minibatch, and q/k/v at each attention
+    site.  Returns the main path's calls as (site, kernel, args, kw)."""
+    import torch
+    from repro_torch.kernels import embedding_bag as tbag
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def ids(hi, shape):
+        return torch.randint(0, hi, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+
+    def rand(shape):
+        return torch.rand(shape, generator=g, device=dev)
+
+    f, vocab = XDEEPFM_FIELDS, XDEEPFM_VOCAB
+    table = torch.randn(tbag.padded_rows(f * vocab), XDEEPFM_DIM,
+                        generator=g, device=dev) * 0.02   # embed_init
+    bulk = tbag.field_ids(ids(vocab, (XDEEPFM_BULK, f)), vocab)
+    multi = tbag.field_ids(ids(vocab, (XDEEPFM_P99, f, MULTI_HOT)), vocab)
+    multi = multi.reshape(-1, MULTI_HOT)
+    multi[rand(multi.shape) < 0.25] = -1
+    calls = [("bag@xdeepfm_serve_bulk", "embedding_bag",
+              (table, bulk.reshape(-1, 1)), {}),
+             ("bag@xdeepfm_multihot", "embedding_bag", (table, multi), {})]
+
+    feats = torch.randn(OGB_NODES, PNA_DIM, generator=g, device=dev)
+    nbr = ids(OGB_NODES, (OGB_NODES, OGB_K))
+    deg = torch.randint(OGB_DEG[0], OGB_DEG[1] + 1, (OGB_NODES, 1),
+                        generator=g, device=dev)
+    nbr[torch.arange(OGB_K, device=dev)[None, :] >= deg] = -1
+    calls.append(("pna@ogbn_products", "pna_multi_agg", (feats, nbr), {}))
+    feats = torch.randn(MB_NODES, PNA_DIM, generator=g, device=dev)
+    n = MB_SEEDS
+    for hop, fan in enumerate(MB_FANOUT, 1):
+        nbr = ids(MB_NODES, (n, fan))
+        nbr[(rand((n, 1)) < 0.1).expand(n, fan)] = -1  # degree-0 nodes
+        calls.append((f"pna@reddit_minibatch/hop{hop}", "pna_multi_agg",
+                      (feats, nbr), {}))
+        n *= fan
+
+    for site, (b, hq, hkv, d, window, dt) in ATTN_SITES.items():
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.randn(b, h, ATTN_SEQ, d, generator=g, device=dev)
+                   .to(dtype) for h in (hq, hkv, hkv))
+        calls.append((site, "flash_attention", (q, k, v),
+                      {"causal": True, "window": window}))
+    return calls
+
+
+def scatter_aggregate(feats, nbr):
+    """PNA's four aggregations the way the model computes them
+    (``gnn._pna_layer``: segment reductions over an edge list), written
+    as ``scatter_reduce`` over src = nbr, dst = the node."""
+    import torch
+    n, k = nbr.shape
+    d = feats.shape[1]
+    dst = torch.arange(n, device=nbr.device).repeat_interleave(k)
+    src = nbr.reshape(-1).long()
+    keep = src >= 0
+    src, dst = src[keep], dst[keep]
+    m = feats[src]
+    idx = dst[:, None].expand(-1, d)
+    zeros = torch.zeros((n, d), device=feats.device)
+    cnt = torch.zeros(n, device=feats.device).scatter_reduce(
+        0, dst, torch.ones_like(dst, dtype=torch.float32), "sum")
+    cnt = cnt.clamp_min(1.0)[:, None]
+    mean = zeros.scatter_reduce(0, idx, m, "sum") / cnt
+    mean_sq = zeros.scatter_reduce(0, idx, m * m, "sum") / cnt
+    mn = torch.full_like(zeros, float("inf")).scatter_reduce(0, idx, m,
+                                                             "amin")
+    mx = torch.full_like(zeros, float("-inf")).scatter_reduce(0, idx, m,
+                                                              "amax")
+    std = torch.sqrt((mean_sq - mean * mean).clamp_min(0.0) + 1e-5)
+    return torch.cat([mean, torch.where(torch.isfinite(mn), mn, 0.0),
+                      torch.where(torch.isfinite(mx), mx, 0.0), std], dim=1)
+
+
+def model_attention(q, k, v, window, chunk=512):
+    """A plain-torch mirror of the transformers' ``chunked_attention``
+    (``repro.models.attention``): query chunks, f32 scores over all keys
+    with GQA by head groups, masked to -1e30, softmax, p cast to v's
+    dtype.  A correctness yardstick only."""
+    import torch
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    kg = k.reshape(b, hkv, 1, s, d).float()
+    vg = v.reshape(b, hkv, 1, s, d)
+    kpos = torch.arange(s, device=q.device)
+    out = []
+    for c0 in range(0, s, chunk):
+        qc = q[:, :, c0:c0 + chunk]
+        c = qc.shape[2]
+        qc = qc.reshape(b, hkv, hq // hkv, c, d).float()
+        scores = (qc @ kg.transpose(-1, -2)) * d ** -0.5
+        qpos = torch.arange(c0, c0 + c, device=q.device)[:, None]
+        mask = kpos[None, :] <= qpos
+        if window > 0:
+            mask &= kpos[None, :] > qpos - window
+        p = torch.softmax(scores.masked_fill(~mask, -1e30), dim=-1)
+        out.append((p.to(v.dtype) @ vg).reshape(b, hq, c, d))
+    return torch.cat(out, dim=2)
+
+
+def live_pairs(s, window):
+    """Causal (query, key) pairs with a live entry at length ``s``."""
+    if window <= 0:
+        return s * (s + 1) // 2
+    return sum(min(i + 1, window) for i in range(s))
+
+
+def model_work(kernel, args, kw):
+    """(bytes, ops, extra) one call must move/do at least: every input
+    read once and the output written once, counted from this call's
+    data (distinct table and neighbour rows, valid slots, live
+    pairs)."""
+    import torch
+    if kernel == "embedding_bag":
+        table, idx = args
+        elt = table.element_size()
+        ok = idx >= 0
+        valid = int(ok.sum())
+        rows = int(torch.unique(idx[ok]).numel())
+        d = table.shape[1]
+        nbytes = idx.numel() * 4 + rows * d * elt + idx.shape[0] * d * elt
+        return nbytes, valid * d, {"valid_slots": valid,
+                                   "distinct_rows": rows,
+                                   "gathered_row_bytes": valid * d * elt}
+    if kernel == "pna_multi_agg":
+        feats, nbr = args
+        d = feats.shape[1]
+        ok = nbr >= 0
+        valid = int(ok.sum())
+        rows = int(torch.unique(nbr[ok]).numel())
+        nbytes = nbr.numel() * 4 + rows * d * 4 + nbr.shape[0] * 4 * d * 4
+        # per valid (neighbour, column): add, two for the fma, min, max
+        return nbytes, valid * d * 5, {
+            "valid_edges": valid, "distinct_rows": rows,
+            "gathered_row_bytes": valid * d * 4}
+    q, k, v = args
+    b, hq, s, d = q.shape
+    live = live_pairs(s, kw["window"])
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    return nbytes, 4 * b * hq * d * live, {"live_pairs_per_head": live}
+
+
+def model_phase(seed, dev, report):
+    """The model kernels at the widths of the repository's model
+    configurations (step 8 of the module docstring); returns their
+    sites."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import embedding_bag as tbag
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import segment_multi_agg as tpna
+
+    # the plain versions' f32 products run in full f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    entry = {"embedding_bag": ops.embedding_bag,
+             "pna_multi_agg": ops.pna_multi_agg,
+             "flash_attention": ops.attention}
+    plain = {"embedding_bag": tbag.embedding_bag_plain,
+             "pna_multi_agg": tpna.pna_multi_agg_plain,
+             "flash_attention": tfa.flash_attention_plain}
+    model: dict = {}
+    t0 = time.perf_counter()
+    calls = model_inputs(seed, dev)
+    torch.cuda.synchronize()
+    model["inputs_s"] = time.perf_counter() - t0
+
+    # warm-up (library loads) on a slice of each kind of call
+    for _, kern, args, kw in calls:
+        if kern == "flash_attention":
+            entry[kern](*(x[:1, :, :64].contiguous() for x in args), **kw)
+        else:
+            entry[kern](args[0], args[1][:1].contiguous(), **kw)
+    torch.cuda.synchronize()
+
+    # the main path: every counter from zero just before, read just after
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    outs, e2e_ms = [], []
+    for _, kern, args, kw in calls:
+        t0 = time.perf_counter()
+        outs.append(entry[kern](*args, **kw))
+        torch.cuda.synchronize()
+        e2e_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = read_launches()
+    print(f"model launches: {json.dumps(launches)}")
+    for name in ALL_KERNELS:
+        want = sum(c[1] == name for c in calls)
+        if launches[name] != want:
+            raise AssertionError(f"model path launched {name} "
+                                 f"{launches[name]} times, not {want}")
+
+    sites = []
+    for (site, kern, args, kw), got, ms_e2e in zip(calls, outs, e2e_ms):
+        want = plain[kern](*args, **kw)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.dtype != want.dtype or \
+                not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{site}: bad output {tuple(got.shape)} "
+                                 f"{got.dtype}")
+        err = float((got.float() - want.float()).abs().max())
+        info = {"site": site, "kernel": kern, "launches": 1,
+                "shapes": [list(x.shape) for x in args],
+                "dtype": str(args[0].dtype), **kw, "max_abs_err": err,
+                "e2e_ms": ms_e2e}
+        if kern == "flash_attention":
+            tol = 3e-2 if got.dtype == torch.bfloat16 else 2e-4
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                       atol=tol)
+            info["tolerance"] = tol
+            if got.dtype == torch.bfloat16:
+                # the plain version computes in bf16; the kernel, like the
+                # Pallas kernel, in f32 from the bf16 inputs: held to the
+                # plain version run in f32 on the same inputs and rounded
+                # to bf16, it may differ by one rounding of the output
+                f32 = plain[kern](*(x.float() for x in args), **kw)
+                f32 = f32.to(torch.bfloat16).float()
+                torch.testing.assert_close(got.float(), f32,
+                                           rtol=BF16_RTOL, atol=BF16_ATOL)
+                gap = (got.float() - f32).abs()
+                info.update(
+                    tolerance_f32_plain=[BF16_RTOL, BF16_ATOL],
+                    max_abs_err_f32_plain=float(gap.max()),
+                    max_rel_err_f32_plain=float(
+                        (gap / f32.abs().clamp_min(BF16_ATOL)).max()),
+                    outputs_off_f32_plain=int((gap > 0).sum()))
+                del f32, gap
+            if site == "attn@qwen3_0.6b":
+                yard = model_attention(*args, kw["window"])
+                torch.testing.assert_close(got.float(), yard.float(),
+                                           rtol=tol, atol=tol)
+                info["max_abs_err_model_attention"] = float(
+                    (got.float() - yard.float()).abs().max())
+                del yard
+        elif not torch.equal(got.float().view(torch.int32),
+                             want.float().view(torch.int32)):
+            raise AssertionError(f"{site}: kernel != plain version "
+                                 f"(max abs err {err})")
+        if kern == "pna_multi_agg":
+            # the model's own aggregation on the same edges (a 1/16
+            # slice of the largest graph)
+            feats, nbr = args
+            n = nbr.shape[0] if nbr.shape[0] < 100_000 else \
+                nbr.shape[0] // 16
+            agg = scatter_aggregate(feats, nbr[:n])
+            torch.testing.assert_close(got[:n], agg, rtol=1e-5, atol=1e-5)
+            info.update(scatter_nodes_checked=n, max_abs_err_scatter=float(
+                (got[:n] - agg).abs().max()))
+            del agg
+        del want
+
+        nbytes, nops, extra = model_work(kern, args, kw)
+        # attention's products belong on the tensor cores in bf16; every
+        # other operation here is f32 on the CUDA cores
+        peak = BF16_OPS_PER_S if kern == "flash_attention" and \
+            args[0].dtype == torch.bfloat16 else F32_OPS_PER_S
+        ms, turns, plain_ms, clocks = time_in_turns(
+            lambda *c: entry[kern](*c, **kw),
+            lambda *c: plain[kern](*c, **kw), [args])
+        lib_ms, lib_note = None, None
+        if kern == "embedding_bag":
+            table, idx = args
+            lib_args = (idx.clamp_min(0), (idx >= 0).to(table.dtype))
+            lib_ms = event_ms(lambda i, w: F.embedding_bag(
+                i, table, mode="sum", per_sample_weights=w), [lib_args],
+                REPS)
+            lib_note = "F.embedding_bag(mode='sum', per_sample_weights)"
+        elif kern == "flash_attention":
+            q = args[0]
+            s = q.shape[2]
+            pos = torch.arange(s, device=dev)
+            if kw["window"] > 0:
+                mask = (pos[None, :] <= pos[:, None]) & \
+                    (pos[None, :] > pos[:, None] - kw["window"])
+                lib_ms = event_ms(lambda *c: F.scaled_dot_product_attention(
+                    *c, attn_mask=mask, enable_gqa=True), [args], REPS)
+                lib_note = "F.scaled_dot_product_attention(bool window mask)"
+            else:
+                lib_ms = event_ms(lambda *c: F.scaled_dot_product_attention(
+                    *c, is_causal=True, enable_gqa=True), [args], REPS)
+                lib_note = "F.scaled_dot_product_attention(is_causal)"
+        else:
+            lib_note = ("none: PNA's four aggregations take four "
+                        "scatter_reduce calls, not one")
+        info.update(extra, bytes=nbytes, ops=nops, kernel_ms=ms,
+                    kernel_ms_turns=turns, plain_ms=plain_ms,
+                    library_ms=lib_ms, library=lib_note,
+                    t_bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                    t_ops_ms=nops / peak * 1e3,
+                    clocks_sm_mem_power_temp=clocks)
+        info["bound_ms"] = max(info["t_bytes_ms"], info["t_ops_ms"])
+        print(f"model kernel site: {json.dumps(info)}")
+        sites.append(info)
+    model["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    print(f"model: {json.dumps(model)}")
+    report["model"] = {**model, "kernel_sites": sites}
+    del calls, outs
+    torch.cuda.empty_cache()
+    return sites
+
+
 def kernel_rows(sites):
     """One row per kernel for the ``kernels`` line: ``launches`` sums
     the counted runs of every path, and ``ms``, ``plain_ms`` and
@@ -1113,7 +1481,8 @@ def kernel_rows(sites):
     import numpy as np
     rows = []
     replaced = {n: r for n, (_, r) in {**KERNELS, **DENSE_KERNELS}.items()}
-    for name, replaces in {**replaced, **PAPER_KERNELS}.items():
+    for name, replaces in {**replaced, **PAPER_KERNELS,
+                           **MODEL_KERNELS}.items():
         mine = [x for x in sites if x["kernel"] == name]
         if not mine:
             raise AssertionError(f"{name}: no call site on any path")

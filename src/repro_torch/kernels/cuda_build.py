@@ -25,7 +25,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("fused_topk_blocked", "fused_topk_packed", "fused_score_blocked",
-           "fused_score_packed", "posting_score", "unpack_blocks")
+           "fused_score_packed", "posting_score", "unpack_blocks",
+           "embedding_bag", "pna_multi_agg", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -109,13 +110,15 @@ def load(name: str, argtypes) -> ctypes.CDLL:
 def check_tensors(name: str, **tensors) -> None:
     """Validate each ``arg=(tensor, dtype, shape)`` before its pointer
     reaches kernel ``name``, which trusts every extent it is given:
-    shapes first, then one CUDA device, dtype and contiguity."""
-    for arg, (t, _, shape) in tensors.items():
+    shapes and dtypes first, then one CUDA device and contiguity."""
+    for arg, (t, dtype, shape) in tensors.items():
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, "
                              f"needs {tuple(shape)}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: {arg} is {t.dtype}, needs {dtype}")
     dev = None
-    for arg, (t, dtype, _) in tensors.items():
+    for arg, t in ((a, v[0]) for a, v in tensors.items()):
         if not t.is_cuda:
             raise ValueError(f"{name}: {arg} is on {t.device}; the CUDA "
                              "kernel takes CUDA tensors only")
@@ -123,10 +126,17 @@ def check_tensors(name: str, **tensors) -> None:
             dev = t.device
         if t.device != dev:
             raise ValueError(f"{name}: {arg} on {t.device}, others on {dev}")
-        if t.dtype != dtype:
-            raise ValueError(f"{name}: {arg} is {t.dtype}, needs {dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+def check_ids(name: str, arg: str, ids, rows: int) -> None:
+    """Refuse an id past the ``rows`` rows it indexes (a negative id is
+    padding): kernel ``name`` reads row ``id`` without a bound."""
+    top = int(ids.max()) if ids.numel() else -1
+    if top >= rows:
+        raise ValueError(f"{name}: {arg} holds id {top}, past the {rows} "
+                         "rows it indexes")
 
 
 def launch(name: str, argtypes, args, device) -> None:

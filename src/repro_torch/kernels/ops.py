@@ -25,6 +25,12 @@ Two side paths of the paper run their own kernels:
 ``blocked_query_scores`` scores ONE query over a HOR index through the
 posting scorer (``posting_score``), and ``unpack_postings`` decodes every
 block of a packed index (``packed_postings.unpack_blocks``).
+
+The model kernels have one entry point each, with the reference's
+argument order and layouts: ``embedding_bag`` (fixed-arity multi-hot bag
+sums), ``pna_multi_agg`` (PNA's mean | min | max | std) and ``attention``
+(flash attention, ``[B, H, S, D]``).  There is no ``backend`` argument:
+a CUDA tensor launches the kernel, a CPU tensor runs its plain version.
 """
 from __future__ import annotations
 
@@ -36,8 +42,11 @@ from repro_torch.core.layouts import (BandedCsrIndex, BlockedIndex,
                                       PackedCsrIndex, take_rows)
 from repro_torch.core.query import (accumulate_scores, conjunctive_scores,
                                     final_scores, query_norm)
+from repro_torch.kernels.embedding_bag import embedding_bag  # noqa: F401
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.packed_postings import unpack_blocks
 from repro_torch.kernels.posting_score import build_pairs, posting_score
+from repro_torch.kernels.segment_multi_agg import pna_multi_agg  # noqa: F401
 from repro_torch.kernels.fused_decode_score import (
     Q_PAD, TILE, build_batched_pairs, default_k_tile, extract_tile_candidates,
     fused_score_blocked, fused_score_blocked_plain, fused_score_packed,
@@ -126,6 +135,13 @@ def unpack_postings(index: PackedCsrIndex) -> Tensor:
     """Decode ALL blocks of a PackedCsrIndex -> doc ids i32[NB, block]."""
     return unpack_blocks(index.packed, index.block_bits, index.block_base,
                          index.block_count, index.block)
+
+
+def attention(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
+              window: int = 0) -> Tensor:
+    """q [B, Hq, S, D], k/v [B, Hkv, S, D] -> [B, Hq, S, D] in q's
+    dtype; causal and/or a sliding ``window``, GQA."""
+    return flash_attention(q, k, v, causal=causal, window=window)
 
 
 def default_max_pairs(index: BlockedIndex | PackedCsrIndex, num_queries: int,

@@ -14,10 +14,13 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import build, layouts, live_index, query  # noqa: E402
 from repro_torch.core.layouts import DocTable, PostingsHost  # noqa: E402
+from repro_torch.kernels import embedding_bag as tbag  # noqa: E402
+from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import fused_decode_score as fds  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import packed_postings as pp  # noqa: E402
 from repro_torch.kernels import posting_score as ps  # noqa: E402
+from repro_torch.kernels import segment_multi_agg as tpna  # noqa: E402
 from repro_torch.text import corpus  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -351,3 +354,94 @@ def test_representations_rank_alike_on_card(gpu, host):
     cpu = query.make_scorer(layouts.build_csr(host, device="cpu"), k=10,
                             cap=host.max_posting_len)(qh)
     assert torch.equal(res[0].doc_ids.cpu(), cpu.doc_ids)
+
+
+# ---------------------------------------------------------------------------
+# the model kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("v,d,b,h,dtype", [
+    (1000, 10, 777, 1, torch.float32), (5000, 10, 333, 8, torch.float32),
+    (100, 128, 64, 3, torch.float32), (5000, 10, 333, 8, torch.bfloat16),
+    (300, 64, 50, 5, torch.bfloat16)])
+def test_embedding_bag_kernel_equals_plain(gpu, v, d, b, h, dtype):
+    """Bit-equal, any B, a quarter of the slots padding, one bag of
+    padding only; rows of mixed magnitude so bf16 rounds at every add."""
+    g = torch.Generator(device=gpu).manual_seed(v + b)
+    scale = torch.tensor([1.0, 300.0, 1e-3], device=gpu)[
+        torch.randint(0, 3, (v, 1), generator=g, device=gpu)]
+    table = (torch.randn(v, d, generator=g, device=gpu) * scale).to(dtype)
+    idx = torch.randint(0, v, (b, h), generator=g, device=gpu,
+                        dtype=torch.int32)
+    idx[torch.rand(b, h, generator=g, device=gpu) < 0.25] = -1
+    idx[0] = -1
+    before = tbag.embedding_bag.launches
+    got = tbag.embedding_bag(table, idx)
+    want = tbag.embedding_bag_plain(table, idx)
+    torch.cuda.synchronize()
+    assert tbag.embedding_bag.launches == before + 1
+    assert got.dtype == dtype and got.shape == (b, d)
+    assert torch.equal(got.float().view(torch.int32),
+                       want.float().view(torch.int32))
+    assert not got[0].float().view(torch.int32).any()
+
+
+@pytest.mark.parametrize("n,k,d,nsrc", [(1000, 64, 75, 5000),
+                                        (100, 15, 75, 300), (37, 5, 8, 20)])
+def test_pna_kernel_equals_plain(gpu, n, k, d, nsrc):
+    """Bit-equal: rows with no neighbour, padding scattered through the
+    lists, signed zeros in the features."""
+    g = torch.Generator(device=gpu).manual_seed(n + k)
+    feats = torch.randn(nsrc, d, generator=g, device=gpu)
+    feats[torch.rand(nsrc, d, generator=g, device=gpu) < 0.1] = 0.0
+    feats[torch.rand(nsrc, d, generator=g, device=gpu) < 0.1] = -0.0
+    nbr = torch.randint(0, nsrc, (n, k), generator=g, device=gpu,
+                        dtype=torch.int32)
+    nbr[torch.rand(n, k, generator=g, device=gpu) < 0.3] = -1
+    nbr[::10] = -1
+    before = tpna.pna_multi_agg.launches
+    got = tpna.pna_multi_agg(feats, nbr)
+    want = tpna.pna_multi_agg_plain(feats, nbr)
+    torch.cuda.synchronize()
+    assert tpna.pna_multi_agg.launches == before + 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("causal,window,b,hq,hkv,s,d,dtype", [
+    (True, 0, 2, 4, 2, 64, 16, torch.float32),
+    (True, 24, 2, 4, 4, 200, 32, torch.float32),
+    (False, 0, 1, 2, 1, 130, 64, torch.float32),
+    (False, 40, 1, 4, 2, 190, 16, torch.float32),
+    (True, 0, 1, 4, 2, 256, 128, torch.float32),
+    (True, 100, 1, 2, 1, 300, 256, torch.float32),
+    (True, 16, 1, 8, 2, 128, 16, torch.bfloat16),
+    (True, 0, 2, 4, 2, 320, 128, torch.bfloat16),
+    (True, 128, 1, 4, 2, 512, 256, torch.bfloat16),
+    (True, 0, 1, 2, 2, 100, 256, torch.bfloat16)])
+def test_flash_kernel_equals_plain(gpu, causal, window, b, hq, hkv, s, d,
+                                   dtype):
+    """Within 2e-4 (f32) or 3e-2 (bf16, compared in f32) of the plain
+    version, and in bf16 also within one bf16 rounding of the plain
+    version run in f32 on the same inputs: head widths 16-256, S not a
+    multiple of the 64-row tiles, causal, windowed, non-causal and
+    GQA."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=gpu).manual_seed(s + d)
+    q = torch.randn(b, hq, s, d, generator=g, device=gpu).to(dtype)
+    k = torch.randn(b, hkv, s, d, generator=g, device=gpu).to(dtype)
+    v = torch.randn(b, hkv, s, d, generator=g, device=gpu).to(dtype)
+    before = tfa.flash_attention.launches
+    got = tfa.flash_attention(q, k, v, causal=causal, window=window)
+    want = tfa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 3e-2 if dtype == torch.bfloat16 else 2e-4
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        f32 = tfa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                        causal=causal, window=window)
+        torch.testing.assert_close(got.float(),
+                                   f32.to(torch.bfloat16).float(),
+                                   rtol=8e-3, atol=1e-3)

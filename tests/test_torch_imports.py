@@ -24,11 +24,14 @@ def test_port_imports_neither_jax_nor_repro():
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
-        "assert len(mods) >= 18, mods\n"
+        "assert len(mods) >= 21, mods\n"
         "new = {'repro_torch.core.segments',\n"
         "       'repro_torch.core.direct_index',\n"
         "       'repro_torch.kernels.posting_score',\n"
-        "       'repro_torch.kernels.packed_postings'}\n"
+        "       'repro_torch.kernels.packed_postings',\n"
+        "       'repro_torch.kernels.embedding_bag',\n"
+        "       'repro_torch.kernels.segment_multi_agg',\n"
+        "       'repro_torch.kernels.flash_attention'}\n"
         "assert new <= set(mods), sorted(new - set(mods))\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -182,3 +185,84 @@ def test_unpack_launcher_checks_extents(bad):
     block = {"block_0": 0, "block_1025": 1025}.get(bad, 128)
     with pytest.raises(ValueError, match="has shape|lanes"):
         tpp._launch_unpack_cuda(packed, bits, base, count, block)
+
+
+def test_model_launchers_refuse_cpu_tensors():
+    """The three model kernels' launchers refuse CPU tensors; their
+    wrappers send CPU tensors to the plain versions and count nothing."""
+    from repro_torch.kernels import embedding_bag as tbag
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import segment_multi_agg as tpna
+    table = torch.zeros(50, 10)
+    idx = torch.zeros(4, 3, dtype=torch.int32)
+    q = torch.zeros(1, 4, 32, 16)
+    kv = torch.zeros(1, 2, 32, 16)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        tbag._launch_embedding_bag_cuda(table, idx)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        tpna._launch_pna_cuda(table, idx)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        tfa._launch_flash_cuda(q, kv, kv, True, 0)
+    assert tbag.embedding_bag(table, idx).shape == (4, 10)
+    assert tpna.pna_multi_agg(table, idx).shape == (4, 40)
+    assert tfa.flash_attention(q, kv, kv).shape == q.shape
+    for fn in (tbag.embedding_bag, tpna.pna_multi_agg, tfa.flash_attention):
+        assert fn.launches == 0
+
+
+@pytest.mark.parametrize("bad", ["table_dtype", "table_rank", "idx_dtype",
+                                 "idx_rank", "idx_range"])
+def test_embedding_bag_launcher_checks(bad):
+    """Wrong dtypes or ranks, and an id past the table's last row (the
+    kernel reads rows unchecked), raise before any pointer is taken."""
+    from repro_torch.kernels import embedding_bag as tbag
+    table = {"table_dtype": torch.zeros(50, 10, dtype=torch.float16),
+             "table_rank": torch.zeros(50, 10, 1)}.get(bad,
+                                                     torch.zeros(50, 10))
+    idx = {"idx_dtype": torch.zeros(4, 3, dtype=torch.int64),
+           "idx_rank": torch.zeros(12, dtype=torch.int32),
+           "idx_range": torch.tensor([[0, -1, 49], [50, 1, -1]],
+                                     dtype=torch.int32)}.get(
+        bad, torch.zeros(4, 3, dtype=torch.int32))
+    with pytest.raises(ValueError, match="is torch|needed|id 50, past"):
+        tbag._launch_embedding_bag_cuda(table, idx)
+
+
+@pytest.mark.parametrize("bad", ["feats_dtype", "feats_rank", "nbr_dtype",
+                                 "nbr_range"])
+def test_pna_launcher_checks(bad):
+    """Wrong dtypes or ranks, and a neighbour past the last feature row
+    (the kernel reads rows unchecked), raise before any pointer is
+    taken."""
+    from repro_torch.kernels import segment_multi_agg as tpna
+    feats = {"feats_dtype": torch.zeros(50, 8, dtype=torch.bfloat16),
+             "feats_rank": torch.zeros(50)}.get(bad, torch.zeros(50, 8))
+    nbr = torch.zeros(4, 3, dtype=torch.int64 if bad == "nbr_dtype"
+                      else torch.int32)
+    if bad == "nbr_range":
+        nbr[2, 1] = 50
+    with pytest.raises(ValueError, match="needs torch|needed|id 50, past"):
+        tpna._launch_pna_cuda(feats, nbr)
+
+
+@pytest.mark.parametrize("bad", ["head_dim", "groups", "k_shape", "v_dtype",
+                                 "q_dtype", "rank"])
+def test_flash_launcher_checks(bad):
+    """Head widths the kernel is not built for, Hq not a multiple of Hkv,
+    K/V shapes unlike q's, mixed or unsupported dtypes and wrong ranks
+    raise before any pointer is taken."""
+    from repro_torch.kernels import flash_attention as tfa
+    d = 48 if bad == "head_dim" else 16
+    q = torch.zeros(1, 4, 32, d, dtype=torch.float16 if bad == "q_dtype"
+                    else torch.float32)
+    k = torch.zeros(1, 3 if bad == "groups" else 2, 32, d)
+    v = k.clone()
+    if bad == "k_shape":
+        k = torch.zeros(1, 2, 31, d)
+    if bad == "v_dtype":
+        v = v.to(torch.bfloat16)
+    if bad == "rank":
+        q = q[0]
+    with pytest.raises(ValueError, match="head width|multiple|has shape|"
+                                         "is torch|needed"):
+        tfa._launch_flash_cuda(q, k, v, True, 0)
