@@ -14,35 +14,70 @@
 //
 // What bounds it: operations.  4 * D flops per live (query, key) pair
 // against 2 * D * (size of q, k, v and o) bytes: at S = 4096 the card
-// must do ~1,000 flops per byte, well above its ridge.  This kernel does
-// them as f32 FMAs on the CUDA cores (67 TFLOP/s), not on the tensor
-// cores (989 TFLOP/s in bf16): wgmma is later work.
+// must do ~1,000 flops per byte, well above its ridge.
 //
-// Design: one CTA of 256 threads per (batch x q-head, 64-query tile); a
-// loop over 64-key tiles replaces the Pallas grid's sequential third axis
-// and runs only over the tiles that hold a live entry (the causal and
-// window bounds of the query tile), so skipped tiles cost nothing.  The
-// heaviest (latest) query tiles are launched first.  Shared memory holds
-// the query tile, one key-or-value tile (K, then V over it) and the
-// [64 x 64] probabilities, all in f32 (inputs converted as they load;
-// rows past S load as zeros); rows are padded by 4 floats against bank
-// conflicts.  Thread (ty, tx) owns query rows 4ty..4ty+3: it computes their
-// logits for keys tx + 16c, keeps their running max and sum in registers
-// (a row's 16 threads share them through warp shuffles) and accumulates
-// D/16 columns of each row's output in registers.  Shared memory per CTA:
-// 52 KB at D = 64, 83 KB at D = 128, 147 KB at D = 256.
+// Two kernels, chosen by dtype in flash_attention_launch:
+//
+// * bf16: flash_bf16_kernel, on the tensor cores.  One CTA per (batch x
+//   q-head, query tile) holds one or two consumer warpgroups (64 query
+//   rows each; one at D = 256, where two would not fit the registers) and
+//   one producer warp.  The producer's lane 0 loads the Q tile once and
+//   streams K and V tiles of 64 keys through a two-stage ring in shared
+//   memory with TMA (cp.async.bulk.tensor, a CUtensorMap per tensor as a
+//   __grid_constant__), each stage's arrival counted by an mbarrier
+//   ("full") and its release by the consumers by another ("empty").  The
+//   tiles stay bf16, in the swizzled layout the wgmma descriptors read:
+//   64-row chunks of min(2D, 128) bytes per row.  Rows past S load as
+//   zeros (TMA's out-of-bounds fill), which masking then ignores.
+//   S = Q K^T is wgmma.mma_async m64n64k16 bf16 -> f32 with Q and K from
+//   shared memory; the mask, the running max and sum (in log2 units: the
+//   logits are scaled by log2(e) / sqrt(D), p = 2^(x - m)) and the rescale
+//   of the O accumulator stay in registers, in the wgmma accumulator
+//   layout.  O += P V is wgmma with P from registers (the accumulator's
+//   layout is the A fragment's) and V from shared memory (MN-major, the
+//   transposed-B form).  P in bf16 alone loses up to 2^-9 of each weight,
+//   which moves outputs by two bf16 roundings of the f32 result; so P is
+//   split into hi = bf16(p) and lo = bf16(p - hi) and both products are
+//   issued (f32 accumulation), which keeps the kernel within one output
+//   rounding of attention computed in f32.  Only the key tiles that hold
+//   a live entry for the query tile are loaded; a warpgroup whose own 64
+//   rows have no live key in a loaded tile skips its products; tiles fully
+//   inside the live region skip the mask.  The heaviest (latest) query
+//   tiles launch first, across all heads.  Shared memory per CTA: Q
+//   64 * D * 2 bytes per warpgroup and two stages of K and V, 48 KB at
+//   D = 64, 96 KB at D = 128, 160 KB at D = 256, plus 1 KB of alignment
+//   slack (flash_attention_shape reports it).
+//
+// * f32: flash_f32_kernel, on the CUDA cores (f32 FMAs; TF32 would lose
+//   the 2e-4 tolerance).  One CTA of 256 threads per (batch x q-head,
+//   64-query tile); a loop over 64-key tiles bounded by the tile's causal
+//   and window frontier; shared memory holds the query tile, one
+//   key-or-value tile (K, then V over it) and the [64 x 64]
+//   probabilities, all f32, rows padded by 4 floats against bank
+//   conflicts.  Thread (ty, tx) owns query rows 4ty..4ty+3: their logits
+//   for keys tx + 16c, their running max and sum (a row's 16 threads share
+//   them through warp shuffles) and D/16 columns of each row's output.
+//   Shared memory per CTA: 52 KB at D = 64, 83 KB at D = 128, 147 KB at
+//   D = 256.
 #include <cmath>
+#include <cstdint>
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
+constexpr float kNegInf = -1e30f;
+
+// ---------------------------------------------------------------------------
+// f32: CUDA cores
+// ---------------------------------------------------------------------------
+
 constexpr int kBQ = 64;          // queries per CTA
 constexpr int kBK = 64;          // keys per tile
 constexpr int kThreads = 256;    // 16 x 16: 4 query rows x 4 keys each
 constexpr int kPStride = kBK + 4;
-constexpr float kNegInf = -1e30f;
 
 template <int D>
 __host__ __device__ constexpr int row_stride() { return D + 4; }
@@ -53,7 +88,7 @@ constexpr size_t smem_bytes() {
                   kBQ * kPStride) * sizeof(float);
 }
 
-// Rows [row0, row0 + 64) of a [S, D] matrix into dst [64][D + 4] as f32.
+// Rows [row0, row0 + 64) of a [S, D] matrix into dst [64][D + 4].
 template <int D>
 __device__ __forceinline__ void load_tile(const float* src, int row0, int s,
                                           float* dst) {
@@ -65,34 +100,6 @@ __device__ __forceinline__ void load_tile(const float* src, int row0, int s,
       v = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * D + c);
     *reinterpret_cast<float4*>(dst + r * row_stride<D>() + c) = v;
   }
-}
-
-template <int D>
-__device__ __forceinline__ void load_tile(const __nv_bfloat16* src, int row0,
-                                          int s, float* dst) {
-  constexpr int kVec = D / 8;
-  for (int i = threadIdx.x; i < 64 * kVec; i += kThreads) {
-    const int r = i / kVec, c = (i % kVec) * 8;
-    float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
-    if (row0 + r < s) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(
-          src + (size_t)(row0 + r) * D + c);
-      const __nv_bfloat162* h =
-          reinterpret_cast<const __nv_bfloat162*>(&raw);
-      const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-      const float2 e = __bfloat1622float2(h[2]), f = __bfloat1622float2(h[3]);
-      lo = make_float4(a.x, a.y, b.x, b.y);
-      hi = make_float4(e.x, e.y, f.x, f.y);
-    }
-    float* d = dst + r * row_stride<D>() + c;
-    *reinterpret_cast<float4*>(d) = lo;
-    *reinterpret_cast<float4*>(d + 4) = hi;
-  }
-}
-
-__device__ __forceinline__ void store(float x, float* p) { *p = x; }
-__device__ __forceinline__ void store(float x, __nv_bfloat16* p) {
-  *p = __float2bfloat16_rn(x);
 }
 
 // Reduce over the 16 lanes that share a query row (xor offsets < 16 stay
@@ -116,11 +123,11 @@ __device__ __forceinline__ int out_col(int tx, int e) {
   else return tx + 16 * e;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int hq, int hkv,
-             int s, float scale, int causal, int window) {
+flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int hq,
+                 int hkv, int s, float scale, int causal, int window) {
   static_assert(D % 16 == 0 && D <= 256, "D must be a multiple of 16");
   constexpr int kStride = row_stride<D>();
   constexpr int kCols = D / 16;  // output columns per thread and row
@@ -148,8 +155,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = 0; e < kCols; ++e) acc[i][e] = 0.f;
   }
   load_tile<D>(q + (size_t)bh * s * D, q0, s, qs);
-  const T* kh = k + (size_t)bkv * s * D;
-  const T* vh = v + (size_t)bkv * s * D;
+  const float* kh = k + (size_t)bkv * s * D;
+  const float* vh = v + (size_t)bkv * s * D;
 
   for (int k0 = (k_lo / kBK) * kBK; k0 < k_hi; k0 += kBK) {
     __syncthreads();                       // the last tile's V and P are read
@@ -253,42 +260,508 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qpos = q0 + ty * 4 + i;
     if (qpos >= s) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* orow = o + ((size_t)bh * s + qpos) * D;
+    float* orow = o + ((size_t)bh * s + qpos) * D;
 #pragma unroll
     for (int e = 0; e < kCols; ++e)
-      store(__fdiv_rn(acc[i][e], denom), orow + out_col<D>(tx, e));
+      orow[out_col<D>(tx, e)] = __fdiv_rn(acc[i][e], denom);
   }
 }
 
-template <typename T, int D>
-int launch_d(const void* q, const void* k, const void* v, void* o, int b,
-             int hq, int hkv, int s, int causal, int window,
-             cudaStream_t stream) {
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int b,
+               int hq, int hkv, int s, int causal, int window,
+               cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   const float scale = (float)(1.0 / sqrt((double)D));
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((s + kBQ - 1) / kBQ, b * hq);
-  flash_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, hq, hkv, s, scale,
-      causal, window);
+  flash_f32_kernel<D><<<grid, kThreads, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, hq, hkv,
+      s, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_t(const void* q, const void* k, const void* v, void* o, int b,
-             int hq, int hkv, int s, int d, int causal, int window,
-             cudaStream_t stream) {
-  switch (d) {
-    case 16: return launch_d<T, 16>(q, k, v, o, b, hq, hkv, s, causal, window, stream);
-    case 32: return launch_d<T, 32>(q, k, v, o, b, hq, hkv, s, causal, window, stream);
-    case 64: return launch_d<T, 64>(q, k, v, o, b, hq, hkv, s, causal, window, stream);
-    case 128: return launch_d<T, 128>(q, k, v, o, b, hq, hkv, s, causal, window, stream);
-    case 256: return launch_d<T, 256>(q, k, v, o, b, hq, hkv, s, causal, window, stream);
-    default: return (int)cudaErrorInvalidValue;
+// ---------------------------------------------------------------------------
+// bf16: tensor cores (wgmma), TMA into an mbarrier ring
+// ---------------------------------------------------------------------------
+
+constexpr int kRows = 64;      // query rows per consumer warpgroup (wgmma M)
+constexpr int kKeys = 64;      // keys per K/V tile
+constexpr int kStages = 2;     // depth of the K/V ring
+
+template <int D>
+struct Cfg {
+  // a tile is kChunks chunks of [64 rows][kSw bytes], each swizzled over
+  // kSw bytes (TMA writes it so; the wgmma descriptors read it so)
+  static constexpr int kSw = D >= 64 ? 128 : 2 * D;
+  static constexpr int kChunkCols = kSw / 2;
+  static constexpr int kChunks = D / kChunkCols;
+  static constexpr int kChunkBytes = 64 * kSw;
+  static constexpr int kTileBytes = kChunks * kChunkBytes;   // 64 x D bf16
+  static constexpr int kConsumers = D == 256 ? 1 : 2;
+  static constexpr int kThreads = 128 * kConsumers + 32;
+  static constexpr int kN = D >= 64 ? 64 : D;   // N of one P V wgmma
+  static constexpr int kNBlocks = D / kN;
+  static constexpr int kKPerChunk = kSw / 32;   // k16 steps in a chunk row
+  static constexpr size_t kBars =
+      (size_t)(kConsumers + 2 * kStages) * kTileBytes;
+  static constexpr size_t kSmem = 1024 + kBars + (2 * kStages + 1) * 8;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(bar) : "memory");
+}
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// Box (c0, c1, c2) of a 3-D tensor map into shared memory at dst,
+// completion counted in bytes on the mbarrier bar.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and
+// stride byte offsets (16-byte units), swizzle mode (1: 128 B, 2: 64 B,
+// 3: 32 B).
+template <int SW>
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  constexpr uint64_t kMode = SW == 128 ? 1 : SW == 64 ? 2 : 3;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (kMode << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// Pin registers that a wgmma reads or writes asynchronously in program
+// order: writes before wgmma.fence stay before it, reads after the wait
+// stay after it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x N] += A[64 x 16] B[16 x N]: A from registers (four bf16 pairs per
+// thread), B MN-major in shared memory (transposed-B form).
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+      "1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// p's pair (x, y) as hi = bf16(p) and lo = bf16(p - hi) (p - hi is exact).
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(__fsub_rn(x, hf.x), __fsub_rn(y, hf.y));
+}
+
+// One consumer's online-softmax step on a tile's logits s (the wgmma
+// accumulator: s[4j + e] is row r0, key 8j + 2t + e; s[4j + 2 + e] row
+// r0 + 8).  Turns s into p, updates m and the per-thread partial sums l,
+// and returns the two rows' rescale factors.
+template <bool kMask>
+__device__ __forceinline__ void softmax_step(float (&s)[32], float (&m)[2],
+                                             float (&l)[2], float (&alpha)[2],
+                                             float scale_log2, int qpos0,
+                                             int kpos0, int len, int causal,
+                                             int window) {
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int r = (i / 2) % 2;
+    float x = __fmul_rn(s[i], scale_log2);
+    if constexpr (kMask) {
+      const int qpos = qpos0 + 8 * r;
+      const int kpos = kpos0 + 8 * (i / 4) + (i % 2);
+      const bool live = kpos < len && (!causal || kpos <= qpos) &&
+                        (window <= 0 || kpos > qpos - window);
+      x = live ? x : kNegInf;
+    }
+    s[i] = x;
+    mx[r] = fmaxf(mx[r], x);
   }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    alpha[r] = ex2(__fsub_rn(m[r], m_new));
+    m[r] = m_new;
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int r = (i / 2) % 2;
+    float p = ex2(__fsub_rn(s[i], m[r]));
+    if constexpr (kMask) p = s[i] == kNegInf ? 0.f : p;
+    s[i] = p;
+    sum[r] = __fadd_rn(sum[r], p);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = __fmaf_rn(alpha[r], l[r], sum[r]);
+}
+
+template <int D>
+__global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
+flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  __nv_bfloat16* __restrict__ o, int hq, int hkv, int s,
+                  float scale_log2, int causal, int window) {
+  using C = Cfg<D>;
+  extern __shared__ uint8_t smem_raw[];
+  // swizzled tiles need 1024-byte alignment in the shared address space
+  const uint32_t raw = smem_u32(smem_raw);
+  uint8_t* base = smem_raw + ((1024 - (raw & 1023)) & 1023);
+  const uint32_t qs = smem_u32(base);
+  const uint32_t ks = qs + C::kConsumers * C::kTileBytes;
+  const uint32_t vs = ks + kStages * C::kTileBytes;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + C::kBars);
+  const uint32_t full = smem_u32(bars);                 // [kStages]
+  const uint32_t empty = full + 8 * kStages;            // [kStages]
+  const uint32_t qbar = empty + 8 * kStages;
+
+  const int bh = blockIdx.x;
+  const int bkv = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
+  constexpr int kCtaRows = kRows * C::kConsumers;
+  // the latest (heaviest) query tiles first
+  const int q0 = ((int)gridDim.y - 1 - (int)blockIdx.y) * kCtaRows;
+  // keys with a live entry for some query of this CTA: [k_lo, k_hi)
+  const int k_hi = causal ? min(s, q0 + kCtaRows) : s;
+  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_start = (k_lo / kKeys) * kKeys;
+  const int warp = threadIdx.x / 32;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(full + 8 * i, 1);
+      mbar_init(empty + 8 * i, 128 * C::kConsumers);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4 * C::kConsumers) {
+    // producer: lane 0 issues every copy
+    if (threadIdx.x % 32 != 0) return;
+    mbar_expect_tx(qbar, C::kConsumers * C::kTileBytes);
+    for (int w = 0; w < C::kConsumers; ++w)
+      for (int c = 0; c < C::kChunks; ++c)
+        tma_load(qs + w * C::kTileBytes + c * C::kChunkBytes, &tq, qbar,
+                 c * C::kChunkCols, q0 + kRows * w, bh);
+    int i = 0;
+    for (int k0 = k_start; k0 < k_hi; k0 += kKeys, ++i) {
+      const int st = i % kStages;
+      if (i >= kStages) mbar_wait(empty + 8 * st, ((i / kStages) - 1) & 1);
+      mbar_expect_tx(full + 8 * st, 2 * C::kTileBytes);
+      for (int c = 0; c < C::kChunks; ++c) {
+        tma_load(ks + st * C::kTileBytes + c * C::kChunkBytes, &tk,
+                 full + 8 * st, c * C::kChunkCols, k0, bkv);
+        tma_load(vs + st * C::kTileBytes + c * C::kChunkBytes, &tv,
+                 full + 8 * st, c * C::kChunkCols, k0, bkv);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: query rows [q0 + 64 wg, q0 + 64 wg + 64)
+  const int wg = warp / 4;
+  const int lane = threadIdx.x % 32;
+  const int row0 = 16 * (warp % 4) + lane / 4;     // and row0 + 8
+  const int col0 = 2 * (lane % 4);                 // and + 1, + 8j
+  const int my_q0 = q0 + kRows * wg;
+  const int qpos0 = my_q0 + row0;
+  const int my_hi = causal ? min(s, my_q0 + kRows) : s;
+  const int my_lo = window > 0 ? max(0, my_q0 - window + 1) : 0;
+  const uint32_t my_qs = qs + wg * C::kTileBytes;
+
+  float acc[C::kNBlocks][C::kN / 2];
+#pragma unroll
+  for (int nb = 0; nb < C::kNBlocks; ++nb)
+#pragma unroll
+    for (int i = 0; i < C::kN / 2; ++i) acc[nb][i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float sc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+
+  mbar_wait(qbar, 0);
+  int i = 0;
+  for (int k0 = k_start; k0 < k_hi; k0 += kKeys, ++i) {
+    const int st = i % kStages;
+    mbar_wait(full + 8 * st, (i / kStages) & 1);
+    if (k0 < my_hi && k0 + kKeys > my_lo) {
+      const uint32_t kt = ks + st * C::kTileBytes;
+      const uint32_t vt = vs + st * C::kTileBytes;
+      // S = Q K^T
+      fence_regs(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk / C::kKPerChunk) * C::kChunkBytes +
+                             (kk % C::kKPerChunk) * 32;
+        wgmma_ss_n64(sc, smem_desc<C::kSw>(my_qs + off, 16, 8 * C::kSw),
+                     smem_desc<C::kSw>(kt + off, 16, 8 * C::kSw), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+
+      // mask (edge tiles only), online softmax, rescale O
+      const bool interior = k0 + kKeys <= s &&
+                            (!causal || k0 + kKeys - 1 <= my_q0) &&
+                            (window <= 0 || k0 > my_q0 + kRows - 1 - window);
+      float alpha[2];
+      if (interior)
+        softmax_step<false>(sc, m, l, alpha, scale_log2, qpos0, k0 + col0,
+                            s, causal, window);
+      else
+        softmax_step<true>(sc, m, l, alpha, scale_log2, qpos0, k0 + col0,
+                           s, causal, window);
+#pragma unroll
+      for (int nb = 0; nb < C::kNBlocks; ++nb)
+#pragma unroll
+        for (int j = 0; j < C::kN / 2; ++j)
+          acc[nb][j] = __fmul_rn(acc[nb][j], alpha[(j / 2) % 2]);
+#pragma unroll
+      for (int nb = 0; nb < C::kNBlocks; ++nb) fence_regs(acc[nb]);
+
+      // P as hi + lo bf16 A fragments, 16 keys per k step
+      uint32_t ph[4][4], pl[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          split_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1], ph[kk][r],
+                     pl[kk][r]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        fence_regs(ph[kk]);
+        fence_regs(pl[kk]);
+      }
+
+      // O += P V; one 64-column block of V lies in one swizzle atom, so
+      // the descriptor's two offsets are both the 8-key group stride
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int nb = 0; nb < C::kNBlocks; ++nb) {
+          const uint64_t dv = smem_desc<C::kSw>(
+              vt + nb * C::kChunkBytes + kk * 16 * C::kSw, 8 * C::kSw,
+              8 * C::kSw);
+          wgmma_rs<C::kN>(acc[nb], ph[kk], dv);
+          wgmma_rs<C::kN>(acc[nb], pl[kk], dv);
+        }
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int nb = 0; nb < C::kNBlocks; ++nb) fence_regs(acc[nb]);
+    }
+    mbar_arrive(empty + 8 * st);
+  }
+
+  // a row's sum is spread over the 4 threads of its quad
+  float denom[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float t = __fadd_rn(l[r], __shfl_xor_sync(0xffffffffu, l[r], 1));
+    t = __fadd_rn(t, __shfl_xor_sync(0xffffffffu, t, 2));
+    denom[r] = fmaxf(t, 1e-30f);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = qpos0 + 8 * r;
+    if (qpos >= s) continue;
+    __nv_bfloat16* orow = o + ((size_t)bh * s + qpos) * D;
+#pragma unroll
+    for (int nb = 0; nb < C::kNBlocks; ++nb)
+#pragma unroll
+      for (int j = 0; j < C::kN / 8; ++j) {
+        const int col = nb * C::kN + 8 * j + col0;
+        *reinterpret_cast<uint32_t*>(orow + col) =
+            pack_bf16(__fdiv_rn(acc[nb][4 * j + 2 * r], denom[r]),
+                      __fdiv_rn(acc[nb][4 * j + 2 * r + 1], denom[r]));
+      }
+  }
+}
+
+// A 3-D map of a [heads, s, d] bf16 tensor, boxes of [1, 64, kSw / 2].
+template <int D>
+int make_map(CUtensorMap* map, const void* ptr, int heads, int s) {
+  using C = Cfg<D>;
+  cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)s, (cuuint64_t)heads};
+  cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)s * D * 2};
+  cuuint32_t box[3] = {(cuuint32_t)C::kChunkCols, 64, 1};
+  cuuint32_t elem[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      C::kSw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : C::kSw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = cuTensorMapEncodeTiled(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  // a driver error, told apart from the runtime's cudaError codes
+  return r == CUDA_SUCCESS ? 0 : 10000 + (int)r;
+}
+
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int b,
+                int hq, int hkv, int s, int causal, int window,
+                cudaStream_t stream) {
+  using C = Cfg<D>;
+  CUtensorMap tq, tk, tv;
+  int e = make_map<D>(&tq, q, b * hq, s);
+  if (!e) e = make_map<D>(&tk, k, b * hkv, s);
+  if (!e) e = make_map<D>(&tv, v, b * hkv, s);
+  if (e) return e;
+  const cudaError_t a = cudaFuncSetAttribute(
+      flash_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)C::kSmem);
+  if (a != cudaSuccess) return (int)a;
+  constexpr int kCtaRows = kRows * C::kConsumers;
+  const dim3 grid(b * hq, (s + kCtaRows - 1) / kCtaRows);
+  const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
+  flash_bf16_kernel<D><<<grid, C::kThreads, C::kSmem, stream>>>(
+      tq, tk, tv, (__nv_bfloat16*)o, hq, hkv, s, scale_log2, causal, window);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_d(const void* q, const void* k, const void* v, void* o, int b,
+             int hq, int hkv, int s, int causal, int window, int dtype,
+             cudaStream_t st) {
+  if (dtype == 0)
+    return launch_f32<D>(q, k, v, o, b, hq, hkv, s, causal, window, st);
+  return launch_bf16<D>(q, k, v, o, b, hq, hkv, s, causal, window, st);
 }
 
 }  // namespace
@@ -299,8 +772,26 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int window, int dtype,
                                       void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch_t<float>(q, k, v, o, b, hq, hkv, s, d, causal, window, st);
-  return launch_t<__nv_bfloat16>(q, k, v, o, b, hq, hkv, s, d, causal, window,
-                                 st);
+  switch (d) {
+    case 16: return launch_d<16>(q, k, v, o, b, hq, hkv, s, causal, window, dtype, st);
+    case 32: return launch_d<32>(q, k, v, o, b, hq, hkv, s, causal, window, dtype, st);
+    case 64: return launch_d<64>(q, k, v, o, b, hq, hkv, s, causal, window, dtype, st);
+    case 128: return launch_d<128>(q, k, v, o, b, hq, hkv, s, causal, window, dtype, st);
+    case 256: return launch_d<256>(q, k, v, o, b, hq, hkv, s, causal, window, dtype, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The dynamic shared memory (bytes) and threads per CTA of the kernel for
+// head width d and dtype code (0 f32, 1 bf16), for reports.
+extern "C" int flash_attention_shape(int d, int dtype, int* smem,
+                                     int* threads) {
+  switch (d * 2 + (dtype != 0)) {
+#define SHAPE(D)                                                        \
+    case 2 * D: *smem = (int)smem_bytes<D>(); *threads = kThreads; return 0; \
+    case 2 * D + 1: *smem = (int)Cfg<D>::kSmem; *threads = Cfg<D>::kThreads; return 0;
+    SHAPE(16) SHAPE(32) SHAPE(64) SHAPE(128) SHAPE(256)
+#undef SHAPE
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -13,35 +13,67 @@
 // 1M-doc tier, more than a query's posting bytes); one multiply and one add
 // per lane, far below the card's ops:byte ridge.
 //
-// Design: one CTA of 128 threads per doc tile walks that tile's run
-// [tile_start[t], tile_start[t+1]) of the pairs into a [tile] f32
-// accumulator in shared memory, then writes the tile straight into the
-// score vector, clipped at num_docs.  A block's doc ids are unique, so one
-// pair's lanes never collide: plain adds, no atomics, and a barrier between
-// pairs keeps the adds in pair order, the reference's order.  The Pallas
-// kernel rounds w = tf * pair_w first and adds it to the accumulator through
-// a one-hot matmul: XLA does not contract that into a fused multiply-add
-// (checked on the CPU against the kernel in interpret mode), so this kernel
-// multiplies then adds (__fmul_rn, __fadd_rn; built with -fmad=false).
-// Blocks of any width are read, threads striding over the lanes.  The pad
-// tile n_tiles of padding pairs has no CTA.
+// Design: one launch per call.  One CTA of 128 threads per doc tile t
+// first finds its run [p0, p1) of the tile-sorted pairs itself: warp 0
+// searches pair_tile for t, warp 1 for t + 1, each a 32-ary search (every
+// lane loads one sample, __ballot_sync counts the samples below the key,
+// the range shrinks 32-fold per step: 5 dependent loads at 2^25 pairs),
+// and shares the bound through shared memory.  It then walks the run
+// into a [tile] f32 accumulator in shared memory and writes the tile
+// straight into the score vector, clipped at num_docs.  A block's doc ids
+// are unique, so one pair's lanes never collide: plain adds, no atomics,
+// and a barrier between pairs keeps the adds in pair order, the
+// reference's order.  The Pallas kernel rounds w = tf * pair_w first and
+// adds it to the accumulator through a one-hot matmul: XLA does not
+// contract that into a fused multiply-add (checked on the CPU against the
+// kernel in interpret mode), so this kernel multiplies then adds
+// (__fmul_rn, __fadd_rn; built with -fmad=false).  Blocks of any width are
+// read, threads striding over the lanes.  Padding pairs sit at tile
+// n_tiles, which has no CTA.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 128;
 
+// The first index in [0, n) whose a[] is >= key (n if none), over sorted
+// a, by one whole warp: 32 samples per step; the lanes whose sample is
+// below key come first, so the ballot's count places the bound between
+// two samples.
+__device__ __forceinline__ int warp_lower_bound(const int* __restrict__ a,
+                                                int n, int key) {
+  const int lane = threadIdx.x % 32;
+  int lo = 0, hi = n;                  // the bound lies in [lo, hi]
+  while (hi - lo > 32) {
+    const int step = (hi - lo + 31) / 32;
+    const int idx = lo + (lane + 1) * step - 1;
+    const bool below = idx < hi && a[idx] < key;
+    lo += __popc(__ballot_sync(0xffffffffu, below)) * step;
+    hi = min(hi, lo + step - 1);
+  }
+  const int idx = lo + lane;
+  const bool below = idx < hi && a[idx] < key;
+  return lo + __popc(__ballot_sync(0xffffffffu, below));
+}
+
 __global__ void __launch_bounds__(kThreads)
 posting_score_kernel(const int* __restrict__ docs,
                      const float* __restrict__ tfs, int block,
                      const int* __restrict__ pair_block,
-                     const float* __restrict__ pair_w,
-                     const int* __restrict__ tile_start,
+                     const int* __restrict__ pair_tile,
+                     const float* __restrict__ pair_w, int n_pairs,
                      float* __restrict__ out, int num_docs, int tile) {
   extern __shared__ float acc[];     // [tile]
+  __shared__ int run[2];
   const int t = blockIdx.x;
-  const int p0 = tile_start[t];
-  const int p1 = tile_start[t + 1];
+  const int warp = threadIdx.x / 32;
+  if (warp < 2) {
+    const int bound = warp_lower_bound(pair_tile, n_pairs, t + warp);
+    if (threadIdx.x % 32 == 0) run[warp] = bound;
+  }
+  __syncthreads();
+  const int p0 = run[0];
+  const int p1 = run[1];
   const int tile_base = t * tile;
   const int width = min(tile, num_docs - tile_base);   // clipped last tile
 
@@ -71,10 +103,9 @@ posting_score_kernel(const int* __restrict__ docs,
 
 extern "C" int posting_score_launch(const int* docs, const float* tfs,
                                     int block, const int* pair_block,
-                                    const float* pair_w,
-                                    const int* tile_start, float* out,
-                                    int n_tiles, int num_docs, int tile,
-                                    void* stream) {
+                                    const int* pair_tile, const float* pair_w,
+                                    int n_pairs, float* out, int n_tiles,
+                                    int num_docs, int tile, void* stream) {
   const size_t smem = (size_t)tile * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -83,6 +114,7 @@ extern "C" int posting_score_launch(const int* docs, const float* tfs,
     if (e != cudaSuccess) return (int)e;
   }
   posting_score_kernel<<<n_tiles, kThreads, smem, (cudaStream_t)stream>>>(
-      docs, tfs, block, pair_block, pair_w, tile_start, out, num_docs, tile);
+      docs, tfs, block, pair_block, pair_tile, pair_w, n_pairs, out,
+      num_docs, tile);
   return (int)cudaGetLastError();
 }

@@ -12,7 +12,14 @@ module on machines without ``nvcc``.
 ``-fmad=false`` keeps the compiler from contracting any ``a*b + c`` on
 its own: the kernels ask for each fused multiply-add they mean
 (``__fmaf_rn``), where the reference's XLA lowering has one.  There is
-no ``--use_fast_math``: division stays IEEE.
+no ``--use_fast_math``: division stays IEEE.  ``flash_attention`` also
+links the driver library (``-lcuda``, through the toolkit's stub), for
+the TMA descriptors it encodes on the host.
+
+A launch goes through ``entry``: each kernel's C function is looked up
+and typed once per process, and ``launch`` passes it the data pointers
+and the raw handle of PyTorch's current stream, so that a call of a few
+microseconds of device work is not paid for by the host's lookups.
 """
 from __future__ import annotations
 
@@ -23,6 +30,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("fused_topk_blocked", "fused_topk_packed", "fused_score_blocked",
            "fused_score_packed", "posting_score", "unpack_blocks",
@@ -31,7 +40,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-_LIBS: dict[str, ctypes.CDLL] = {}
+# per-kernel link flags, after the source
+LINK = {"flash_attention": ("-lcuda",)}
+
+_FNS: dict = {}
 
 
 def build_dir() -> Path:
@@ -55,7 +67,7 @@ def nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK.get(name, ())).encode())
     for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(src.read_bytes())
     return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
@@ -75,6 +87,9 @@ def build(names=KERNELS) -> dict[str, str]:
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
+        if name in LINK:
+            stubs = Path(nvcc()).parents[1] / "lib64" / "stubs"
+            cmd += ["-L", str(stubs), *LINK[name]]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
@@ -90,21 +105,22 @@ def build(names=KERNELS) -> dict[str, str]:
     return logs
 
 
-def load(name: str, argtypes) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed; its
-    C entry point ``<name>_launch`` takes ``argtypes`` and returns the
-    ``cudaError_t`` of its launch as an int."""
-    lib = _LIBS.get(name)
-    if lib is None:
+def entry(name: str, argtypes, symbol: str | None = None):
+    """Kernel ``name``'s C function ``symbol`` (by default its entry point
+    ``<name>_launch``, which returns the ``cudaError_t`` of its launch),
+    taking ``argtypes`` and returning an int: built first if needed,
+    loaded and typed once per process."""
+    symbol = symbol or f"{name}_launch"
+    fn = _FNS.get(symbol)
+    if fn is None:
         path = _lib_path(name)
         if not path.exists():
             build((name,))
-        lib = ctypes.CDLL(str(path))
-        fn = getattr(lib, f"{name}_launch")
+        fn = getattr(ctypes.CDLL(str(path)), symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _LIBS[name] = lib
-    return lib
+        _FNS[symbol] = fn
+    return fn
 
 
 def check_tensors(name: str, **tensors) -> None:
@@ -141,11 +157,11 @@ def check_ids(name: str, arg: str, ids, rows: int) -> None:
 
 def launch(name: str, argtypes, args, device) -> None:
     """Call kernel ``name``'s C entry point with ``args`` (tensors passed
-    as their data pointers, numbers as given) and the current stream of
-    ``device``; raises if the launch is refused."""
-    import torch
-    fn = getattr(load(name, argtypes), f"{name}_launch")
+    as their data pointers, numbers as given) and the raw handle of the
+    current stream of ``device``; raises if the launch is refused (a
+    ``cudaError_t``, or 10000 + a driver ``CUresult``)."""
     vals = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    err = fn(*vals, torch.cuda.current_stream(device).cuda_stream)
+    err = entry(name, argtypes)(
+        *vals, torch._C._cuda_getCurrentRawStream(device.index))
     if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
+        raise RuntimeError(f"{name}: CUDA launch failed (error {err})")

@@ -6,11 +6,14 @@ Hq, S, D] in q's dtype.  Causal attention keeps keys ``kpos <= qpos``; a
 ``window`` > 0 keeps ``kpos > qpos - window``; the logits are scaled by
 ``D ** -0.5``.
 
-* ``flash_attention``'s CUDA C++ kernel (``csrc/flash_attention.cu``):
+* ``flash_attention``'s CUDA C++ kernels (``csrc/flash_attention.cu``):
   an online softmax over 64-key tiles in f32, the Pallas kernel's
   arithmetic (masked logits -1e30, their p zeroed, ``acc / max(l,
-  1e-30)``), GQA through the KV-head index, for D in ``HEAD_DIMS`` and
-  f32 or bf16; a CUDA tensor always goes to it; there is no fallback;
+  1e-30)``), GQA through the KV-head index, for D in ``HEAD_DIMS``.  bf16
+  runs on the tensor cores (``wgmma``, K and V streamed by TMA through an
+  ``mbarrier`` ring; p split into two bf16 halves for the second product),
+  f32 on the CUDA cores.  A CUDA tensor always goes to them; there is no
+  fallback;
 * ``flash_attention_plain``, its plain PyTorch version, the path for CPU
   tensors and the kernel's yardstick on the card: the reference's
   ``ref_attention`` (K and V repeated over the group, masked logits
@@ -28,7 +31,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.cuda_build import check_tensors, launch
+from repro_torch.kernels.cuda_build import check_tensors, entry, launch
 
 Tensor = torch.Tensor
 
@@ -69,6 +72,18 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 
 
+def kernel_shape(d: int, dtype: torch.dtype) -> tuple[int, int]:
+    """(dynamic shared memory in bytes, threads) per CTA of the kernel
+    that takes head width ``d`` and ``dtype``, as the card runs it."""
+    smem, threads = ctypes.c_int(), ctypes.c_int()
+    fn = entry("flash_attention", [_I, _I, ctypes.POINTER(_I),
+                                   ctypes.POINTER(_I)],
+               "flash_attention_shape")
+    if fn(d, DTYPES[dtype], ctypes.byref(smem), ctypes.byref(threads)):
+        raise ValueError(f"flash_attention: no kernel for D={d}, {dtype}")
+    return smem.value, threads.value
+
+
 def _launch_flash_cuda(q: Tensor, k: Tensor, v: Tensor, causal: bool,
                        window: int) -> Tensor:
     """Check the three tensors, the head width and the head counts, then
@@ -90,6 +105,10 @@ def _launch_flash_cuda(q: Tensor, k: Tensor, v: Tensor, causal: bool,
     check_tensors(name, q=(q, q.dtype, (b, hq, s, d)),
                   k=(k, q.dtype, (b, hkv, s, d)),
                   v=(v, q.dtype, (b, hkv, s, d)))
+    for arg, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must start on a 16-byte "
+                             "boundary (vector loads and TMA need it)")
     out = torch.empty_like(q)
     if out.numel():
         launch(name, _ARGTYPES, (q, k, v, out, b, hq, hkv, s, d,

@@ -10,7 +10,10 @@ tile into an f32 [num_docs] score vector; tiles no pair visits are 0.
 Two implementations of the scorer live here:
 
 * ``posting_score``'s CUDA C++ kernel (``csrc/posting_score.cu``), which a
-  CUDA tensor always goes to; there is no fallback;
+  CUDA tensor always goes to; there is no fallback.  A call is one device
+  launch: the kernel finds each tile's run of pairs itself, and the
+  wrapper checks its tensors in one pass, allocates the output and calls
+  the kernel's cached entry point, nothing more;
 * ``posting_score_plain``, its plain PyTorch version, the path for CPU
   tensors and the kernel's yardstick on the card.  Round ``r`` adds pair
   ``r`` of every tile's run at once (tiles own disjoint docs and a
@@ -26,8 +29,8 @@ import ctypes
 import torch
 
 from repro_torch.core.segments import run_ranks, take_rows
-from repro_torch.kernels.cuda_build import check_tensors, launch
-from repro_torch.kernels.fused_decode_score import check_smem, tile_starts
+from repro_torch.kernels.cuda_build import check_tensors, entry
+from repro_torch.kernels.fused_decode_score import check_smem
 
 Tensor = torch.Tensor
 
@@ -100,30 +103,54 @@ def posting_score_plain(block_docs: Tensor, block_tfs: Tensor,
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signature (csrc/posting_score.cu): docs, tfs, block, pair_block,
-# pair_w, tile_start, out, n_tiles, num_docs, tile, stream
-_ARGTYPES = [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P]
+# pair_tile, pair_w, n_pairs, out, n_tiles, num_docs, tile, stream
+_ARGTYPES = [_P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P]
 
 
 def _launch_posting_score_cuda(block_docs, block_tfs, pair_block, pair_tile,
                                pair_w, num_docs: int, tile: int) -> Tensor:
-    """Check every tensor the kernel reads, then launch it."""
+    """Check every tensor the kernel reads, in one pass, then launch it;
+    on a mismatch ``check_tensors`` names the tensor at fault."""
     name = "posting_score"
     check_smem(name, 1, tile)
-    nb, block = block_docs.shape[0], block_docs.shape[-1]
-    np_ = pair_block.shape[0]
-    check_tensors(name, block_docs=(block_docs, torch.int32, (nb, block)),
-                  block_tfs=(block_tfs, torch.float32, (nb, block)),
-                  pair_block=(pair_block, torch.int32, (np_,)),
-                  pair_tile=(pair_tile, torch.int32, (np_,)),
-                  pair_w=(pair_w, torch.float32, (np_,)))
+    i32, f32 = torch.int32, torch.float32
+    dev = block_docs.get_device()
+    shape, np_ = block_docs.shape, pair_block.shape
+    if not (dev >= 0 and block_docs.dtype == i32 and block_tfs.dtype == f32
+            and pair_block.dtype == i32 and pair_tile.dtype == i32
+            and pair_w.dtype == f32 and len(shape) == 2
+            and block_tfs.shape == shape and len(np_) == 1
+            and pair_tile.shape == np_ and pair_w.shape == np_
+            and block_tfs.get_device() == dev
+            and pair_block.get_device() == dev
+            and pair_tile.get_device() == dev
+            and pair_w.get_device() == dev
+            and block_docs.is_contiguous() and block_tfs.is_contiguous()
+            and pair_block.is_contiguous() and pair_tile.is_contiguous()
+            and pair_w.is_contiguous()):
+        nb = block_docs.shape[0]
+        block = block_docs.shape[-1] if block_docs.dim() else 0
+        n = pair_block.shape[0] if pair_block.dim() else 0
+        check_tensors(name, block_docs=(block_docs, i32, (nb, block)),
+                      block_tfs=(block_tfs, f32, (nb, block)),
+                      pair_block=(pair_block, i32, (n,)),
+                      pair_tile=(pair_tile, i32, (n,)),
+                      pair_w=(pair_w, f32, (n,)))
+        raise ValueError(f"{name}: block_docs is {tuple(shape)}, needs "
+                         "[NB, block]")
+    out = torch.empty(num_docs, dtype=f32, device=dev)
     n_tiles = -(-num_docs // tile)
-    out = torch.empty(num_docs, dtype=torch.float32,
-                      device=block_docs.device)
-    if n_tiles == 0:
-        return out
-    launch(name, _ARGTYPES, (block_docs, block_tfs, block, pair_block,
-                             pair_w, tile_starts(pair_tile, n_tiles), out,
-                             n_tiles, num_docs, tile), block_docs.device)
+    if n_tiles:
+        # the entry point called directly, not through ``launch``'s loop
+        # over its arguments: at ~0.008 ms of device work per call, the
+        # host's microseconds are most of the call (PERF.md)
+        err = entry(name, _ARGTYPES)(
+            block_docs.data_ptr(), block_tfs.data_ptr(), shape[1],
+            pair_block.data_ptr(), pair_tile.data_ptr(), pair_w.data_ptr(),
+            np_[0], out.data_ptr(), n_tiles, num_docs, tile,
+            torch._C._cuda_getCurrentRawStream(dev))
+        if err:
+            raise RuntimeError(f"{name}: CUDA launch failed (error {err})")
     return out
 
 

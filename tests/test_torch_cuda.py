@@ -291,6 +291,71 @@ def test_posting_score_kernel_equals_plain(gpu, host, block):
     assert (got != 0).sum() <= block
 
 
+def _synthetic_blocks(gpu, nb, block, num_docs, seed):
+    """Posting blocks of unique doc ids (a tenth of the lanes padding)
+    and tfs in (0, 4), so that every product rounds."""
+    rng = np.random.default_rng(seed)
+    docs = np.stack([np.sort(rng.choice(num_docs, block, replace=False))
+                     for _ in range(nb)]).astype(np.int32)
+    docs[rng.random(docs.shape) < 0.1] = -1
+    tfs = (rng.random(docs.shape) * 4 + 1e-3).astype(np.float32)
+    return (torch.from_numpy(docs).to(gpu), torch.from_numpy(tfs).to(gpu),
+            rng)
+
+
+@pytest.mark.parametrize("case", ["no_pairs", "one_tile", "wide_tile"])
+def test_posting_score_kernel_edge_runs(gpu, case):
+    """Bit-equal to the plain version where the kernel's own run search
+    meets its edges: no real pair (every pair padding, all scores 0), one
+    tile holding every pair (a run far longer than the warp's 32
+    samples), and a 16,384-doc tile whose accumulator takes 64 KB of
+    shared memory, past the 48 KB default."""
+    num_docs, tile, n = 100_000, ps.TILE, 3000
+    if case == "wide_tile":
+        tile = 16_384
+    docs, tfs, rng = _synthetic_blocks(gpu, 512, 128, num_docs, len(case))
+    n_tiles = -(-num_docs // tile)
+    pb = rng.integers(0, 512, n)
+    if case == "no_pairs":
+        pt = np.full(n, n_tiles)
+    elif case == "one_tile":
+        pt = np.full(n, n_tiles // 2)
+        pt[-5:] = n_tiles
+    else:
+        pt = np.sort(rng.integers(0, n_tiles + 1, n))
+    pw = rng.random(n).astype(np.float32) * 3
+    pb, pt, pw = (torch.from_numpy(x).to(gpu) for x in (
+        pb.astype(np.int32), pt.astype(np.int32), pw))
+    before = ps.posting_score.launches
+    got = ps.posting_score(docs, tfs, pb, pt, pw, num_docs, tile)
+    want = ps.posting_score_plain(docs, tfs, pb, pt, pw, num_docs, tile)
+    torch.cuda.synchronize()
+    assert ps.posting_score.launches == before + 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert bool((got != 0).any()) == (case != "no_pairs")
+
+
+def test_posting_score_is_one_device_launch(gpu):
+    """A call of the scorer is one kernel on the card and nothing else
+    (no run search, copy or fill of its own), counted by the
+    profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    docs, tfs, rng = _synthetic_blocks(gpu, 64, 128, 20_000, 0)
+    n_tiles = -(-20_000 // ps.TILE)
+    pt = torch.from_numpy(np.sort(rng.integers(0, n_tiles + 1, 500))
+                          .astype(np.int32)).to(gpu)
+    pb = torch.from_numpy(rng.integers(0, 64, 500).astype(np.int32)).to(gpu)
+    pw = torch.ones(500, device=gpu)
+    ps.posting_score(docs, tfs, pb, pt, pw, 20_000)      # built and loaded
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ps.posting_score(docs, tfs, pb, pt, pw, 20_000)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 1 and "posting_score_kernel" in names[0], names
+
+
 @pytest.mark.parametrize("bits", list(range(4, 33)))
 @pytest.mark.parametrize("block", [16, 32, 128])
 def test_unpack_kernel_equals_plain(gpu, bits, block):
@@ -418,14 +483,23 @@ def test_pna_kernel_equals_plain(gpu, n, k, d, nsrc):
     (True, 16, 1, 8, 2, 128, 16, torch.bfloat16),
     (True, 0, 2, 4, 2, 320, 128, torch.bfloat16),
     (True, 128, 1, 4, 2, 512, 256, torch.bfloat16),
-    (True, 0, 1, 2, 2, 100, 256, torch.bfloat16)])
+    (True, 0, 1, 2, 2, 100, 256, torch.bfloat16),
+    (True, 0, 1, 16, 8, 4000, 128, torch.bfloat16),
+    (True, 0, 2, 8, 1, 65, 16, torch.bfloat16),
+    (True, 0, 1, 8, 1, 65, 32, torch.bfloat16),
+    (True, 40, 1, 8, 1, 4000, 64, torch.bfloat16),
+    (False, 20, 1, 16, 8, 65, 32, torch.bfloat16),
+    (False, 0, 1, 16, 8, 300, 64, torch.bfloat16),
+    (True, 24, 1, 4, 2, 4000, 256, torch.bfloat16),
+    (True, 50, 1, 16, 8, 4000, 16, torch.bfloat16)])
 def test_flash_kernel_equals_plain(gpu, causal, window, b, hq, hkv, s, d,
                                    dtype):
     """Within 2e-4 (f32) or 3e-2 (bf16, compared in f32) of the plain
     version, and in bf16 also within one bf16 rounding of the plain
-    version run in f32 on the same inputs: head widths 16-256, S not a
-    multiple of the 64-row tiles, causal, windowed, non-causal and
-    GQA."""
+    version run in f32 on the same inputs: every head width in both
+    dtypes (bf16 on the tensor cores), S not a multiple of the 64-row
+    tiles (65, 4,000), windows shorter than a tile, causal, windowed,
+    non-causal and GQA (Hq/Hkv 16/8, 8/1)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device=gpu).manual_seed(s + d)
     q = torch.randn(b, hq, s, d, generator=g, device=gpu).to(dtype)

@@ -250,3 +250,96 @@ def test_attention_plain_matches_chunked_model_attention(window,
     monkeypatch.setattr(tfa, "CHUNK_BYTES", 2 * 4 * 64 * 4 * 16)  # 16 rows
     parts = tfa.flash_attention_plain(tq, tk, tv, True, window)
     np.testing.assert_array_equal(_bits(parts), _bits(got))
+
+
+def _wgmma_tiling_mirror(q, k, v, causal, window, split=True):
+    """A mirror of the bf16 kernel's arithmetic (``flash_bf16_kernel``):
+    64-row query tiles, each over the 64-key tiles of its live frontier;
+    logits in f32 scaled by log2(e) / sqrt(D), masked to -1e30; the
+    online softmax in f32 in log2 units (p = 2^(x - m), masked p = 0,
+    per-tile sums); p split into hi = bf16(p) and lo = bf16(p - hi), both
+    multiplied by V with f32 accumulation (``split=False``: hi alone);
+    out = acc / max(l, 1e-30) rounded to bf16.  q, k, v: bf16 torch
+    tensors [B, H, S, D]."""
+    b, hq, s, d = q.shape
+    group = hq // k.shape[1]
+    qf = q.float()
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    scale_log2 = np.float32(1.4426950408889634 / np.sqrt(d))
+    neg = torch.tensor(-1e30)
+    out = torch.empty(b, hq, s, d)
+    for q0 in range(0, s, 64):
+        rows = torch.arange(q0, min(q0 + 64, s))[:, None]
+        hi = min(s, q0 + 64) if causal else s
+        lo = max(0, q0 - window + 1) if window > 0 else 0
+        m = torch.full((b, hq, rows.shape[0], 1), -1e30)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(b, hq, rows.shape[0], d)
+        for k0 in range(lo // 64 * 64, hi, 64):
+            keys = torch.arange(k0, min(k0 + 64, s))[None, :]
+            x = (qf[:, :, q0:q0 + 64] @ kf[:, :, k0:k0 + 64].transpose(-1, -2)
+                 ) * scale_log2
+            live = torch.ones(rows.shape[0], keys.shape[1], dtype=torch.bool)
+            if causal:
+                live &= keys <= rows
+            if window > 0:
+                live &= keys > rows - window
+            x = torch.where(live, x, neg)
+            m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+            alpha = torch.exp2(m - m_new)
+            p = torch.where(live, torch.exp2(x - m_new), 0.0)
+            l = alpha * l + p.sum(-1, keepdim=True)
+            p_hi = p.bfloat16().float()
+            p_lo = (p - p_hi).bfloat16().float() if split else 0 * p
+            vt = vf[:, :, k0:k0 + 64]
+            acc = acc * alpha + p_hi @ vt + p_lo @ vt
+            m = m_new
+        out[:, :, q0:q0 + 64] = acc / l.clamp_min(1e-30)
+    return out.bfloat16()
+
+
+@pytest.mark.parametrize("causal,window,s,d", [
+    (True, 0, 192, 64),
+    (True, 64, 200, 64),
+    (True, 0, 200, 256),
+    (True, 64, 192, 256),
+    (False, 64, 200, 64),
+])
+def test_bf16_tensor_core_tiling_matches_reference(causal, window, s, d):
+    """The bf16 kernel's tiling and arithmetic, mirrored on the CPU (GQA
+    2:1): within 3e-2 of ``ref_attention`` and of the Pallas kernel in
+    interpret mode, and within one bf16 rounding (rtol 8e-3, atol 1e-3)
+    of the plain version run in f32, the check the kernel is held to on
+    the card.  P rounded to bf16 alone would not pass the last one at
+    S = 4,096; its two bf16 halves hold it within a rounding."""
+    q, k, v = _qkv(1, 4, 2, s, d, s + d + window)
+    tq, tk, tv = (_torch(a, "bf16") for a in (q, k, v))
+    got = _wgmma_tiling_mirror(tq, tk, tv, causal, window).float().numpy()
+    jq, jk, jv = (_jax(a, "bf16") for a in (q, k, v))
+    blk = 64 if s % 64 == 0 else 40     # the Pallas grid needs S % blk == 0
+    for want in (rref.ref_attention(jq, jk, jv, causal=causal, window=window),
+                 flash_attention_pallas(jq, jk, jv, causal=causal,
+                                        window=window, block_q=blk,
+                                        block_k=blk, interpret=True)):
+        np.testing.assert_allclose(got, np.asarray(want, np.float32),
+                                   rtol=3e-2, atol=3e-2)
+    f32 = tfa.flash_attention_plain(tq.float(), tk.float(), tv.float(),
+                                    causal=causal, window=window)
+    np.testing.assert_allclose(got, f32.bfloat16().float().numpy(),
+                               rtol=8e-3, atol=1e-3)
+
+
+def test_bf16_p_needs_both_halves_at_qwen3_length():
+    """Why the kernel issues two P V products: at S = 4,096 (Qwen3's
+    train_4k, D = 128, two heads) p rounded to bf16 alone moves some
+    outputs by more than one bf16 rounding of the f32 result; hi + lo
+    moves none."""
+    q, k, v = _qkv(1, 2, 1, 4096, 128, 4096)
+    tq, tk, tv = (_torch(a, "bf16") for a in (q, k, v))
+    f32 = tfa.flash_attention_plain(tq.float(), tk.float(), tv.float(),
+                                    causal=True).bfloat16().float()
+    limit = 1e-3 + 8e-3 * f32.abs()
+    for split, want_over in ((True, False), (False, True)):
+        got = _wgmma_tiling_mirror(tq, tk, tv, True, 0, split).float()
+        assert bool(((got - f32).abs() > limit).any()) == want_over, split

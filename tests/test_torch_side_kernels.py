@@ -26,6 +26,7 @@ from repro.kernels.packed_postings import unpack_blocks_pallas  # noqa: E402
 from repro.text import corpus as rcorpus  # noqa: E402
 from repro_torch.core import layouts as tlayouts  # noqa: E402
 from repro_torch.core import query as tquery  # noqa: E402
+from repro_torch.kernels import fused_decode_score as tfds  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import packed_postings as tpp  # noqa: E402
 from repro_torch.kernels import posting_score as tps  # noqa: E402
@@ -155,6 +156,70 @@ def test_posting_score_equals_oracle_accumulation():
                                        host.num_docs)
         assert int(overflow) == 0
         assert torch.equal(scores.view(torch.int32), raw.view(torch.int32))
+
+
+def _warp_lower_bound(a, key):
+    """A mirror of ``warp_lower_bound`` (``csrc/posting_score.cu``): one
+    warp's 32-ary search of sorted ``a`` for the first index whose value
+    is >= key.  Returns the bound and the dependent loads it took; checks
+    that the lanes below the key form a prefix, as the ballot count
+    assumes."""
+    lane = np.arange(32)
+    lo, hi, loads = 0, len(a), 0
+
+    def below(idx):
+        ok = idx < hi
+        b = np.zeros(32, bool)
+        b[ok] = a[idx[ok]] < key
+        assert not (b[1:] & ~b[:-1]).any()          # a prefix of lanes
+        return int(b.sum())
+    while hi - lo > 32:
+        step = (hi - lo + 31) // 32
+        lo += below(lo + (lane + 1) * step - 1) * step
+        hi = min(hi, lo + step - 1)
+        loads += 1
+    return lo + below(lo + lane), loads + 1
+
+
+def _runs(rng, n_tiles, sizes):
+    """Tile-sorted pair tiles: run ``sizes[i]`` pairs at tile ``i`` (0
+    leaves the tile unvisited), the last entry padding at ``n_tiles``."""
+    return np.repeat(np.arange(n_tiles + 1), sizes).astype(np.int32)
+
+
+@pytest.mark.parametrize("case", ["gaps", "padding_only", "one_tile",
+                                  "straddle", "empty", "long"])
+def test_run_search_equals_tile_starts(case):
+    """Each CTA's on-device run search (two warp searches, for t and
+    t + 1) gives ``tile_starts``' bounds for sorted pair tiles: unvisited
+    tiles, pairs that are all padding, one tile holding every pair, runs
+    of 31-33, 1,023-1,025 and 32 * 32 + 1 pairs that straddle the warp's
+    32 samples, no pairs at all, and 2^25 pairs within 5 dependent
+    loads."""
+    rng = np.random.default_rng(len(case))
+    n_tiles = 40
+    if case == "gaps":
+        sizes = rng.integers(0, 4, n_tiles + 1) * rng.integers(0, 9, n_tiles + 1)
+    elif case == "padding_only":
+        sizes = np.zeros(n_tiles + 1, int)
+        sizes[-1] = 300
+    elif case == "one_tile":
+        sizes = np.zeros(n_tiles + 1, int)
+        sizes[17], sizes[-1] = 5000, 3
+    elif case == "straddle":
+        sizes = rng.choice([0, 31, 32, 33, 1023, 1024, 1025, 1025, 33],
+                           n_tiles + 1)
+    elif case == "empty":
+        sizes = np.zeros(n_tiles + 1, int)
+    else:
+        n_tiles = 300
+        sizes = rng.multinomial(2**25, np.ones(n_tiles + 1) / (n_tiles + 1))
+    pair_tile = _runs(rng, n_tiles, sizes)
+    want = tfds.tile_starts(torch.from_numpy(pair_tile), n_tiles).numpy()
+    got, loads = zip(*(_warp_lower_bound(pair_tile, t)
+                       for t in range(n_tiles + 1)))
+    assert list(got) == want.tolist()
+    assert max(loads) <= (5 if case == "long" else 3)
 
 
 @pytest.mark.parametrize("max_pairs", [3, 40, 4096])
