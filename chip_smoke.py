@@ -6,9 +6,9 @@
 1. Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, started together), prints each kernel's
    ``ptxas -v`` registers and spills (with the entry functions of the
-   redesigned ``posting_score`` and ``flash_attention``), the attention
-   kernels' threads and dynamic shared memory per head width, and the
-   card's name and power limit.
+   redesigned ``posting_score``, ``flash_attention`` and dense scorers),
+   the attention kernels' threads and dynamic shared memory per head
+   width, and the card's name and power limit.
 2. Generates the repository's 1M-document tier
    (``CorpusSpec(num_docs=1_004_721, vocab=50_000, avg_distinct=40)``,
    one ``stream_batches`` batch of all docs) and bulk-builds it.
@@ -35,12 +35,20 @@
    before and read just after.  The kernel calls of each mode's last
    batch are recorded as the path makes them; each is then held to its
    plain version on the same arguments, to the bit, and timed (one
-   call repeated: its blocks may sit in L2).  A check batch of HOR-band
-   terms, which the served df band lacks, gives the 1M-doc segment's
-   HOR band real pairs and is held the same way (not timed).  Checks
-   that all four kernels launched, that there was no routing overflow,
-   and that ids and scores hold to the gather oracle
-   (``engine="torch"``).
+   call repeated: its blocks may sit in L2); a dense call also prints
+   its visited tiles, its longest and mean run of pairs, and its CTAs
+   per SM and shared memory per CTA.  A check batch of HOR-band terms,
+   which the served df band lacks, gives the 1M-doc segment's HOR band
+   real pairs and is held the same way (not timed).  Checks that all
+   four kernels launched, that there was no routing overflow, and that
+   ids and scores hold to the gather oracle (``engine="torch"``).
+6b. The query weights' kernels (``csrc/query_weights.cu``: ``idf`` and
+   ``query_norm``), which every bulk and live batch launches (counted in
+   steps 3 and 6): held to their plain versions, on the card and on the
+   CPU, to the bit, at the last bulk batch's shapes (timed in turns
+   beside the plain versions and, for the norm,
+   ``torch.linalg.vector_norm``), over every df up to the live doc
+   count, and at every width from 1 to 32.
 7. The paper phase, on the same corpus: the paper's four
    representations as Table 7 compares them, PR (``CooIndex``) and OR
    (``CsrIndex``) each with a B+tree (``SortedLookup``) and a hash
@@ -65,9 +73,7 @@
    beside the size model, lookup bytes, ms per query) and times both
    kernels, their plain versions and, for the posting scorer, the one
    PyTorch call that computes its sum (``index_add_`` over lanes already
-   gathered and multiplied: less work than the kernel does), and prints
-   the scorer's device time (``torch.profiler``) beside its event
-   time.
+   gathered and multiplied: less work than the kernel does).
 8. The model phase: the three model kernels through their entry points
    (``ops.embedding_bag``, ``ops.pna_multi_agg``, ``ops.attention``) at
    the widths of the repository's model configurations, inputs made on
@@ -93,9 +99,14 @@
    its plain version, beside its bound and the one PyTorch call that
    computes it (``F.embedding_bag``, ``F.scaled_dot_product_attention``;
    none for PNA), and prints each attention site's achieved TFLOP/s.
-9. Prints per-phase wall times, a ``{"kernels": [...]}`` line with all
-   nine kernels (means per launch over every counted call site of the
-   paths) and, last, ``{"ok": true, "device": {...}}``.
+9. Last, after every event timing (a trace slows the launches timed
+   after it): one ``torch.profiler`` trace of each dense live call
+   site, of both side kernels and of the two weights kernels, printed
+   as device ms per launch beside the event ms.  Then per-phase wall
+   times, a ``{"kernels": [...]}`` line with all nine kernels and the
+   two weights kernels (means per launch over every counted call site
+   of the paths; ``device_ms`` where every site was traced) and, last,
+   ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.  Every failed check raises.
@@ -105,6 +116,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -142,7 +154,15 @@ MODEL_KERNELS = {
     "flash_attention": "src/repro/kernels/flash_attention.py:78",
 }
 ALL_KERNELS = (*FUSED_KERNELS, *PAPER_KERNELS, *MODEL_KERNELS)
-REDESIGNED = ("posting_score", "flash_attention")   # whose ptxas is printed
+# the query weights' kernels (csrc/query_weights.cu): every bulk and live
+# batch launches them; they replace XLA code of the reference, not Pallas
+WEIGHT_KERNELS = {
+    "idf": "src/repro/core/query.py:33",
+    "query_norm": "src/repro/core/live_index.py:134",
+}
+# whose ptxas entry lines are printed
+REDESIGNED = ("posting_score", "flash_attention", "fused_score_blocked",
+              "fused_score_packed")
 # live phase: the 1m tier's ingest batch and delta (benchmarks/campaign.py)
 NEW_DOCS, DELTA_DOCS = 50_000, 16_384
 SEALS = ((0, 10_000, None), (10_000, 20_000, None), (20_000, 30_000, None),
@@ -254,41 +274,62 @@ def dense_work(kind, args, tile, q_real):
         pt, torch.tensor([n_tiles], dtype=pt.dtype, device=pt.device)))
     blocks = int(torch.unique(pb[:real]).numel())
     q = pqw.shape[1]
-    nbytes = (blocks * block_bytes + real * pair_bytes + (n_tiles + 1) * 4
-              + q * num_docs * 4)
+    nbytes = blocks * block_bytes + real * pair_bytes + q * num_docs * 4
     # per posting lane of a routed pair: one multiply-add per real query
     ops = real * 128 * 2 * q_real
     return nbytes, ops, real, blocks
 
 
-# the side kernels' symbols, as the profiler names their device activity
+def run_stats(pair_tile, num_docs, tile):
+    """A dense call's runs: the tiles its real pairs visit, and the
+    longest and mean run of pairs per visited tile."""
+    import torch
+    n_tiles = -(-num_docs // tile)
+    pt = pair_tile[pair_tile < n_tiles].long()
+    runs = torch.bincount(pt, minlength=n_tiles) if pt.numel() else \
+        torch.zeros(n_tiles, dtype=torch.int64, device=pair_tile.device)
+    visited = int((runs > 0).sum())
+    return {"visited_tiles": visited, "longest_run": int(runs.max()),
+            "mean_run": pt.numel() / visited if visited else 0.0}
+
+
+# kernels' symbols, as the profiler names their device activity
 SYMBOLS = {"posting_score": "posting_score_kernel",
-           "unpack_blocks": "unpack_kernel"}
+           "unpack_blocks": "unpack_kernel",
+           "idf": "idf_kernel", "query_norm": "norm_kernel",
+           "fused_score_blocked": "score_kernel<fused_score::HorBlocks",
+           "fused_score_packed": "score_kernel<fused_score::PackedBlocks"}
 
 
 def device_ms(runs):
     """Mean device time per launch of each kernel alone (no wrapper
-    work, no other kernel), from ONE ``torch.profiler`` trace of a round
-    of ``fn(*c)`` over ``calls`` for every ``name: (fn, calls)`` of
-    ``runs``; None for a kernel the trace shows no device time for.  A
-    trace slows the launches timed after it, so it runs once, after
+    work, no other kernel), for every ``key: (kernel, fn, calls)`` of
+    ``runs``, from ONE ``torch.profiler`` trace that runs ``fn(*c)`` over
+    ``calls`` for each key in turn: the trace's kernels named
+    ``SYMBOLS[kernel]``, in launch order, are the keys' launches in
+    order.  None for a key whose launches the trace does not show.  A
+    trace slows the launches timed after it, so this runs once, after
     every event timing of the script."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for fn, calls in runs.values():
+        for kernel, fn, calls in runs.values():
             for c in calls:
                 fn(*c)
         torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = sorted((e for e in prof.events() if e.device_type == cuda),
+                    key=lambda e: e.time_range.start)
+    queues = {k: [e.time_range.elapsed_us() for e in events
+                  if SYMBOLS[k] in e.name]
+              for k in {kernel for kernel, _, _ in runs.values()}}
     out = {}
-    for name in runs:
-        total, count = 0.0, 0
-        for e in prof.key_averages():
-            if SYMBOLS[name] in e.key:
-                total += getattr(e, "device_time_total", 0.0)
-                count += e.count
-        out[name] = total / count / 1e3 if count and total > 0 else None
+    for key, (kernel, _, calls) in runs.items():
+        mine, queues[kernel] = (queues[kernel][:len(calls)],
+                                queues[kernel][len(calls):])
+        out[key] = (sum(mine) / len(mine) / 1e3
+                    if len(mine) == len(calls) and sum(mine) > 0 else None)
     return out
 
 
@@ -316,6 +357,8 @@ def wrappers():
     out.update(embedding_bag=embedding_bag.embedding_bag,
                pna_multi_agg=segment_multi_agg.pna_multi_agg,
                flash_attention=flash_attention.flash_attention)
+    from repro_torch.core import query
+    out.update(idf=query.idf, query_norm=query.query_norm)
     return out
 
 
@@ -436,6 +479,7 @@ def main() -> int:
 
     # 3-4. each layout on the card ----------------------------------------
     sites = []
+    weight_launches = dict.fromkeys(WEIGHT_KERNELS, 0)
     ids_by_layout = {}
     builders = {"hor": layouts.build_blocked,
                 "packed": layouts.build_packed_csr}
@@ -463,6 +507,11 @@ def main() -> int:
             results.append((res, stats))
         launches = read_launches()
         peak = torch.cuda.max_memory_allocated(dev)
+        for k in WEIGHT_KERNELS:
+            if launches[k] < len(batches):
+                raise AssertionError(f"{kind}: {k} launched {launches[k]} "
+                                     f"times for {len(batches)} batches")
+            weight_launches[k] += launches[k]
         if launches[name] < len(batches):
             raise AssertionError(f"{name}: {launches[name]} launches for "
                                  f"{len(batches)} batches")
@@ -500,6 +549,7 @@ def main() -> int:
             _, _, args, kw, _ = ops.fused_topk_args(ix, term_ids, idf_t,
                                                     cap, K)
             torch.cuda.synchronize()
+            weight_args = (ix.term_df(term_ids), host.num_docs, idf_t)
             pairs_ms.append((time.perf_counter() - t0) * 1e3)
             calls.append(args)
             work.append(kernel_work(kind, args, kw["tile"], BATCH))
@@ -557,12 +607,26 @@ def main() -> int:
     print(f"phase bulk: {phase_s['bulk']:.1f} s")
 
     t_phase = time.perf_counter()
-    sites += live_phase(host, batches, a.seed, dev, report)
+    live_sites, traces = live_phase(host, batches, a.seed, dev, report)
+    sites += live_sites
+    for mode, counted in report["live"]["launches"].items():
+        for k in WEIGHT_KERNELS:
+            if counted[k] < len(batches):
+                raise AssertionError(f"live {mode}: {k} launched "
+                                     f"{counted[k]} times")
+            weight_launches[k] += counted[k]
+    w_sites, w_traces = weight_sites(*weight_args, weight_launches,
+                                     report["live"]["live_docs"])
+    sites += w_sites
+    traces.update(w_traces)
+    del weight_args
     phase_s["live"] = time.perf_counter() - t_phase
     print(f"phase live: {phase_s['live']:.1f} s")
 
     t_phase = time.perf_counter()
-    sites += paper_phase(host, dev, report)
+    paper_sites, paper_traces = paper_phase(host, dev, report)
+    sites += paper_sites
+    traces.update(paper_traces)
     phase_s["paper"] = time.perf_counter() - t_phase
     print(f"phase paper: {phase_s['paper']:.1f} s")
 
@@ -570,6 +634,21 @@ def main() -> int:
     sites += model_phase(a.seed, dev, report)
     phase_s["model"] = time.perf_counter() - t_phase
     print(f"phase model: {phase_s['model']:.1f} s")
+
+    # last, after every event timing: the traced sites' device time
+    t_phase = time.perf_counter()
+    dev_ms = device_ms(traces)
+    for site in sites:
+        if site["site"] in dev_ms:
+            site["device_ms"] = dev_ms[site["site"]]
+            print(f"device time: {site['site']}: {site['kernel_ms']:.4f} "
+                  f"ms per call by events (wrapper included), device "
+                  f"{site['device_ms']} ms, bound "
+                  f"{max(site['t_bytes_ms'], site['t_ops_ms']):.4f} ms, "
+                  f"library {site.get('library_ms')} ms")
+    del traces
+    torch.cuda.empty_cache()
+    phase_s["device_time"] = time.perf_counter() - t_phase
     report["phase_s"] = phase_s
 
     kinfo = {"kernels": kernel_rows(sites)}
@@ -625,12 +704,17 @@ def replay(calls, fds, label, timed=True):
         pkw = {k: v for k, v in kw.items() if k != "reducer"}
         got, want = wrapper(*args, **kw), plain(*args, **pkw)
         torch.cuda.synchronize()
+        extra = {}
         if name in DENSE_KERNELS:
             err = float((got - want).abs().max())
             eq = torch.equal(got.view(torch.int32), want.view(torch.int32))
             nbytes, nops, real, blocks = dense_work(
                 DENSE_KERNELS[name][0], args, kw["tile"], BATCH)
             num_docs = args[-1 if name == "fused_score_blocked" else -2]
+            extra = run_stats(args[3], num_docs, kw["tile"])
+            wpb = args[0].shape[1] if name == "fused_score_packed" else 0
+            extra["ctas_per_sm"], extra["smem_bytes"] = \
+                fds.dense_occupancy(name, args[4].shape[1], kw["tile"], wpb)
         else:
             eq, err = same_candidates(got, want)
             nbytes, nops, real, blocks, _ = kernel_work(
@@ -642,7 +726,7 @@ def replay(calls, fds, label, timed=True):
                 "distinct_blocks": blocks, "bytes": nbytes, "ops": nops,
                 "t_bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                 "t_ops_ms": nops / F32_OPS_PER_S * 1e3,
-                "max_abs_err": err}
+                "max_abs_err": err, **extra}
         if not eq:
             raise AssertionError(f"{site['site']}: kernel != plain version "
                                  f"(max abs err {err})")
@@ -741,7 +825,7 @@ def live_phase(host, batches, seed, dev, report):
     # the main path, one mode at a time: every launch counted from zero
     # just before and read just after; the last batch's kernel calls are
     # recorded, then each is held to its plain version and timed
-    served, launches, sites = {}, {}, []
+    served, launches, sites, traces = {}, {}, [], {}
     for mode in ("candidates", "dense"):
         reset_launches()
         out, e2e_ms = [], []
@@ -756,10 +840,13 @@ def live_phase(host, batches, seed, dev, report):
             out.append(res)
         launches[mode] = read_launches()
         served[mode] = (out, e2e_ms)
-        for site in replay(calls, fds, mode):
+        for (name, args, kw), site in zip(calls, replay(calls, fds, mode)):
             # every batch launches each of the path's sites once
             site.update(mode=mode, launches=len(batches))
             sites.append(site)
+            if name in DENSE_KERNELS:       # its device time, at the end
+                traces[site["site"]] = (name, functools.partial(
+                    getattr(fds, name), **kw), [args])
         del calls
         torch.cuda.empty_cache()
     print(f"live launches: {json.dumps(launches)}")
@@ -833,7 +920,74 @@ def live_phase(host, batches, seed, dev, report):
     report["live"] = live
     del si, view
     torch.cuda.empty_cache()
-    return sites
+    return sites, traces
+
+
+# f32 operations per slot of ``idf`` (a fused multiply-add counts two):
+# the division, x + 1, and the log's 10 FMAs and 10 other operations
+IDF_OPS = 2 + 2 * 10 + 10
+
+
+def weight_sites(df, num_docs, w, launches, live_docs):
+    """The query weights' kernels at the main path's shapes, the last
+    bulk batch's df (i32[B, T]) and weights: each held to its plain
+    version on the card and on the CPU, to the bit, and timed in turns
+    beside it.  Then, untimed, ``idf`` over every df up to the live doc
+    count and ``query_norm`` at every width from 1 to 32 (random
+    weights, 8 rows) held the same way.  ``launches`` are the counted
+    runs' (bulk and live).  Returns the sites and their traces."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import query
+
+    def held(name, args):
+        got = getattr(query, name)(*args)
+        plain = getattr(query, name + "_plain")
+        want = plain(*args)
+        cpu = plain(*(x.cpu() if isinstance(x, torch.Tensor) else x
+                      for x in args))
+        torch.cuda.synchronize()
+        for other in (want, cpu):
+            if not torch.equal(got.cpu().view(torch.int32),
+                               other.cpu().view(torch.int32)):
+                raise AssertionError(f"{name}: kernel != plain version "
+                                     f"at {tuple(args[0].shape)}")
+        return float((got - want).abs().max()) if got.numel() else 0.0
+
+    rows, width = w.shape
+    work = {"idf": ((df, num_docs), df.numel() * 8, df.numel() * IDF_OPS,
+                    None),
+            "query_norm": ((w,), w.numel() * 4 + rows * 4, w.numel() * 2,
+                           lambda x: torch.linalg.vector_norm(x, dim=-1))}
+    sites, traces = [], {}
+    for name, (args, nbytes, nops, lib) in work.items():
+        err = held(name, args)
+        ms, turns, plain_ms, clocks = time_in_turns(
+            getattr(query, name), getattr(query, name + "_plain"), [args])
+        site = {"site": f"weights:{name}@{rows}x{width}", "kernel": name,
+                "launches": launches[name], "max_abs_err": err,
+                "bytes": nbytes, "ops": nops,
+                "t_bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                "t_ops_ms": nops / F32_OPS_PER_S * 1e3,
+                "kernel_ms": ms, "kernel_ms_turns": turns,
+                "plain_ms": plain_ms, "clocks_sm_mem_power_temp": clocks,
+                "library_ms": (event_ms(lib, [args], REPS)
+                               if lib else None)}
+        sites.append(site)
+        traces[site["site"]] = (name, getattr(query, name), [args])
+        print(f"weights kernel site: {json.dumps(site)}")
+    every_df = torch.arange(0, live_docs + 1, dtype=torch.int32,
+                            device=df.device)
+    held("idf", (every_df, float(np.float32(live_docs))))
+    rng = np.random.default_rng(live_docs)
+    for t in range(1, 33):
+        r = (rng.random((8, t)) * 14).astype(np.float32)
+        r[rng.random(r.shape) < 0.2] = 0.0
+        held("query_norm", (torch.from_numpy(r).to(df.device),))
+    print(f"weights: kernel == plain version (card and CPU) over df "
+          f"0..{live_docs} and widths 1-32")
+    return sites, traces
 
 
 def absent_hashes(term_hashes, n, seed):
@@ -1172,20 +1326,16 @@ def paper_phase(host, dev, report):
     print(f"direct index: {json.dumps(paper['direct'])}")
 
     paper["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
-    # last: each side kernel's own device time (the trace would slow the
-    # launches timed after it)
-    dev_ms = device_ms({"posting_score": (ps.posting_score, calls),
-                        "unpack_blocks": (pp.unpack_blocks, [args])})
     for site in sites:
-        site["device_ms"] = dev_ms[site["kernel"]]
         print(f"paper kernel site: {json.dumps(site)}")
-        print(f"{site['kernel']}: {site['kernel_ms']:.4f} ms per call by "
-              f"events (wrapper included), device {site['device_ms']} ms, "
-              f"library {site['library_ms']} ms")
     report["paper"] = {**paper, "kernel_sites": sites}
+    # each side kernel's device time is read at the end of the script (a
+    # trace slows the launches timed after it)
+    traces = {sites[0]["site"]: ("posting_score", ps.posting_score, calls),
+              sites[1]["site"]: ("unpack_blocks", pp.unpack_blocks, [args])}
     del ix, pr, orr, hor, packed, direct, results, base, single, calls, args
     torch.cuda.empty_cache()
-    return sites
+    return sites, traces
 
 
 def model_inputs(seed, dev):
@@ -1511,8 +1661,8 @@ def kernel_rows(sites):
     import numpy as np
     rows = []
     replaced = {n: r for n, (_, r) in {**KERNELS, **DENSE_KERNELS}.items()}
-    for name, replaces in {**replaced, **PAPER_KERNELS,
-                           **MODEL_KERNELS}.items():
+    for name, replaces in {**replaced, **PAPER_KERNELS, **MODEL_KERNELS,
+                           **WEIGHT_KERNELS}.items():
         mine = [x for x in sites if x["kernel"] == name]
         if not mine:
             raise AssertionError(f"{name}: no call site on any path")
@@ -1522,16 +1672,20 @@ def kernel_rows(sites):
             return float(np.average([x[key] for x in mine], weights=w))
         t_bytes, t_ops = mean("t_bytes_ms"), mean("t_ops_ms")
         lib = [x.get("library_ms") for x in mine]
+        dev = [x.get("device_ms") for x in mine]
         rows.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "source": "src/repro_torch/kernels/csrc/"
+                      + ("query_weights" if name in WEIGHT_KERNELS
+                         else name) + ".cu",
             "replaces": replaces, "launches": int(sum(w)),
             "max_abs_err": max(x["max_abs_err"] for x in mine),
             "ms": mean("kernel_ms"), "plain_ms": mean("plain_ms"),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": (mean("library_ms")
-                           if None not in lib else None)})
+                           if None not in lib else None),
+            "device_ms": mean("device_ms") if None not in dev else None})
     return rows
 
 

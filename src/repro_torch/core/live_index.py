@@ -63,7 +63,8 @@ from repro_torch.core import compaction, layouts, size_model
 from repro_torch.core.build import TokenizedCorpus
 from repro_torch.core.layouts import DocTable, PostingsHost
 from repro_torch.core.segments import run_ranks
-from repro_torch.core.query import QueryResult, final_scores, query_norm
+from repro_torch.core.query import (QueryResult, final_scores, idf,
+                                   query_norm)
 from repro_torch.distributed.topk import merge_topk_candidates_host
 from repro_torch.kernels import autotune, ops
 from repro_torch.kernels.fused_decode_score import (TILE, default_k_tile,
@@ -81,12 +82,10 @@ LAYOUTS = ("hor", "packed", "banded")
 
 def _query_weights(df: Tensor, d_live: float):
     """Global idf weights + query norms: ``query.idf`` and the oracle's
-    qnorm over LIVE df (i32[B, T]) and the live doc count."""
-    safe = df.clamp_min(1)
-    num = torch.full(df.shape, float(d_live), dtype=torch.float32,
-                     device=df.device)
-    idf = torch.where(df > 0, torch.log1p(num / safe.float()), 0.0)
-    return idf, query_norm(idf)
+    qnorm over LIVE df (i32[B, T]) and the live doc count, bit for bit
+    the reference's ``_query_weights``."""
+    w = idf(df, d_live)
+    return w, query_norm(w)
 
 
 def _posting_weights(terms: Tensor, tids: Tensor, idf_w: Tensor) -> Tensor:

@@ -24,6 +24,7 @@ is the AND-semantics filter of one query over any layout.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Any, Callable, NamedTuple
 
@@ -31,6 +32,7 @@ import torch
 
 from repro_torch.core.layouts import hash_tensor
 from repro_torch.distributed.topk import merge_topk_candidates
+from repro_torch.kernels.cuda_build import check_tensors, entry, tensors_ok
 
 Tensor = torch.Tensor
 
@@ -40,10 +42,110 @@ class QueryResult(NamedTuple):
     scores: Tensor     # f32[..., k]
 
 
-def idf(df: Tensor, num_docs: int) -> Tensor:
-    """idf = ln(1 + D/df); 0 where the term is absent (df == 0)."""
-    safe = df.clamp_min(1)
-    return torch.where(df > 0, torch.log1p(num_docs / safe.float()), 0.0)
+def idf_plain(df: Tensor, num_docs) -> Tensor:
+    """idf = ln(1 + D/df); 0 where the term is absent (df == 0), on df's
+    device.  D/df is an f32 division, and ln(1 + x) is XLA's: for x >= 1
+    (df <= D) its ``log1p`` is ``log(x + 1)``, so ``log_f32(x + 1)``
+    gives the reference's bits.  The plain version of ``idf``'s kernel."""
+    x = torch.full(df.shape, float(num_docs),
+                   device=df.device) / df.clamp_min(1).float()
+    return torch.where(df > 0, log_f32(x + 1.0), 0.0)
+
+
+def idf(df: Tensor, num_docs) -> Tensor:
+    """``idf_plain``'s weights: one launch of ``csrc/query_weights.cu``
+    for a CUDA ``df`` (i32), the plain version for a CPU one.  A batch
+    holds a few dozen weights, and the plain version's ~250 elementwise
+    ops would each be a launch on the card."""
+    if not df.is_cuda:
+        return idf_plain(df, num_docs)
+    out = torch.empty(df.shape, dtype=torch.float32, device=df.device)
+    if _launch_weights("query_idf", "df", df, torch.int32, df.numel(),
+                       ctypes.c_float(float(num_docs)), out):
+        idf.launches += 1
+    return out
+
+
+idf.launches = 0
+
+
+def _launch_weights(symbol: str, arg_name: str, x: Tensor, dtype, n: int,
+                    arg, out: Tensor) -> bool:
+    """Check the input ``x`` (contiguous, ``dtype``, on the card;
+    ``check_tensors`` names a fault), then call ``csrc/query_weights.cu``'s
+    ``<symbol>_launch`` with (x, n, arg, out) on the current stream.
+    False when there is nothing to launch (n == 0)."""
+    name = "query_weights"
+    dev = x.get_device()
+    if not tensors_ok(dev, [(x, dtype, x.shape)]):
+        check_tensors(name, **{arg_name: (x, dtype, tuple(x.shape))})
+    if n == 0:
+        return False
+    fn = entry(name, _WEIGHTS_ARGTYPES[symbol], f"{symbol}_launch")
+    err = fn(x.data_ptr(), n, arg, out.data_ptr(),
+             torch._C._cuda_getCurrentRawStream(dev))
+    if err:
+        raise RuntimeError(f"{name}: CUDA launch of {symbol} failed "
+                           f"(error {err})")
+    return True
+
+
+# C signatures (csrc/query_weights.cu): df, n, num_docs, out, stream;
+# w, rows, width, out, stream
+_WEIGHTS_ARGTYPES = {
+    "query_idf": [ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                  ctypes.c_void_p, ctypes.c_void_p],
+    "query_norm": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p]}
+
+
+# Cephes' logf coefficients (p0..p8, then q1, q2 = ln 2 in two parts) and
+# sqrt(1/2), as f32: the constants of XLA's CPU log
+_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+          -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+          2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
+_LOG_Q1, _LOG_Q2 = -2.12194440e-4, 0.693359375
+_SQRT_HALF = 0.707106781186547524
+_FLT_MIN = 1.17549435e-38
+
+
+def log_f32(x: Tensor) -> Tensor:
+    """Natural log of f32 ``x``, bit for bit as XLA computes it on the
+    CPU (its ``log`` and, for x >= 1, its ``log1p(x - 1)``).
+
+    XLA emits Cephes' ``logf`` (Eigen's ``plog_float``): x = m * 2^e
+    with m in [sqrt(1/2), sqrt(2)), then a degree-8 polynomial in
+    m - 1 split into three Horner chains, and e * ln 2 added in two
+    parts.  Its backend contracts every multiply that feeds one add into
+    a fused multiply-add; each is ``fma_f32`` here, and the rest are
+    plain f32 ops, so the CPU and the card give the same bits.  x <= 0
+    or NaN gives NaN, 0 gives -inf, inf gives inf; a subnormal counts as
+    0, as XLA's CPU code flushes it."""
+    def c(v):
+        return torch.tensor(v, dtype=torch.float32, device=x.device)
+    x = torch.where(x.abs() < _FLT_MIN, 0.0, x.float())
+    bits = x.clamp_min(_FLT_MIN).view(torch.int32)
+    m = ((bits & 0x7FFFFF) | 0x3F000000).view(torch.float32)  # [0.5, 1)
+    e = ((bits >> 23) - 127).float() + 1.0
+    low = m < c(_SQRT_HALF)
+    e = e - low.float()
+    r = (m - 1.0) + torch.where(low, m, 0.0)                  # m - 1
+    r2 = r * r
+    r3 = r2 * r
+    p = [c(v) for v in _LOG_P]
+    y = fma_f32(r, p[0], p[1])
+    y1 = fma_f32(r, p[3], p[4])
+    y2 = fma_f32(r, p[6], p[7])
+    y = fma_f32(y, r, p[2])
+    y1 = fma_f32(y1, r, p[5])
+    y2 = fma_f32(y2, r, p[8])
+    y = fma_f32(y, r3, y1)
+    y = fma_f32(y, r3, y2)
+    y = fma_f32(y, r3, e * c(_LOG_Q1))
+    out = fma_f32(e, c(_LOG_Q2), (r - r2 * 0.5) + y)
+    out = torch.where(x > 0, out, float("nan"))
+    out = torch.where(x == 0, float("-inf"), out)
+    return torch.where(x == float("inf"), float("inf"), out)
 
 
 def dedup_query_hashes(query_hashes: Tensor) -> Tensor:
@@ -79,19 +181,51 @@ def fma_f32(a: Tensor, b: Tensor, c: Tensor) -> Tensor:
     return torch.where(fix, torch.nextafter(s, toward), s).float()
 
 
-def query_norm(idf_w: Tensor) -> Tensor:
+def query_norm_plain(idf_w: Tensor) -> Tensor:
     """Query norms sqrt(max(sum_t w_t**2, 1e-12)) over the last axis, as
-    the reference's XLA lowering computes them on the CPU for queries of
-    up to 4 slots: the slot sum as a chain of fused multiply-adds in slot
-    order, then a correctly rounded square root (through f64, which is
-    exact for an f32 input).  Wider queries are summed in the same order;
-    XLA reduces those in another, so their norms may differ from its in
-    the last bit."""
+    the reference's XLA lowering computes them on the CPU: the slots are
+    summed in slot order, then the square root is rounded correctly
+    (through f64, which is exact for an f32 input).  How each square
+    joins the sum depends on the width T:
+
+    * T = 1-4 and T >= 9: a chain of fused multiply-adds;
+    * T = 5-8: each square rounded on its own, then added.  XLA's
+      vectorised row loop deinterleaves the T slots of 8 rows before
+      the multiply, and its backend does not contract that multiply
+      into the add.
+
+    The T = 5-8 rule holds for the rows XLA's loop vectoriser covers:
+    every row at batch sizes such as 4, 8, 16, 32, 64 and 4,096 (the
+    serving tier's batch of 8 at 8 slots among them).  Rows it leaves
+    to a scalar loop take the FMA chain there: every row at 3, 5-7 or
+    9-15 rows, and a few rows of a larger batch, where the count depends
+    on how XLA splits the rows among its threads.  Their norms may
+    differ from this in the last bit (ROADMAP, queue 3).  The plain
+    version of ``query_norm``'s kernel; runs on idf_w's device."""
+    t_width = idf_w.shape[-1]
     acc = torch.zeros(idf_w.shape[:-1], dtype=torch.float32,
                       device=idf_w.device)
-    for t in range(idf_w.shape[-1]):
-        acc = fma_f32(idf_w[..., t], idf_w[..., t], acc)
+    for t in range(t_width):
+        w = idf_w[..., t]
+        acc = acc + w * w if 5 <= t_width <= 8 else fma_f32(w, w, acc)
     return torch.sqrt(acc.clamp_min(1e-12).double()).float()
+
+
+def query_norm(idf_w: Tensor) -> Tensor:
+    """``query_norm_plain``'s norms: one launch of
+    ``csrc/query_weights.cu`` for a CUDA ``idf_w`` (f32), the plain
+    version for a CPU one."""
+    if not idf_w.is_cuda:
+        return query_norm_plain(idf_w)
+    out = torch.empty(idf_w.shape[:-1], dtype=torch.float32,
+                      device=idf_w.device)
+    if _launch_weights("query_norm", "idf_w", idf_w, torch.float32,
+                       out.numel(), idf_w.shape[-1], out):
+        query_norm.launches += 1
+    return out
+
+
+query_norm.launches = 0
 
 
 def final_scores(scores: Tensor, norm: Tensor, rank: Tensor, qnorm: Tensor,

@@ -14,13 +14,11 @@
 // per lane, far below the card's ops:byte ridge.
 //
 // Design: one launch per call.  One CTA of 128 threads per doc tile t
-// first finds its run [p0, p1) of the tile-sorted pairs itself: warp 0
-// searches pair_tile for t, warp 1 for t + 1, each a 32-ary search (every
-// lane loads one sample, __ballot_sync counts the samples below the key,
-// the range shrinks 32-fold per step: 5 dependent loads at 2^25 pairs),
-// and shares the bound through shared memory.  It then walks the run
-// into a [tile] f32 accumulator in shared memory and writes the tile
-// straight into the score vector, clipped at num_docs.  A block's doc ids
+// first finds its run [p0, p1) of the tile-sorted pairs itself, with two
+// 32-ary warp searches (run_walk.cuh: 5 dependent loads at 2^25 pairs).
+// It then walks the run into a [tile] f32 accumulator in shared memory
+// and writes the tile straight into the score vector, clipped at
+// num_docs.  A block's doc ids
 // are unique, so one pair's lanes never collide: plain adds, no atomics,
 // and a barrier between pairs keeps the adds in pair order, the
 // reference's order.  The Pallas kernel rounds w = tf * pair_w first and
@@ -30,31 +28,11 @@
 // (__fmul_rn, __fadd_rn; built with -fmad=false).  Blocks of any width are
 // read, threads striding over the lanes.  Padding pairs sit at tile
 // n_tiles, which has no CTA.
-#include <cuda_runtime.h>
+#include "run_walk.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
-
-// The first index in [0, n) whose a[] is >= key (n if none), over sorted
-// a, by one whole warp: 32 samples per step; the lanes whose sample is
-// below key come first, so the ballot's count places the bound between
-// two samples.
-__device__ __forceinline__ int warp_lower_bound(const int* __restrict__ a,
-                                                int n, int key) {
-  const int lane = threadIdx.x % 32;
-  int lo = 0, hi = n;                  // the bound lies in [lo, hi]
-  while (hi - lo > 32) {
-    const int step = (hi - lo + 31) / 32;
-    const int idx = lo + (lane + 1) * step - 1;
-    const bool below = idx < hi && a[idx] < key;
-    lo += __popc(__ballot_sync(0xffffffffu, below)) * step;
-    hi = min(hi, lo + step - 1);
-  }
-  const int idx = lo + lane;
-  const bool below = idx < hi && a[idx] < key;
-  return lo + __popc(__ballot_sync(0xffffffffu, below));
-}
 
 __global__ void __launch_bounds__(kThreads)
 posting_score_kernel(const int* __restrict__ docs,
@@ -66,14 +44,9 @@ posting_score_kernel(const int* __restrict__ docs,
   extern __shared__ float acc[];     // [tile]
   __shared__ int run[2];
   const int t = blockIdx.x;
-  const int warp = threadIdx.x / 32;
-  if (warp < 2) {
-    const int bound = warp_lower_bound(pair_tile, n_pairs, t + warp);
-    if (threadIdx.x % 32 == 0) run[warp] = bound;
-  }
-  __syncthreads();
-  const int p0 = run[0];
-  const int p1 = run[1];
+  const int2 bounds = run_walk::find_run(pair_tile, n_pairs, t, run);
+  const int p0 = bounds.x;
+  const int p1 = bounds.y;
   const int tile_base = t * tile;
   const int width = min(tile, num_docs - tile_base);   // clipped last tile
 

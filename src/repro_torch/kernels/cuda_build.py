@@ -35,7 +35,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("fused_topk_blocked", "fused_topk_packed", "fused_score_blocked",
            "fused_score_packed", "posting_score", "unpack_blocks",
-           "embedding_bag", "pna_multi_agg", "flash_attention")
+           "embedding_bag", "pna_multi_agg", "flash_attention",
+           "query_weights")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -144,6 +145,18 @@ def check_tensors(name: str, **tensors) -> None:
             raise ValueError(f"{name}: {arg} on {t.device}, others on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+def tensors_ok(dev: int, specs) -> bool:
+    """One pass over ``(tensor, dtype, shape)`` specs: True when every
+    tensor is contiguous, on CUDA device ``dev``, with that dtype and
+    shape.  The launchers' fast check; on False they call
+    ``check_tensors``, which names the tensor at fault."""
+    for t, dtype, shape in specs:
+        if not (t.dtype == dtype and t.shape == shape
+                and t.get_device() == dev and t.is_contiguous()):
+            return False
+    return dev >= 0
 
 
 def check_ids(name: str, arg: str, ids, rows: int) -> None:

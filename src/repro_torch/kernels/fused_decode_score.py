@@ -38,7 +38,8 @@ import torch
 from repro_torch.core.layouts import take_rows, unpack_words
 from repro_torch.core.segments import run_ranks
 from repro_torch.core.query import final_scores, fma_f32
-from repro_torch.kernels.cuda_build import check_tensors, launch
+from repro_torch.kernels.cuda_build import (check_tensors, entry, launch,
+                                            tensors_ok)
 
 Tensor = torch.Tensor
 
@@ -287,16 +288,17 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # block pointers, then pair_cap, pair_qw, [packed: bits, base, count,
 # wpb], tile_start, norm, rank, qnorm, out_vals, out_ids, n_tiles,
 # num_docs, q, tile, k_tile, rank_blend, stream
-# csrc/fused_score_{blocked,packed}.cu take the same head, then
-# tile_start, out, n_tiles, num_docs, q, tile, stream
 _TAIL = [_P] * 6 + [_I] * 5 + [_F, _P]
-_DENSE_TAIL = [_P] * 2 + [_I] * 4 + [_P]
+# csrc/fused_score_blocked.cu: docs, tfs, pair_block, pair_tile,
+# pair_cap, pair_qw, n_pairs, out, n_tiles, num_docs, q, tile, stream;
+# csrc/fused_score_packed.cu: words, tfs, wpb, pair_block, pair_tile,
+# pair_cap, pair_qw, pair_bits, pair_base, pair_count, then as blocked
+_DENSE_TAIL = [_I, _P] + [_I] * 4 + [_P]
 _ARGTYPES = {
     "fused_topk_blocked": [_P] * 3 + [_P, _P] + _TAIL,
     "fused_topk_packed": [_P] * 3 + [_P, _P] + [_P] * 3 + [_I] + _TAIL,
-    "fused_score_blocked": [_P] * 3 + [_P, _P] + _DENSE_TAIL,
-    "fused_score_packed": [_P] * 3 + [_P, _P] + [_P] * 3 + [_I]
-    + _DENSE_TAIL,
+    "fused_score_blocked": [_P] * 6 + _DENSE_TAIL,
+    "fused_score_packed": [_P, _P, _I] + [_P] * 7 + _DENSE_TAIL,
 }
 
 
@@ -332,19 +334,28 @@ def _launch(name, blocks, pair_tile, pair_qw, pair_cap, decode, norm, rank,
     return vals, ids
 
 
-def _launch_dense(name, blocks, pair_tile, pair_qw, pair_cap, decode,
-                  num_docs, tile):
-    """Allocate f32[Q, num_docs] and launch dense kernel ``name``: every
-    element is written (zeros in unvisited tiles)."""
-    q = pair_qw.shape[1]
-    n_tiles = _n_tiles(num_docs, tile)
+def _launch_dense(name, dev, specs, blocks, pairs, num_docs, tile):
+    """Check the dense kernel's tensors in one pass (``specs``, by name),
+    allocate f32[Q, num_docs] and call kernel ``name``'s entry point on
+    PyTorch's raw stream: every element is written (zeros in unvisited
+    tiles), in one device launch.  ``blocks`` are its layout's pointers
+    and ints, ``pairs`` its pair arrays after them."""
+    if not tensors_ok(dev, specs.values()):
+        check_tensors(name, **specs)
+        raise ValueError(f"{name}: tensors on different devices")
+    pair_qw = specs["pair_qw"][0]
+    np_, q = pair_qw.shape
     check_smem(name, q, tile)
     out = torch.empty((q, num_docs), dtype=torch.float32,
                       device=pair_qw.device)
-    tile_start = tile_starts(pair_tile, n_tiles)
-    launch(name, _ARGTYPES[name],
-           (*blocks, pair_cap, pair_qw, *decode, tile_start, out, n_tiles,
-            num_docs, q, tile), pair_qw.device)
+    # the entry point called directly, not through ``launch``'s loop over
+    # its arguments: a call's host time is most of a small launch's
+    err = entry(name, _ARGTYPES[name])(
+        *blocks, *(t.data_ptr() for t in pairs), np_, out.data_ptr(),
+        _n_tiles(num_docs, tile), num_docs, q, tile,
+        torch._C._cuda_getCurrentRawStream(dev))
+    if err:
+        raise RuntimeError(f"{name}: CUDA launch failed (error {err})")
     return out
 
 
@@ -394,34 +405,65 @@ def _launch_packed_cuda(packed, block_tfs, pair_block, pair_tile, pair_qw,
                    norm, rank, qnorm, num_docs, tile, k_tile, rank_blend)
 
 
+def dense_occupancy(name: str, q: int, tile: int = TILE,
+                    wpb: int = 0) -> tuple[int, int]:
+    """(CTAs per SM, dynamic shared memory bytes per CTA) of dense kernel
+    ``name`` at Q = ``q`` (and, packed, ``wpb`` words per block), as the
+    CUDA runtime computes them on the current card."""
+    smem = ctypes.c_int(0)
+    args = ((wpb,) if name == "fused_score_packed" else ()) + (
+        q, tile, ctypes.byref(smem))
+    ctas = entry(name, [_I] * (len(args) - 1)
+                 + [ctypes.POINTER(ctypes.c_int)], f"{name}_occupancy")(*args)
+    if ctas < 0:
+        raise RuntimeError(f"{name}: occupancy query failed (error "
+                           f"{-ctas})")
+    return ctas, smem.value
+
+
+def _pair_specs(pair_qw):
+    """(N, Q) of ``pair_qw``, or (0, 0) when it is not 2-D, so that
+    ``check_tensors`` reports its shape."""
+    return tuple(pair_qw.shape) if pair_qw.dim() == 2 else (0, 0)
+
+
 def _launch_score_blocked_cuda(block_docs, block_tfs, pair_block, pair_tile,
                                pair_qw, pair_cap, num_docs, tile):
-    name = "fused_score_blocked"
-    nb = block_docs.shape[0]
-    check_tensors(name, block_docs=(block_docs, torch.int32, (nb, BLOCK)),
-                  block_tfs=(block_tfs, torch.float32, (nb, BLOCK)),
-                  **_pair_checks(pair_block, pair_tile, pair_qw, pair_cap))
-    return _launch_dense(name, (block_docs, block_tfs, pair_block),
-                         pair_tile, pair_qw, pair_cap, (), num_docs, tile)
+    i32, f32 = torch.int32, torch.float32
+    nb = block_docs.shape[0] if block_docs.dim() else 0
+    np_, q = _pair_specs(pair_qw)
+    specs = dict(block_docs=(block_docs, i32, (nb, BLOCK)),
+                 block_tfs=(block_tfs, f32, (nb, BLOCK)),
+                 pair_block=(pair_block, i32, (np_,)),
+                 pair_tile=(pair_tile, i32, (np_,)),
+                 pair_cap=(pair_cap, i32, (np_,)),
+                 pair_qw=(pair_qw, f32, (np_, q)))
+    return _launch_dense(
+        "fused_score_blocked", pair_qw.get_device(), specs,
+        (block_docs.data_ptr(), block_tfs.data_ptr()),
+        (pair_block, pair_tile, pair_cap, pair_qw), num_docs, tile)
 
 
 def _launch_score_packed_cuda(packed, block_tfs, pair_block, pair_tile,
                               pair_qw, pair_cap, pair_bits, pair_base,
                               pair_count, num_docs, tile):
-    name = "fused_score_packed"
     i32 = torch.int32
-    nb, wpb = packed.shape
-    np_ = pair_qw.shape[0]
-    check_tensors(name, packed=(packed, i32, (nb, max(wpb, 1))),
-                  block_tfs=(block_tfs, torch.float16, (nb, BLOCK)),
-                  **_pair_checks(pair_block, pair_tile, pair_qw, pair_cap),
-                  pair_bits=(pair_bits, i32, (np_,)),
-                  pair_base=(pair_base, i32, (np_,)),
-                  pair_count=(pair_count, i32, (np_,)))
-    return _launch_dense(name, (packed, block_tfs, pair_block), pair_tile,
-                         pair_qw, pair_cap,
-                         (pair_bits, pair_base, pair_count, wpb), num_docs,
-                         tile)
+    nb, wpb = tuple(packed.shape) if packed.dim() == 2 else (0, 0)
+    np_, q = _pair_specs(pair_qw)
+    specs = dict(packed=(packed, i32, (nb, max(wpb, 1))),
+                 block_tfs=(block_tfs, torch.float16, (nb, BLOCK)),
+                 pair_block=(pair_block, i32, (np_,)),
+                 pair_tile=(pair_tile, i32, (np_,)),
+                 pair_cap=(pair_cap, i32, (np_,)),
+                 pair_qw=(pair_qw, torch.float32, (np_, q)),
+                 pair_bits=(pair_bits, i32, (np_,)),
+                 pair_base=(pair_base, i32, (np_,)),
+                 pair_count=(pair_count, i32, (np_,)))
+    return _launch_dense(
+        "fused_score_packed", pair_qw.get_device(), specs,
+        (packed.data_ptr(), block_tfs.data_ptr(), wpb),
+        (pair_block, pair_tile, pair_cap, pair_qw, pair_bits, pair_base,
+         pair_count), num_docs, tile)
 
 
 # ---------------------------------------------------------------------------

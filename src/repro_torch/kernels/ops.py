@@ -42,11 +42,11 @@ from repro_torch.core.layouts import (BandedCsrIndex, BlockedIndex,
                                       PackedCsrIndex, take_rows)
 from repro_torch.core.query import (accumulate_scores, conjunctive_scores,
                                     final_scores, query_norm)
-from repro_torch.kernels.embedding_bag import embedding_bag  # noqa: F401
+from repro_torch.kernels import embedding_bag as _bag
+from repro_torch.kernels import segment_multi_agg as _pna
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.packed_postings import unpack_blocks
 from repro_torch.kernels.posting_score import build_pairs, posting_score
-from repro_torch.kernels.segment_multi_agg import pna_multi_agg  # noqa: F401
 from repro_torch.kernels.fused_decode_score import (
     Q_PAD, TILE, build_batched_pairs, default_k_tile, extract_tile_candidates,
     fused_score_blocked, fused_score_blocked_plain, fused_score_packed,
@@ -137,11 +137,39 @@ def unpack_postings(index: PackedCsrIndex) -> Tensor:
                          index.block_count, index.block)
 
 
+def kernel_ready(t: Tensor) -> Tensor:
+    """``t`` as the CUDA kernels take it: a CUDA tensor that is not
+    contiguous, or does not start on a 16-byte boundary, becomes a fresh
+    contiguous copy (its allocation is aligned); anything else is
+    returned as it is.  The model entry points pass every input through
+    it, so that a view the reference takes is taken here too, while the
+    kernel wrappers keep refusing such tensors when called directly."""
+    if t.is_cuda and (not t.is_contiguous() or t.data_ptr() % 16):
+        return t.clone(memory_format=torch.contiguous_format)
+    return t
+
+
+def embedding_bag(table: Tensor, indices: Tensor) -> Tensor:
+    """Bag sums: table f32 or bf16 [V, D], indices i32[B, H] (-1 =
+    padding) -> [B, D] in the table's dtype (``embedding_bag``), from any
+    view of either."""
+    return _bag.embedding_bag(kernel_ready(table), kernel_ready(indices))
+
+
+def pna_multi_agg(feats: Tensor, nbr: Tensor) -> Tensor:
+    """PNA's mean | min | max | std: feats f32[Nsrc, D], nbr i32[N, K]
+    (-1 = padding) -> f32[N, 4D] (``pna_multi_agg``), from any view of
+    either."""
+    return _pna.pna_multi_agg(kernel_ready(feats), kernel_ready(nbr))
+
+
 def attention(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
               window: int = 0) -> Tensor:
     """q [B, Hq, S, D], k/v [B, Hkv, S, D] -> [B, Hq, S, D] in q's
-    dtype; causal and/or a sliding ``window``, GQA."""
-    return flash_attention(q, k, v, causal=causal, window=window)
+    dtype; causal and/or a sliding ``window``, GQA; from any view of
+    q, k and v."""
+    return flash_attention(kernel_ready(q), kernel_ready(k),
+                           kernel_ready(v), causal=causal, window=window)
 
 
 def default_max_pairs(index: BlockedIndex | PackedCsrIndex, num_queries: int,

@@ -29,7 +29,8 @@ import ctypes
 import torch
 
 from repro_torch.core.segments import run_ranks, take_rows
-from repro_torch.kernels.cuda_build import check_tensors, entry
+from repro_torch.kernels.cuda_build import (check_tensors, entry,
+                                            tensors_ok)
 from repro_torch.kernels.fused_decode_score import check_smem
 
 Tensor = torch.Tensor
@@ -114,40 +115,28 @@ def _launch_posting_score_cuda(block_docs, block_tfs, pair_block, pair_tile,
     name = "posting_score"
     check_smem(name, 1, tile)
     i32, f32 = torch.int32, torch.float32
-    dev = block_docs.get_device()
-    shape, np_ = block_docs.shape, pair_block.shape
-    if not (dev >= 0 and block_docs.dtype == i32 and block_tfs.dtype == f32
-            and pair_block.dtype == i32 and pair_tile.dtype == i32
-            and pair_w.dtype == f32 and len(shape) == 2
-            and block_tfs.shape == shape and len(np_) == 1
-            and pair_tile.shape == np_ and pair_w.shape == np_
-            and block_tfs.get_device() == dev
-            and pair_block.get_device() == dev
-            and pair_tile.get_device() == dev
-            and pair_w.get_device() == dev
-            and block_docs.is_contiguous() and block_tfs.is_contiguous()
-            and pair_block.is_contiguous() and pair_tile.is_contiguous()
-            and pair_w.is_contiguous()):
-        nb = block_docs.shape[0]
-        block = block_docs.shape[-1] if block_docs.dim() else 0
-        n = pair_block.shape[0] if pair_block.dim() else 0
-        check_tensors(name, block_docs=(block_docs, i32, (nb, block)),
-                      block_tfs=(block_tfs, f32, (nb, block)),
-                      pair_block=(pair_block, i32, (n,)),
-                      pair_tile=(pair_tile, i32, (n,)),
-                      pair_w=(pair_w, f32, (n,)))
-        raise ValueError(f"{name}: block_docs is {tuple(shape)}, needs "
-                         "[NB, block]")
-    out = torch.empty(num_docs, dtype=f32, device=dev)
+    dev = pair_w.get_device()
+    nb, block = block_docs.shape if block_docs.dim() == 2 else (0, 0)
+    n = pair_w.shape[0] if pair_w.dim() == 1 else 0
+    specs = dict(block_docs=(block_docs, i32, (nb, block)),
+                 block_tfs=(block_tfs, f32, (nb, block)),
+                 pair_block=(pair_block, i32, (n,)),
+                 pair_tile=(pair_tile, i32, (n,)),
+                 pair_w=(pair_w, f32, (n,)))
+    if block_docs.dim() != 2 or not tensors_ok(dev, specs.values()):
+        check_tensors(name, **specs)
+        raise ValueError(f"{name}: block_docs is {tuple(block_docs.shape)},"
+                         " needs [NB, block]")
+    out = torch.empty(num_docs, dtype=f32, device=pair_w.device)
     n_tiles = -(-num_docs // tile)
     if n_tiles:
         # the entry point called directly, not through ``launch``'s loop
         # over its arguments: at ~0.008 ms of device work per call, the
         # host's microseconds are most of the call (PERF.md)
         err = entry(name, _ARGTYPES)(
-            block_docs.data_ptr(), block_tfs.data_ptr(), shape[1],
+            block_docs.data_ptr(), block_tfs.data_ptr(), block,
             pair_block.data_ptr(), pair_tile.data_ptr(), pair_w.data_ptr(),
-            np_[0], out.data_ptr(), n_tiles, num_docs, tile,
+            n, out.data_ptr(), n_tiles, num_docs, tile,
             torch._C._cuda_getCurrentRawStream(dev))
         if err:
             raise RuntimeError(f"{name}: CUDA launch failed (error {err})")

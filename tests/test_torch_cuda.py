@@ -198,6 +198,135 @@ def test_dense_packed_kernel_wide_deltas(gpu):
     _assert_dense_equals_plain(ix, qh, h.max_posting_len)
 
 
+def _dense_terms_host(num_docs, terms, seed):
+    """``terms`` terms each in 50-90% of ``num_docs`` docs: a batch over
+    them routes 100+ pairs to every tile, past the dense kernels' 16-pair
+    pipeline chunk and their 32 pairs in flight."""
+    rng = np.random.default_rng(seed)
+    lists = [np.sort(rng.choice(num_docs, int(num_docs * f), replace=False))
+             for f in rng.uniform(0.5, 0.9, terms)]
+    lens = np.array([len(x) for x in lists])
+    offsets = np.zeros(terms + 1, np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    return PostingsHost(
+        term_hashes=np.arange(1, terms + 1, dtype=np.uint32) * 7919,
+        df=lens.astype(np.int32), offsets=offsets,
+        doc_ids=np.concatenate(lists).astype(np.int32),
+        tfs=rng.integers(1, 6, size=int(lens.sum())).astype(np.float32),
+        num_docs=num_docs,
+        norm=rng.random(num_docs).astype(np.float32) + 0.5,
+        rank=rng.random(num_docs).astype(np.float32))
+
+
+@pytest.mark.parametrize("layout", ["hor", "packed"])
+@pytest.mark.parametrize("queries", [8, 16])
+@pytest.mark.parametrize("num_docs", [3001, 4096])
+def test_dense_kernel_long_runs(gpu, layout, queries, num_docs):
+    """Bit-equal to the plain version where every tile's run is longer
+    than a pipeline chunk and the ring (runs of 100+ pairs), at Q = 8 and
+    Q = 16, with a clipped last tile, and (3,001 docs) rows of the output
+    that start off a 16-byte boundary; a mid-block cap too."""
+    h = _dense_terms_host(num_docs, 40, num_docs + queries)
+    ix = BUILDERS[layout](h, device=gpu)
+    rng = np.random.default_rng(queries)
+    qh = np.stack([rng.choice(h.term_hashes, 4, replace=False)
+                   for _ in range(queries)]).astype(np.uint32)
+    for cap in (h.max_posting_len, 300):
+        tids, idf_t = query.lookup_query(ix, layouts.hash_tensor(qh, gpu))
+        _, _, args, _, _ = ops.fused_score_args(ix, tids, idf_t, cap)
+        pt = args[3].cpu().numpy()
+        runs = np.bincount(pt[pt < -(-num_docs // fds.TILE)])
+        assert runs.max() > 32 and args[4].shape[1] == queries
+        assert runs.min() > 32 or cap == 300      # the cap ends in tile 1
+        got = _assert_dense_equals_plain(ix, qh, cap)
+        assert got.shape == (queries, num_docs) and bool((got > 0).any())
+
+
+@pytest.mark.parametrize("layout", ["hor", "packed"])
+@pytest.mark.parametrize("queries,tile", [(24, 512), (8, 1024), (8, 256)])
+def test_dense_kernel_other_q_and_tiles(gpu, layout, queries, tile):
+    """Bit-equal to the plain version off the kernels compiled for Q = 8
+    and 16 at 512-doc tiles: Q = 24 and 1,024-doc tiles take the generic
+    kernel, 256-doc tiles the Q = 8 one with idle threads."""
+    h = _dense_terms_host(3001, 40, queries + tile)
+    ix = BUILDERS[layout](h, device=gpu)
+    rng = np.random.default_rng(tile)
+    qh = np.stack([rng.choice(h.term_hashes, 4, replace=False)
+                   for _ in range(queries)]).astype(np.uint32)
+    tids, idf_t = query.lookup_query(ix, layouts.hash_tensor(qh, gpu))
+    kernel, plain, args, kw, _ = ops.fused_score_args(
+        ix, tids, idf_t, h.max_posting_len, tile=tile)
+    assert args[4].shape[1] == queries and kw["tile"] == tile
+    before = kernel.launches
+    got = kernel(*args, **kw)
+    want = plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert bool((got > 0).any())
+
+
+@pytest.mark.parametrize("layout", ["hor", "packed"])
+def test_dense_kernel_no_real_pairs_at_1m_docs(gpu, host, layout):
+    """Zero real pairs (every pair padding) at 1,048,576 docs: every
+    element 0.0, as the plain version gives, in one launch."""
+    ix = BUILDERS[layout](host, device=gpu)
+    num_docs = 1 << 20
+    n_tiles = num_docs // fds.TILE
+    n, q = 4096, 8
+    i32 = dict(dtype=torch.int32, device=gpu)
+    pb = torch.zeros(n, **i32)
+    pt = torch.full((n,), n_tiles, **i32)
+    qw = torch.ones(n, q, device=gpu)
+    cap = torch.full((n,), 128, **i32)
+    if layout == "hor":
+        args = (ix.block_docs, ix.block_tfs, pb, pt, qw, cap, num_docs)
+        kernel = fds.fused_score_blocked
+        plain = fds.fused_score_blocked_plain
+    else:
+        zeros = torch.zeros(n, **i32)
+        args = (ix.packed, ix.block_tfs, pb, pt, qw, cap, zeros, zeros,
+                zeros, num_docs, ix.block)
+        kernel = fds.fused_score_packed
+        plain = fds.fused_score_packed_plain
+    before = kernel.launches
+    got = kernel(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1 and got.shape == (q, num_docs)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert not bool(got.view(torch.int32).any())
+
+
+def test_dense_kernel_is_one_device_launch(gpu, host):
+    """A dense call is one kernel on the card and nothing else: no
+    ``tile_starts``, copy or fill before it.  One profiler trace of an
+    HOR call then a packed call shows exactly their two kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    calls = []
+    for layout in ("hor", "packed"):
+        ix = BUILDERS[layout](host, device=gpu)
+        qh = corpus.sample_query_terms(host.df, host.term_hashes, 8, 3,
+                                       num_docs=host.num_docs, seed=4)
+        tids, idf_t = query.lookup_query(ix, layouts.hash_tensor(qh, gpu))
+        kernel, _, args, kw, _ = ops.fused_score_args(
+            ix, tids, idf_t, host.max_posting_len)
+        kernel(*args, **kw)                              # built and loaded
+        calls.append((kernel, args, kw))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for kernel, args, kw in calls:
+            kernel(*args, **kw)
+        torch.cuda.synchronize()
+    names = [e.name for e in sorted(
+        (e for e in prof.events()
+         if e.device_type == torch.autograd.DeviceType.CUDA),
+        key=lambda e: e.time_range.start)]
+    assert len(names) == 2, names
+    assert "score_kernel<fused_score::HorBlocks" in names[0], names
+    assert "score_kernel<fused_score::PackedBlocks" in names[1], names
+
+
 def _live_schedule(tc, device):
     """A banded seed segment, a tiered merge of four seals, an HOR and
     a packed seal, tombstones and a delta tail."""
@@ -354,6 +483,77 @@ def test_posting_score_is_one_device_launch(gpu):
     names = [e.name for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
     assert len(names) == 1 and "posting_score_kernel" in names[0], names
+
+
+@pytest.mark.parametrize("num_docs", [1_004_721, 1_054_721, 4_097])
+def test_idf_kernel_equals_plain(gpu, num_docs):
+    """``query.idf`` on the card (``csrc/query_weights.cu``) gives the
+    plain version's bits, on the card and on the CPU, over every df in
+    0..D: one launch."""
+    df = torch.arange(0, num_docs + 1, dtype=torch.int32)
+    want = query.idf_plain(df, num_docs)
+    before = query.idf.launches
+    got = query.idf(df.to(gpu), num_docs)
+    on_card = query.idf_plain(df.to(gpu), num_docs)
+    torch.cuda.synchronize()
+    assert query.idf.launches == before + 1
+    for x in (got, on_card):
+        assert torch.equal(x.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("rows", [5, 8, 4096])
+def test_query_norm_kernel_equals_plain(gpu, rows):
+    """``query.query_norm`` on the card gives the plain version's bits at
+    every width from 1 to 32 (the FMA chain and the 5-8-slot rule alike),
+    with absent slots and an all-zero row; one launch per call."""
+    rng = np.random.default_rng(rows)
+    for slots in range(1, 33):
+        w = (rng.random((rows, slots)) * 14).astype(np.float32)
+        w[rng.random(w.shape) < 0.2] = 0.0
+        w[0] = 0.0
+        want = query.query_norm_plain(torch.from_numpy(w))
+        before = query.query_norm.launches
+        got = query.query_norm(torch.from_numpy(w).to(gpu))
+        torch.cuda.synchronize()
+        assert query.query_norm.launches == before + 1
+        assert torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32)), slots
+
+
+def test_query_weights_are_one_device_launch_each(gpu):
+    """``idf`` and ``query_norm`` on the card are one kernel each and
+    nothing else: no copy to the host, no elementwise op of their own.
+    The trace opens on a spin kernel of torch's, so that the weights'
+    ~1 us kernels are not the first activity it records; two rounds
+    then show exactly idf, norm, idf, norm."""
+    from torch.profiler import ProfilerActivity, profile
+    df = torch.randint(0, 1000, (8, 3), dtype=torch.int32, device=gpu)
+    query.query_norm(query.idf(df, 1000))          # built and loaded
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(10_000)
+        for _ in range(2):
+            query.query_norm(query.idf(df, 1000))
+        torch.cuda.synchronize()
+    names = [e.name for e in sorted(
+        (e for e in prof.events()
+         if e.device_type == torch.autograd.DeviceType.CUDA),
+        key=lambda e: e.time_range.start)]
+    ours = [n for n in names if "spin_kernel" not in n]
+    assert len(ours) == 4, names
+    for name, want in zip(ours, ("idf_kernel", "norm_kernel") * 2):
+        assert want in name, names
+
+
+def test_query_weights_refuse_bad_inputs(gpu):
+    """The weights' launcher refuses what its kernels would misread."""
+    df = torch.ones(4, 6, dtype=torch.int32, device=gpu)
+    with pytest.raises(ValueError, match="contiguous"):
+        query.idf(df.t(), 10)
+    with pytest.raises(ValueError, match="torch.int32"):
+        query.idf(df.long(), 10)
+    with pytest.raises(ValueError, match="contiguous"):
+        query.query_norm(df.float().t())
 
 
 @pytest.mark.parametrize("bits", list(range(4, 33)))
@@ -519,3 +719,57 @@ def test_flash_kernel_equals_plain(gpu, causal, window, b, hq, hkv, s, d,
         torch.testing.assert_close(got.float(),
                                    f32.to(torch.bfloat16).float(),
                                    rtol=8e-3, atol=1e-3)
+
+
+def _misaligned(x):
+    """A contiguous copy of ``x`` that starts one element past a 16-byte
+    boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    assert out.is_contiguous() and out.data_ptr() % 16
+    return out
+
+
+def _transposed(x):
+    """The same values as ``x`` in a non-contiguous view (its last two
+    dimensions stored the other way round)."""
+    out = x.transpose(-1, -2).contiguous().transpose(-1, -2)
+    assert not out.is_contiguous() and torch.equal(out, x)
+    return out
+
+
+@pytest.mark.parametrize("view", ["transposed", "misaligned"])
+def test_model_entry_points_take_views(gpu, view):
+    """``ops.embedding_bag``, ``ops.pna_multi_agg`` and ``ops.attention``
+    take non-contiguous and misaligned views, as the reference's entry
+    points take any array, and return what the contiguous call returns,
+    to the bit, in one launch each; the kernel wrappers called directly
+    still refuse a non-contiguous tensor (attention's also a misaligned
+    one)."""
+    g = torch.Generator(device=gpu).manual_seed(11)
+    mk = _transposed if view == "transposed" else _misaligned
+    table = torch.randn(500, 24, generator=g, device=gpu)
+    idx = torch.randint(-1, 500, (64, 6), generator=g, device=gpu,
+                        dtype=torch.int32)
+    feats = torch.randn(300, 40, generator=g, device=gpu)
+    nbr = torch.randint(-1, 300, (90, 12), generator=g, device=gpu,
+                        dtype=torch.int32)
+    q, k, v = (torch.randn(1, h, 130, 64, generator=g, device=gpu)
+               .to(torch.bfloat16) for h in (4, 2, 2))
+    cases = [(ops.embedding_bag, tbag.embedding_bag, (table, idx), {}),
+             (ops.pna_multi_agg, tpna.pna_multi_agg, (feats, nbr), {}),
+             (ops.attention, tfa.flash_attention, (q, k, v),
+              {"causal": True, "window": 0})]
+    for entry, wrapper, args, kw in cases:
+        want = entry(*args, **kw)
+        views = tuple(mk(a) for a in args)
+        before = wrapper.launches
+        got = entry(*views, **kw)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        assert torch.equal(got.float().view(torch.int32),
+                           want.float().view(torch.int32))
+        if view == "transposed" or wrapper is tfa.flash_attention:
+            with pytest.raises(ValueError, match="contiguous|16-byte"):
+                wrapper(*views, **kw)

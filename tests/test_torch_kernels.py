@@ -255,17 +255,114 @@ def test_fma_f32_single_rounding():
         == np.float32(2.0**30)                    # the double-rounding trap
 
 
-@pytest.mark.parametrize("slots", [1, 3, 4])
+@pytest.mark.parametrize("slots", list(range(1, 33)))
 def test_query_norm_matches_xla(slots):
-    """``query_norm`` is the reference's qnorm, bit for bit, for queries of
-    up to 4 slots: XLA on the CPU chains the slot sum through FMAs in
-    slot order and rounds the square root correctly; torch's own ``sum``
-    and ``sqrt`` do neither."""
+    """``query_norm`` is the reference's qnorm, bit for bit, at every width
+    from 1 to 32: against ``repro.core.live_index._query_weights`` (the
+    norm the reference's live path serves with) at the serving tier's
+    batch of 8 rows and at 4,096 rows, on idf weights of random df at the
+    1M tier's D.  XLA on the CPU chains the slot sum through FMAs at 1-4
+    and 9+ slots and rounds each square alone at 5-8; it rounds the
+    square root correctly.  torch's own ``sum`` and ``sqrt`` do neither.
+    Up to 4 slots the FMA chain holds for any row count: checked on
+    50,000 rows of a standalone jit too."""
+    from repro.core.live_index import _query_weights
     from repro_torch.core.query import query_norm
     rng = np.random.default_rng(slots)
-    w = (rng.random((50000, slots)) * 6).astype(np.float32)
-    w[::7, 0] = 0.0                               # absent slots
-    want = np.asarray(jax.jit(lambda a: jnp.sqrt(jnp.maximum(
-        jnp.sum(a * a, axis=1), 1e-12)))(w))
-    got = query_norm(_t(w)).numpy()
+    for rows, reps in ((8, 64), (4096, 1)):
+        for _ in range(reps):
+            df = rng.integers(0, 1_004_722, size=(rows, slots))
+            df[rng.random(df.shape) < 0.2] = 0            # absent slots
+            w, want = _query_weights(jnp.asarray(df.astype(np.int32)),
+                                     jnp.float32(1_004_721))
+            got = query_norm(_t(w)).numpy()
+            np.testing.assert_array_equal(
+                got.view(np.int32), np.asarray(want).view(np.int32))
+    if slots <= 4:
+        w = (rng.random((50000, slots)) * 6).astype(np.float32)
+        w[::7, 0] = 0.0
+        want = np.asarray(jax.jit(lambda a: jnp.sqrt(jnp.maximum(
+            jnp.sum(a * a, axis=1), 1e-12)))(w))
+        got = query_norm(_t(w)).numpy()
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      want.view(np.int32))
+
+
+def _fma_chain_norm(w):
+    """sqrt(max(sum_t w_t**2, 1e-12)) with every square fused into the
+    add (XLA's scalar row loop), the root rounded correctly."""
+    from repro_torch.core.query import fma_f32
+    acc = torch.zeros(w.shape[0])
+    for t in range(w.shape[1]):
+        acc = fma_f32(w[:, t], w[:, t], acc)
+    return torch.sqrt(acc.clamp_min(1e-12).double()).float()
+
+
+@pytest.mark.parametrize("slots", [5, 6, 7, 8])
+def test_query_norm_residual_at_5_to_8_slots(slots):
+    """The known residual of ``query_norm``'s 5-8-slot rule (ROADMAP
+    queue 3), pinned: the rows XLA leaves to its scalar loop take the
+    FMA chain, one rounding away from ``query_norm``.
+
+    * 5 rows, all in the scalar loop: on 5 rows where the two sums
+      differ, XLA's norm is the FMA chain's on every row and
+      ``query_norm``'s on none;
+    * 50,000 rows, split among XLA's threads, each part with a scalar
+      tail: every row is ``query_norm``'s or the chain's, and at most
+      0.1% are the chain's alone (0-1 of 50,000 measured here)."""
+    from repro.core.live_index import _query_weights
+    from repro_torch.core.query import query_norm
+    rng = np.random.default_rng(100 + slots)
+
+    def weights(df):
+        w, qn = _query_weights(jnp.asarray(df), jnp.float32(1_004_721))
+        return _t(w), np.asarray(qn).view(np.int32)
+
+    df = rng.integers(1, 1_000, size=(4096, slots)).astype(np.int32)
+    w, _ = weights(df)
+    differ = np.nonzero((query_norm(w) != _fma_chain_norm(w)).numpy())[0]
+    assert len(differ) >= 5
+    w5, want = weights(df[differ[:5]])
+    np.testing.assert_array_equal(want, _fma_chain_norm(w5).numpy().view(
+        np.int32))
+    assert (want != query_norm(w5).numpy().view(np.int32)).all()
+
+    w, want = weights(rng.integers(1, 1_000, size=(50_000, slots)).astype(
+        np.int32))
+    port = query_norm(w).numpy().view(np.int32)
+    chain = _fma_chain_norm(w).numpy().view(np.int32)
+    assert ((want == port) | (want == chain)).all()
+    assert int((want != port).sum()) <= 50
+
+
+@pytest.mark.parametrize("num_docs", [1_004_721, 1_054_721, 4_097])
+def test_idf_matches_query_weights_over_every_df(num_docs):
+    """``idf`` equals the idf of ``repro.core.live_index._query_weights``
+    bit for bit over every df in 1..D (and 0 at df = 0): D/df in f32,
+    then ``log_f32(x + 1)``, the mirror of XLA's f32 log, where
+    ``torch.log1p`` differs in a quarter of the values at the 1M tier."""
+    from repro.core.live_index import _query_weights
+    from repro_torch.core.query import idf
+    df = np.arange(0, num_docs + 1, dtype=np.int32)[:, None]
+    want = np.asarray(_query_weights(jnp.asarray(df),
+                                     jnp.float32(num_docs))[0])
+    got = idf(torch.from_numpy(df), num_docs).numpy()
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def test_log_f32_matches_xla_log():
+    """``log_f32`` is XLA's f32 log on the CPU, bit for bit: 2,000,000
+    random bit patterns over every positive exponent (subnormals, which
+    XLA flushes to 0, included) and the special values."""
+    from repro_torch.core.query import log_f32
+    rng = np.random.default_rng(3)
+    bits = rng.integers(0, 0x7F800000, size=2_000_000).astype(np.int32)
+    x = np.concatenate([bits.view(np.float32), np.array(
+        [0.0, -0.0, -1.0, np.inf, -np.inf, np.nan, 1e-45, 1.0, 2.0,
+         np.float32(2.0**-126)], np.float32)])
+    want = np.asarray(jax.jit(jnp.log)(x))
+    got = log_f32(torch.from_numpy(x)).numpy()
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(got[~nan].view(np.int32),
+                                  want[~nan].view(np.int32))

@@ -343,3 +343,48 @@ def test_bf16_p_needs_both_halves_at_qwen3_length():
     for split, want_over in ((True, False), (False, True)):
         got = _wgmma_tiling_mirror(tq, tk, tv, True, 0, split).float()
         assert bool(((got - f32).abs() > limit).any()) == want_over, split
+
+
+# ---------------------------------------------------------------------------
+# the entry points take any view, as the reference's do
+# ---------------------------------------------------------------------------
+
+
+def test_entry_points_take_views_like_the_reference():
+    """``ops.embedding_bag``, ``ops.pna_multi_agg`` and ``ops.attention``
+    on transposed and offset views give the reference entry points'
+    results on the same values, to the bit (bag, PNA) or within 2e-4
+    (attention, f32); on the CPU ``kernel_ready`` passes a tensor through
+    as it is (the card's copies are tested in ``test_torch_cuda.py``)."""
+    from repro.kernels import ops as rops
+    rng = np.random.default_rng(5)
+    table = rng.normal(size=(24, 80)).astype(np.float32).T     # [80, 24]
+    idx = rng.integers(-1, 80, size=(6, 40)).astype(np.int32).T
+    feats, nbr = _graph(40, 6, 12, 90, 1)
+    q = rng.normal(size=(1, 70, 4, 32)).astype(np.float32)
+    k, v = (rng.normal(size=(1, 70, 2, 32)).astype(np.float32)
+            for _ in range(2))
+    views = {
+        "bag": (torch.from_numpy(table.T).t(), torch.from_numpy(idx.T).t()),
+        "pna": (torch.from_numpy(np.concatenate(
+            [np.zeros((1, 12), np.float32), feats]))[1:],
+            torch.from_numpy(nbr.T.copy()).t()),
+        "attn": tuple(torch.from_numpy(x).transpose(1, 2)
+                      for x in (q, k, v))}
+    assert not views["bag"][0].is_contiguous()
+    assert all(tops.kernel_ready(t) is t for vs in views.values()
+               for t in vs)
+    got = tops.embedding_bag(*views["bag"])
+    want = rops.embedding_bag(jnp.asarray(table), jnp.asarray(idx),
+                              backend="xla")
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    got = tops.pna_multi_agg(*views["pna"])
+    want = pna_multi_agg_pallas(jnp.asarray(feats), jnp.asarray(nbr),
+                                tile_n=8, interpret=True)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    got = tops.attention(*views["attn"], causal=True, window=0)
+    want = rops.attention(*(jnp.asarray(x).transpose(0, 2, 1, 3)
+                            for x in (q, k, v)), causal=True, window=0,
+                          backend="xla")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
+                               atol=2e-4)

@@ -6,7 +6,9 @@ on the CPU) and its dense oracle (``engine="torch"``) must return the
 same doc ids as the JAX fused engine (``engine="pallas"``, interpret
 mode) and the JAX oracle, on the very same HOR and packed indexes
 (``index_from_numpy``).  Scores agree within rtol 1e-5: the port computes
-its own idf, and ``torch.log1p`` differs from XLA's in the last bit.
+its own idf and norm, bit-equal to XLA's (``test_torch_kernels.py``), but
+the reference's jitted scorers round them into the scores in ways not
+yet traced (up to 2 ulp apart).
 """
 import dataclasses
 import warnings

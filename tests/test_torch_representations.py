@@ -6,8 +6,8 @@ array for array (u32 as int32 bit-views), and so must their byte counts
 and lookups.  The dense oracle (``make_scorer(engine="torch")``) over
 all seven indexes of Table 7 must rank like the reference's ``jnp``
 engine on the very same indexes (``index_from_numpy``): identical ids,
-scores within rtol 1e-5, because the port computes its own idf and
-``torch.log1p`` differs from XLA's in the last bit; the seven rankings
+scores bit-equal (the port's idf is XLA's ``log1p`` to the bit,
+``core.query.log_f32``); the seven rankings
 of the port agree to the bit among themselves.  ``conjunctive_filter``,
 ``BlockedIndex.contains`` and the paper's size model are held the same
 way.
@@ -206,9 +206,8 @@ def test_score_queries_equal_reference(host, ref_indexes, name):
         got = tquery.make_scorer(port, k=K, cap=cap, engine="torch")(qh)
         np.testing.assert_array_equal(got.doc_ids.numpy(),
                                       np.asarray(want.doc_ids))
-        np.testing.assert_allclose(got.scores.numpy(),
-                                   np.asarray(want.scores), rtol=1e-5,
-                                   atol=0)
+        np.testing.assert_array_equal(got.scores.numpy().view(np.int32),
+                                      np.asarray(want.scores).view(np.int32))
 
 
 def test_seven_representations_rank_alike(host):
@@ -270,9 +269,9 @@ def test_conjunctive_filter_equal_reference(host, ref_indexes, name):
                     == gstats["truncated_terms"])
             np.testing.assert_array_equal(got.doc_ids.numpy(),
                                           np.asarray(want.doc_ids))
-            np.testing.assert_allclose(got.scores.numpy(),
-                                       np.asarray(want.scores), rtol=1e-5,
-                                       atol=0)
+            np.testing.assert_array_equal(
+                got.scores.numpy().view(np.int32),
+                np.asarray(want.scores).view(np.int32))
 
 
 def test_conjunctive_truncation_is_reported(host, ref_indexes):
