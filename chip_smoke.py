@@ -6,7 +6,8 @@
 1. Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, started together), prints each kernel's
    ``ptxas -v`` registers and spills (with the entry functions of the
-   redesigned ``posting_score``, ``flash_attention`` and dense scorers),
+   redesigned ``posting_score``, ``flash_attention`` and four fused
+   scorers),
    the attention kernels' threads and dynamic shared memory per head
    width, and the card's name and power limit.
 2. Generates the repository's 1M-document tier
@@ -23,7 +24,8 @@
 5. Times each kernel and its plain version with CUDA events, in turns
    (kernel, plain, kernel) beside a reading of the card's clocks, and
    computes its bound at 3.35 TB/s from the bytes this run's pairs must
-   move.
+   move; prints each batch's visited tiles, longest and mean run of
+   pairs, and the kernel's CTAs per SM and shared memory per CTA.
 6. The live phase, on the same corpus: ``SegmentedIndex.from_host(host,
    seal_layout="banded")`` (one banded segment over all docs), 50,000
    new docs (``CorpusSpec(num_docs=50_000, ..., seed=seed+1)``) ingested
@@ -35,9 +37,9 @@
    before and read just after.  The kernel calls of each mode's last
    batch are recorded as the path makes them; each is then held to its
    plain version on the same arguments, to the bit, and timed (one
-   call repeated: its blocks may sit in L2); a dense call also prints
-   its visited tiles, its longest and mean run of pairs, and its CTAs
-   per SM and shared memory per CTA.  A check batch of HOR-band terms,
+   call repeated: its blocks may sit in L2); each call also prints its
+   visited tiles, its longest and mean run of pairs, and its kernel's
+   CTAs per SM and shared memory per CTA.  A check batch of HOR-band terms,
    which the served df band lacks, gives the 1M-doc segment's HOR band
    real pairs and is held the same way (not timed).  Checks that all
    four kernels launched, that there was no routing overflow, and that
@@ -100,8 +102,9 @@
    computes it (``F.embedding_bag``, ``F.scaled_dot_product_attention``;
    none for PNA), and prints each attention site's achieved TFLOP/s.
 9. Last, after every event timing (a trace slows the launches timed
-   after it): one ``torch.profiler`` trace of each dense live call
-   site, of both side kernels and of the two weights kernels, printed
+   after it): one ``torch.profiler`` trace of each live call site of
+   the four fused kernels, of the last bulk batch's candidate call per
+   layout, of both side kernels and of the two weights kernels, printed
    as device ms per launch beside the event ms.  Then per-phase wall
    times, a ``{"kernels": [...]}`` line with all nine kernels and the
    two weights kernels (means per launch over every counted call site
@@ -161,8 +164,7 @@ WEIGHT_KERNELS = {
     "query_norm": "src/repro/core/live_index.py:134",
 }
 # whose ptxas entry lines are printed
-REDESIGNED = ("posting_score", "flash_attention", "fused_score_blocked",
-              "fused_score_packed")
+REDESIGNED = ("posting_score", "flash_attention", *FUSED_KERNELS)
 # live phase: the 1m tier's ingest batch and delta (benchmarks/campaign.py)
 NEW_DOCS, DELTA_DOCS = 50_000, 16_384
 SEALS = ((0, 10_000, None), (10_000, 20_000, None), (20_000, 30_000, None),
@@ -233,12 +235,12 @@ def kernel_work(kind, args, tile, q_real):
         (docs, tfs, pb, pt, pqw, pcap, norm, rank, qnorm, num_docs,
          k_tile) = args
         block_bytes = docs.shape[1] * 4 + tfs.shape[1] * 4
-        pair_bytes = 4 + 4 + 4 * pqw.shape[1]
+        pair_bytes = 4 + 4 + 4 + 4 * pqw.shape[1]
     else:
         (packed, tfs, pb, pt, pqw, pcap, bits, base, count, norm, rank,
          qnorm, num_docs, block, k_tile) = args
         block_bytes = packed.shape[1] * 4 + tfs.shape[1] * 2
-        pair_bytes = 4 + 4 + 4 * pqw.shape[1] + 12
+        pair_bytes = 4 + 4 + 4 + 4 * pqw.shape[1] + 12
     n_tiles = -(-num_docs // tile)
     real = int(torch.searchsorted(
         pt, torch.tensor([n_tiles], dtype=pt.dtype, device=pt.device)))
@@ -246,8 +248,8 @@ def kernel_work(kind, args, tile, q_real):
     tiles = int(torch.unique(pt[:real]).numel())
     q = pqw.shape[1]
     out_bytes = q * n_tiles * k_tile * 8
-    nbytes = (blocks * block_bytes + real * pair_bytes + (n_tiles + 1) * 4
-              + tiles * tile * 8 + q * 4 + out_bytes)
+    nbytes = (blocks * block_bytes + real * pair_bytes + tiles * tile * 8
+              + q * 4 + out_bytes)
     # per posting lane: Q products + Q adds; per (query, doc) of a
     # visited tile: the 5-op scoring tail and k_tile compares
     ops = (blocks * 128 * 2 * q_real
@@ -281,7 +283,7 @@ def dense_work(kind, args, tile, q_real):
 
 
 def run_stats(pair_tile, num_docs, tile):
-    """A dense call's runs: the tiles its real pairs visit, and the
+    """A fused call's runs: the tiles its real pairs visit, and the
     longest and mean run of pairs per visited tile."""
     import torch
     n_tiles = -(-num_docs // tile)
@@ -297,8 +299,14 @@ def run_stats(pair_tile, num_docs, tile):
 SYMBOLS = {"posting_score": "posting_score_kernel",
            "unpack_blocks": "unpack_kernel",
            "idf": "idf_kernel", "query_norm": "norm_kernel",
-           "fused_score_blocked": "score_kernel<fused_score::HorBlocks",
-           "fused_score_packed": "score_kernel<fused_score::PackedBlocks"}
+           "fused_topk_blocked":
+               "score_kernel<fused_score::TopkOut, fused_score::HorBlocks",
+           "fused_topk_packed":
+               "score_kernel<fused_score::TopkOut, fused_score::PackedBlocks",
+           "fused_score_blocked":
+               "score_kernel<fused_score::DenseOut, fused_score::HorBlocks",
+           "fused_score_packed":
+               "score_kernel<fused_score::DenseOut, fused_score::PackedBlocks"}
 
 
 def device_ms(runs):
@@ -314,6 +322,7 @@ def device_ms(runs):
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(10_000)     # a trace can miss its first kernel
         for kernel, fn, calls in runs.values():
             for c in calls:
                 fn(*c)
@@ -478,7 +487,7 @@ def main() -> int:
         for i in range(BATCHES)]
 
     # 3-4. each layout on the card ----------------------------------------
-    sites = []
+    sites, bulk_traces = [], {}
     weight_launches = dict.fromkeys(WEIGHT_KERNELS, 0)
     ids_by_layout = {}
     builders = {"hor": layouts.build_blocked,
@@ -568,6 +577,8 @@ def main() -> int:
         # read while the card is warm
         ms, turns, plain_ms, clocks = time_in_turns(
             lambda *c: wrapper(*c, **kw), lambda *c: plain(*c, **kw), calls)
+        runs = [site_stats(name, c, host.num_docs, kw["tile"])
+                for c in calls]
         nbytes = float(np.mean([w[0] for w in work]))
         nops = float(np.mean([w[1] for w in work]))
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -583,6 +594,10 @@ def main() -> int:
             "real_pairs_per_batch": [w[2] for w in work],
             "distinct_blocks_per_batch": [w[3] for w in work],
             "visited_tiles_per_batch": [w[4] for w in work],
+            "longest_run_per_batch": [r["longest_run"] for r in runs],
+            "mean_run_per_batch": [r["mean_run"] for r in runs],
+            "ctas_per_sm": runs[0]["ctas_per_sm"],
+            "smem_bytes": runs[0]["smem_bytes"],
             "max_pairs": int(calls[0][2].shape[0]),
             "bytes_per_batch": nbytes, "ops_per_batch": nops,
             "kernel_ms": ms, "kernel_ms_turns": turns,
@@ -593,11 +608,15 @@ def main() -> int:
         }
         report[kind] = layout_report
         print(f"{kind}: {json.dumps(layout_report)}")
+        site = f"bulk:{name}@{host.num_docs}"
         sites.append({
-            "site": f"bulk:{name}@{host.num_docs}", "kernel": name,
+            "site": site, "kernel": name,
             "launches": launches[name], "max_abs_err": max_err,
             "kernel_ms": ms, "plain_ms": plain_ms, "t_bytes_ms": t_bytes,
             "t_ops_ms": t_ops})
+        # the last batch's call, traced at the end for its device time
+        bulk_traces[site] = (name, functools.partial(wrapper, **kw),
+                             [calls[-1]])
         del ix, fused, oracle, calls
         torch.cuda.empty_cache()
 
@@ -609,6 +628,8 @@ def main() -> int:
     t_phase = time.perf_counter()
     live_sites, traces = live_phase(host, batches, a.seed, dev, report)
     sites += live_sites
+    traces.update(bulk_traces)
+    del bulk_traces
     for mode, counted in report["live"]["launches"].items():
         for k in WEIGHT_KERNELS:
             if counted[k] < len(batches):
@@ -646,6 +667,7 @@ def main() -> int:
                   f"{site['device_ms']} ms, bound "
                   f"{max(site['t_bytes_ms'], site['t_ops_ms']):.4f} ms, "
                   f"library {site.get('library_ms')} ms")
+    report["device_ms_by_site"] = dev_ms
     del traces
     torch.cuda.empty_cache()
     phase_s["device_time"] = time.perf_counter() - t_phase
@@ -693,6 +715,17 @@ def recording(ops, on=True):
             setattr(ops, n, fn)
 
 
+def site_stats(name, args, num_docs, tile):
+    """A fused call's runs (``run_stats``), and the CTAs per SM and
+    dynamic shared memory per CTA of the kernel it launches."""
+    from repro_torch.kernels import fused_decode_score as fds
+    stats = run_stats(args[3], num_docs, tile)
+    wpb = args[0].shape[1] if name.endswith("_packed") else 0
+    stats["ctas_per_sm"], stats["smem_bytes"] = fds.occupancy(
+        name, args[4].shape[1], tile, wpb)
+    return stats
+
+
 def replay(calls, fds, label, timed=True):
     """Holds each recorded kernel call against its plain version on the
     same arguments, to the bit, and (``timed``) times both in turns.
@@ -704,22 +737,18 @@ def replay(calls, fds, label, timed=True):
         pkw = {k: v for k, v in kw.items() if k != "reducer"}
         got, want = wrapper(*args, **kw), plain(*args, **pkw)
         torch.cuda.synchronize()
-        extra = {}
         if name in DENSE_KERNELS:
             err = float((got - want).abs().max())
             eq = torch.equal(got.view(torch.int32), want.view(torch.int32))
             nbytes, nops, real, blocks = dense_work(
                 DENSE_KERNELS[name][0], args, kw["tile"], BATCH)
             num_docs = args[-1 if name == "fused_score_blocked" else -2]
-            extra = run_stats(args[3], num_docs, kw["tile"])
-            wpb = args[0].shape[1] if name == "fused_score_packed" else 0
-            extra["ctas_per_sm"], extra["smem_bytes"] = \
-                fds.dense_occupancy(name, args[4].shape[1], kw["tile"], wpb)
         else:
             eq, err = same_candidates(got, want)
             nbytes, nops, real, blocks, _ = kernel_work(
                 KERNELS[name][0], args, kw["tile"], BATCH)
             num_docs = args[-2 if name == "fused_topk_blocked" else -3]
+        extra = site_stats(name, args, num_docs, kw["tile"])
         site = {"site": f"{label}#{i}:{name}@{num_docs}", "kernel": name,
                 "num_docs": int(num_docs),
                 "max_pairs": int(args[2].shape[0]), "real_pairs": real,
@@ -844,9 +873,9 @@ def live_phase(host, batches, seed, dev, report):
             # every batch launches each of the path's sites once
             site.update(mode=mode, launches=len(batches))
             sites.append(site)
-            if name in DENSE_KERNELS:       # its device time, at the end
-                traces[site["site"]] = (name, functools.partial(
-                    getattr(fds, name), **kw), [args])
+            # its device time, at the end
+            traces[site["site"]] = (name, functools.partial(
+                getattr(fds, name), **kw), [args])
         del calls
         torch.cuda.empty_cache()
     print(f"live launches: {json.dumps(launches)}")

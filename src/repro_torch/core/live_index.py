@@ -415,25 +415,26 @@ class LiveView:
             if engine == "torch":
                 v, g, o = ops.torch_segment_topk(
                     ix, qh_dev, idf_w, seg.doc_base, k_tile=k_tile, cap=c,
-                    rank_blend=rank_blend)
+                    rank_blend=rank_blend, qnorm=qnorm)
             elif seg.layout == "banded":
                 v, g, o = ops.fused_segment_banded_topk(
                     ix, qh_dev, idf_w, seg.doc_base, k_tile=seg_kt,
                     cap_packed=min(c, max(ix.packed.max_posting_len, 1)),
                     cap_hor=min(c, max(ix.hor.max_posting_len, 1)),
                     max_pairs_packed=mp_p, max_pairs_hor=mp_h,
-                    rank_blend=rank_blend, tile=cfg.tile, q_pad=cfg.q_pad)
+                    rank_blend=rank_blend, tile=cfg.tile, q_pad=cfg.q_pad,
+                    qnorm=qnorm)
             elif mode == "dense":
                 v, g, o = ops.fused_segment_dense_topk(
                     ix, qh_dev, idf_w, seg.doc_base, k_tile=seg_kt, cap=c,
                     max_pairs=mp, rank_blend=rank_blend, tile=cfg.tile,
-                    q_pad=cfg.q_pad)
+                    q_pad=cfg.q_pad, qnorm=qnorm)
             else:
                 v, g, o = ops.fused_segment_topk(
                     ix, qh_dev, idf_w, seg.doc_base, k_tile=seg_kt, cap=c,
                     max_pairs=mp, rank_blend=rank_blend, tile=cfg.tile,
                     q_pad=cfg.q_pad, reducer=cfg.reducer,
-                    pairs_per_step=cfg.pairs_per_step)
+                    pairs_per_step=cfg.pairs_per_step, qnorm=qnorm)
             # keep device tensors until every segment is dispatched; the
             # host merge copies them back
             vals.append(v)

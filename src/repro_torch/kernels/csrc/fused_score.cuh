@@ -1,23 +1,34 @@
-// Fused decode-and-score to dense per-query scores, for sm_90a.
+// Fused decode-and-score, for sm_90a: one walk over a tile's routing
+// pairs, with two epilogues.
 //
-// Replaces the dense Pallas kernels of repro/kernels/fused_decode_score.py
-// (fused_score_blocked_pallas, body _fused_blocked_kernel;
-// fused_score_packed_pallas, body _fused_packed_kernel).  They carry
-// mode="dense" and both bands of every banded segment, whose two partial
-// score arrays the engine sums before the scoring tail.
+// Replaces the four Pallas kernels of repro/kernels/fused_decode_score.py:
+// the dense ones (fused_score_blocked_pallas, body _fused_blocked_kernel;
+// fused_score_packed_pallas, body _fused_packed_kernel), which carry
+// mode="dense" and both bands of every banded segment, and the candidate
+// ones (fused_topk_blocked_pallas, body _fused_blocked_topk_kernel;
+// fused_topk_packed_pallas, body _fused_packed_topk_kernel), which carry
+// mode="candidates" over HOR and packed segments.
 //
-// What it computes: for each tile-sorted (block, tile) routing pair, the
-// block's lanes whose doc falls in the tile and lies below the pair's cap
-// add qw[q] * tf into f32 out[Q, num_docs] (one fused multiply-add, as the
-// reference's XLA lowering contracts it), the pairs in order.  Tiles no
-// pair visits come out as 0.0 (the reference's _finish); padding pairs
-// sit at tile n_tiles, which has no CTA, so nothing is written for them.
+// What the walk computes: for each tile-sorted (block, tile) routing pair,
+// the block's lanes whose doc falls in the tile and lies below the pair's
+// cap add qw[q] * tf into the tile's f32 [Q, tile] sums (one fused
+// multiply-add, as the reference's XLA lowering contracts it), the pairs
+// in order.  Padding pairs sit at tile n_tiles, which has no CTA.  Then:
+//   - DenseOut writes the sums into f32 out[Q, num_docs]; tiles no pair
+//     visits come out as 0.0 (the reference's _finish);
+//   - TopkOut applies the scoring tail (_final_from_acc: the cosine
+//     sum / (max(norm, 1e-12) * qnorm), then rank_blend * rank added as
+//     one fused multiply-add; -inf where norm == 0, the sum is 0 or the
+//     lane is past num_docs) and keeps each query's k_tile best lanes
+//     (_tile_topk: value descending, lowest lane first, id -1 where the
+//     value is not finite), written tile-major into [Q, n_tiles * k_tile];
+//     an unvisited tile gives (-inf, -1) throughout.
 //
 // What bounds it: bytes.  Every routed pair reads one posting block (HOR
-// 1 KB; packed 4 * words_per_block B + 256 B) and the kernel writes the
-// whole f32 [Q, num_docs] array (32 MB for 8 queries at 1M docs, more than
-// a batch's posting bytes); a handful of flops per byte, far below the
-// card's ops:byte ridge.  A tile's pairs are few (~34 at the 1M tier's
+// 1 KB; packed 4 * words_per_block B + 256 B); DenseOut writes the whole
+// f32 [Q, num_docs] array (32 MB for 8 queries at 1M docs), TopkOut only
+// Q * k_tile candidates per tile.  A handful of flops per byte, far below
+// the card's ops:byte ridge.  A tile's pairs are few (~34 at the 1M tier's
 // packed band), so the latency of a CTA's walk over its run, not the
 // bytes, sets the time unless the walk is taken off a serial chain.
 //
@@ -27,7 +38,8 @@
 //      with cp.async: a chunk's metadata (block, cap, the qw row, and for
 //      packed blocks bits, base and count) two chunks ahead, its posting
 //      blocks one chunk ahead, so the copies of chunk k + 1 are in flight
-//      while chunk k is added.
+//      while chunk k is added.  At Q = 8 and 16, TopkOut stages the
+//      tile's norm and rank with chunk 0's metadata.
 //   3. Each chunk is scattered into a map lane[j][local] (the lane of pair
 //      j whose doc sits at `local` in the tile, -1 if none; the cap and the
 //      tile test applied): HOR lanes straight from the staged blocks, four
@@ -41,16 +53,29 @@
 //      This keeps each launch equal to its plain version, to the bit.  The
 //      map is double-buffered: chunk k's is cleared while chunk k + 1 is
 //      mapped.  Q = 8 and 16 (tiles of up to 512 docs) have kernels of
-//      their own: the owner's one position keeps its Q sums in registers
-//      and stores them to the shared [Q, tile] accumulator at the end;
-//      any other Q or tile adds into that accumulator directly.
-//   5. The tile's Q rows are written with 16-byte stores, coalesced along
-//      the docs, clipped at num_docs (a row that does not start on a
-//      16-byte boundary takes up to three scalar stores at each end).  An
-//      unvisited tile writes its zeros the same way, without staging.
+//      their own: the owner's one position keeps its Q sums in registers;
+//      any other Q or tile adds into the shared [Q, tile] accumulator.
+//   5. DenseOut: the sums go to the accumulator, and the tile's Q rows are
+//      written with 16-byte stores, coalesced along the docs, clipped at
+//      num_docs.  An unvisited tile writes its zeros the same way.
+//   6. TopkOut: each owner turns its sums into final scores in registers
+//      (__fdiv_rn, __fmul_rn, __fmaf_rn: the reference's op sequence) and
+//      stores them into the accumulator as order-preserving u32 keys.  One
+//      warp per query row then keeps the row's k_tile best; lane l holds
+//      the positions [l * per, (l + 1) * per) of the tile's docs below
+//      num_docs.  The k_tile-th largest of the lanes' bests (or of their
+//      two largest) bounds the answer from below; when at most 64 keys
+//      pass it, they are gathered and sorted by one warp-wide bitonic
+//      sort (select_few).  Otherwise (ties, k_tile > 32, tiles > 512) the warp
+//      takes successive maxima: each step one __reduce_max_sync finds the
+//      row's largest key, the lowest lane holding it (a ballot) emits it
+//      and rescans its positions.  Both keep _tile_topk's order: value
+//      descending, the lowest doc first on ties.
 #pragma once
 
 #include <cstdint>
+#include <cuda_fp16.h>
+#include <math_constants.h>
 
 #include "run_walk.cuh"
 #include "tile_accumulate.cuh"
@@ -361,22 +386,363 @@ __device__ __forceinline__ void write_tile(const float* acc,
   }
 }
 
+// The dense epilogue: the tile's sums into out[q, num_docs].
+struct DenseOut {
+  float* out;
+
+  template <int kQ>
+  __device__ __forceinline__ void stage(unsigned char*, int, int, int) const {
+  }
+
+  __device__ __forceinline__ void empty(int t, int num_docs, int q,
+                                        int tile) const {
+    const int base = t * tile;
+    write_tile(nullptr, out, num_docs, q, tile, base,
+               min(tile, num_docs - base));
+  }
+
+  // `sum`: the owner's Q sums (kQ > 0); else `acc` holds them
+  template <int kQ>
+  __device__ __forceinline__ void finish(float* acc, const float* sum, int t,
+                                         int num_docs, int q,
+                                         int tile) const {
+    if constexpr (kQ > 0) {
+      if (threadIdx.x < tile) {
+#pragma unroll
+        for (int qi = 0; qi < kQ; ++qi) acc[qi * tile + threadIdx.x] = sum[qi];
+      }
+    }
+    __syncthreads();
+    const int base = t * tile;
+    write_tile(acc, out, num_docs, q, tile, base, min(tile, num_docs - base));
+  }
+};
+
+// A final score as a u32 key whose unsigned order is the floats' order
+// (-inf lowest); 0 lies below every key of a float that is not NaN.
+__device__ __forceinline__ unsigned order_key(float v) {
+  const unsigned u = __float_as_uint(v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float key_value(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// The candidate epilogue: the scoring tail and each query's k_tile best
+// lanes, into vals / ids [q, n_tiles * k_tile], tile-major.
+struct TopkOut {
+  const float* norm;     // [num_docs]
+  const float* rank;     // [num_docs]
+  const float* qnorm;    // [q]
+  float* vals;
+  int* ids;
+  int n_tiles, k_tile;
+  float rank_blend;
+
+  // kQ > 0: the norm and rank of the tile's `width` docs from `base` into
+  // the accumulator (unused by the walk there), in the caller's first
+  // copy group
+  template <int kQ>
+  __device__ __forceinline__ void stage(unsigned char* acc, int base,
+                                        int tile, int width) const {
+    if constexpr (kQ > 0) {
+      const int i = threadIdx.x;
+      if (i < width) {
+        float* a = reinterpret_cast<float*>(acc);
+        run_walk::copy4(a + i, norm + base + i);
+        run_walk::copy4(a + tile + i, rank + base + i);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void empty(int t, int, int q, int) const {
+    const size_t row = (size_t)n_tiles * k_tile;
+    for (int i = threadIdx.x; i < q * k_tile; i += kThreads) {
+      const size_t o = (i / k_tile) * row + (size_t)t * k_tile + i % k_tile;
+      vals[o] = -CUDART_INF_F;
+      ids[o] = -1;
+    }
+  }
+
+  // the reference's tail (query.final_scores), never contracted further
+  __device__ __forceinline__ float final_score(float s, float nm, float rk,
+                                               int qi) const {
+    const float denom = __fmul_rn(fmaxf(nm, 1e-12f), qnorm[qi]);
+    const float fin = __fmaf_rn(rank_blend, rk, __fdiv_rn(s, denom));
+    return (nm > 0.0f && s > 0.0f) ? fin : -CUDART_INF_F;
+  }
+
+  template <int kQ>
+  __device__ __forceinline__ void finish(float* acc, const float* sum, int t,
+                                         int num_docs, int q,
+                                         int tile) const {
+    const int base = t * tile;
+    const int width = min(tile, num_docs - base);
+    unsigned* keys = reinterpret_cast<unsigned*>(acc);
+    if constexpr (kQ > 0) {
+      // the owner's sums become keys in registers, then in place of the
+      // staged norm and rank
+      const int loc = threadIdx.x;
+      const float nm = loc < width ? acc[loc] : 0.0f;
+      const float rk = loc < width ? acc[tile + loc] : 0.0f;
+      __syncthreads();
+      if (loc < tile) {
+#pragma unroll
+        for (int qi = 0; qi < kQ; ++qi)
+          keys[qi * tile + loc] = order_key(final_score(sum[qi], nm, rk, qi));
+      }
+    } else {
+      __syncthreads();
+      for (int loc = threadIdx.x; loc < tile; loc += kThreads) {
+        const float nm = loc < width ? norm[base + loc] : 0.0f;
+        const float rk = loc < width ? rank[base + loc] : 0.0f;
+        for (int qi = 0; qi < q; ++qi)
+          keys[qi * tile + loc] =
+              order_key(final_score(acc[qi * tile + loc], nm, rk, qi));
+      }
+    }
+    __syncthreads();
+    // each row's k_tile best, one warp per row, over the tile's `width`
+    // docs (every lane past num_docs is -inf: any of them, or none, gives
+    // the (-inf, -1) that fills a row with fewer finite keys)
+    const int wl = threadIdx.x % 32;
+    const int per = (width + 31) / 32;
+    const int lo = min(wl * per, width), hi = min(lo + per, width);
+    const bool wide = ((tile | width | per) & 3) == 0;
+    const bool few = k_tile <= 32 && per <= 16 && tile >= 128;
+    const size_t row_out = (size_t)n_tiles * k_tile;
+    for (int qi = threadIdx.x / 32; qi < q; qi += kWarps) {
+      unsigned* row = keys + qi * tile;
+      const size_t o = qi * row_out + (size_t)t * k_tile;
+      if (few && select_few(row, lo, hi, wide, base, tile, vals + o, ids + o))
+        continue;
+      // k_tile successive maxima (0 once the row's keys are spent)
+      int at = lo;
+      unsigned best = lane_best(row, lo, hi, wide, at);
+      for (int j = 0; j < k_tile; ++j) {
+        const unsigned m = __reduce_max_sync(0xffffffffu, best);
+        const unsigned holders = __ballot_sync(0xffffffffu, best == m);
+        if (wl == __ffs(holders) - 1) {
+          const float v = m ? key_value(m) : -CUDART_INF_F;
+          vals[o + j] = v;
+          ids[o + j] = isfinite(v) ? base + at : -1;
+          if (m) {
+            row[at] = 0u;
+            best = lane_best(row, lo, hi, wide, at);
+          }
+        }
+      }
+    }
+  }
+
+  // A row's k_tile best when k_tile <= 32 and a lane holds <= 16 keys.
+  // T, the k_tile-th largest of the lanes' largest finite keys, is at
+  // most the row's k_tile-th largest key, so the row's best are among
+  // its finite keys >= T (every finite key when fewer than k_tile lanes
+  // hold one).  When more than 64 pass (the row's finite keys in few
+  // lanes: deleted or padding docs, clipped tiles), T is taken again
+  // from the lanes' two largest.  When at most 64 pass, each lane writes
+  // its own (a prefix sum of the lanes' counts places them) into the
+  // row's first 128 words, one warp-wide bitonic sort of 32 (or 64)
+  // orders them, and the k_tile first are the row's best, (-inf, -1)
+  // past the last.  Returns false and writes nothing when more than 64
+  // keys still pass (ties): the caller then takes successive maxima.
+  __device__ __forceinline__ bool select_few(unsigned* row, int lo, int hi,
+                                             bool wide, int base, int tile,
+                                             float* ov, int* oi) const {
+    const unsigned neg_inf = order_key(-CUDART_INF_F);
+    const int wl = threadIdx.x % 32;
+    unsigned k[16];
+    load16(row, lo, hi, wide, k);
+    unsigned key[2] = {0u, 0u};        // the lane's two largest finite keys
+    int pos[2] = {0, 0};
+#pragma unroll
+    for (int u = 0; u < 16; ++u) {
+      const unsigned x = k[u] > neg_inf ? k[u] : 0u;
+      if (x > key[0]) {
+        key[1] = key[0];
+        key[0] = x;
+      } else if (x > key[1]) {
+        key[1] = x;
+      }
+    }
+    unsigned thr = key[0];
+    warp_sort<1, false>(&thr, pos);
+    thr = __shfl_sync(0xffffffffu, thr, k_tile - 1);
+    int n = count_from(k, thr, neg_inf);
+    int total = __reduce_add_sync(0xffffffffu, n);
+    if (total > 64) {                  // T from the lanes' two largest
+      warp_sort<2, false>(key, pos);
+      thr = __shfl_sync(0xffffffffu, key[0], k_tile - 1);
+      n = count_from(k, thr, neg_inf);
+      total = __reduce_add_sync(0xffffffffu, n);
+      if (total > 64) return false;
+    }
+    int w = n;                         // inclusive prefix sum, then less n
+    for (int d = 1; d < 32; d *= 2) {
+      const int y = __shfl_up_sync(0xffffffffu, w, d);
+      if (wl >= d) w += y;
+    }
+    w -= n;
+    __syncwarp();                      // every lane has read its keys
+#pragma unroll
+    for (int u = 0; u < 16; ++u) {
+      if (k[u] > neg_inf && k[u] >= thr) {
+        row[2 * w] = k[u];
+        row[2 * w + 1] = lo + u;
+        ++w;
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int e = 32 * r + wl;
+      key[r] = e < total ? row[2 * e] : 0u;
+      pos[r] = e < total ? (int)row[2 * e + 1] : tile + e;
+    }
+    if (total <= 32)
+      warp_sort<1, true>(key, pos);
+    else
+      warp_sort<2, true>(key, pos);
+    if (wl < k_tile) {
+      const float v = wl < total ? key_value(key[0]) : -CUDART_INF_F;
+      ov[wl] = v;
+      oi[wl] = isfinite(v) ? base + pos[0] : -1;
+    }
+    return true;
+  }
+
+  // How many of the 16 keys k are finite and >= thr.
+  static __device__ __forceinline__ int count_from(const unsigned* k,
+                                                   unsigned thr,
+                                                   unsigned neg_inf) {
+    int n = 0;
+#pragma unroll
+    for (int u = 0; u < 16; ++u) n += k[u] > neg_inf && k[u] >= thr;
+    return n;
+  }
+
+  // Orders the warp's 32 * R keys, element e = 32 * r + lane in key[r],
+  // so that element e is the e-th: key descending, and with kPos, pos[r]
+  // ascending on equal keys (the pairs must differ); without kPos, pos
+  // is neither read nor moved.  A bitonic sort: shuffles across lanes, a
+  // compare within a lane for the stride of 32.
+  template <int R, bool kPos>
+  static __device__ __forceinline__ void warp_sort(unsigned* key, int* pos) {
+    const int wl = threadIdx.x % 32;
+#pragma unroll
+    for (int size = 2; size <= 32 * R; size *= 2) {
+#pragma unroll
+      for (int stride = size / 2; stride > 0; stride /= 2) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          // the pair's lower element keeps the first of the two where
+          // this block of `size` elements runs forward, the later where
+          // it runs backward
+          const bool forward = ((32 * r + wl) & size) == 0;
+          if (stride >= 32) {          // elements r and r + 1 of a lane
+            if (r % 2 == 0 && r + 1 < R) {
+              const bool later_first =
+                  key[r + 1] > key[r] ||
+                  (kPos && key[r + 1] == key[r] && pos[r + 1] < pos[r]);
+              if (later_first == forward) {
+                const unsigned tk = key[r];
+                key[r] = key[r + 1];
+                key[r + 1] = tk;
+                if (kPos) {
+                  const int tp = pos[r];
+                  pos[r] = pos[r + 1];
+                  pos[r + 1] = tp;
+                }
+              }
+            }
+          } else {
+            const unsigned ok = __shfl_xor_sync(0xffffffffu, key[r], stride);
+            const int op =
+                kPos ? __shfl_xor_sync(0xffffffffu, pos[r], stride) : 0;
+            const bool other_first =
+                ok > key[r] || (kPos && ok == key[r] && op < pos[r]);
+            const bool lower = (wl & stride) == 0;
+            if (other_first == (lower == forward)) {
+              key[r] = ok;
+              if (kPos) pos[r] = op;
+            }
+          }
+        }
+      }
+    }
+  }
+
+  // The 16 keys of row[p0, p0 + 16) below hi into k (0 past hi): four
+  // 16-byte loads where `wide` (p0, hi and the rows' stride multiples of
+  // 4), else 16 scalar ones; all issued before any is used.
+  static __device__ __forceinline__ void load16(const unsigned* row, int p0,
+                                                int hi, bool wide,
+                                                unsigned* k) {
+    if (wide) {
+      const uint4* r = reinterpret_cast<const uint4*>(row + p0);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const uint4 x = p0 + 4 * u < hi ? r[u] : make_uint4(0, 0, 0, 0);
+        k[4 * u] = x.x;
+        k[4 * u + 1] = x.y;
+        k[4 * u + 2] = x.z;
+        k[4 * u + 3] = x.w;
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < 16; ++u) k[u] = p0 + u < hi ? row[p0 + u] : 0u;
+    }
+  }
+
+  // The largest key of row[lo, hi) (0 if none) and, in `at`, its
+  // position, the lowest on ties: 16 keys a step (load16), then a tree of
+  // compares, so a step waits on one load's latency, not on 16.
+  static __device__ __forceinline__ unsigned lane_best(const unsigned* row,
+                                                       int lo, int hi,
+                                                       bool wide, int& at) {
+    unsigned best = 0u;
+    for (int p0 = lo; p0 < hi; p0 += 16) {
+      unsigned k[16];
+      load16(row, p0, hi, wide, k);
+      // pairwise: the later of two positions wins only on a larger key
+      int idx[16];
+#pragma unroll
+      for (int u = 0; u < 16; ++u) idx[u] = u;
+#pragma unroll
+      for (int w = 1; w < 16; w *= 2) {
+#pragma unroll
+        for (int u = 0; u < 16; u += 2 * w) {
+          if (k[u + w] > k[u]) {
+            k[u] = k[u + w];
+            idx[u] = idx[u + w];
+          }
+        }
+      }
+      if (k[0] > best) {
+        best = k[0];
+        at = p0 + idx[0];
+      }
+    }
+    return best;
+  }
+};
+
 // kQ > 0: compiled for q == kQ; kQ == 0: any q.
-template <class Blocks, int kQ>
+template <class Epi, class Blocks, int kQ>
 __global__ void __launch_bounds__(kThreads, 3)
-score_kernel(Blocks bl, Pairs pr, float* __restrict__ out, int num_docs,
-             int q, int tile) {
+score_kernel(Blocks bl, Pairs pr, Epi epi, int num_docs, int q, int tile) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int run[2];
   const Plan<Blocks> plan(bl, q, tile);
   const int t = blockIdx.x;
   const int2 bounds = run_walk::find_run(pr.tile, pr.n, t, run);
-  const int tile_base = t * tile;
-  const int width = min(tile, num_docs - tile_base);   // clipped last tile
-  if (bounds.x == bounds.y) {        // no pair visits this tile: zeros
-    write_tile(nullptr, out, num_docs, q, tile, tile_base, width);
+  if (bounds.x == bounds.y) {        // no pair visits this tile
+    epi.empty(t, num_docs, q, tile);
     return;
   }
+  const int tile_base = t * tile;
   float* acc = reinterpret_cast<float*>(smem);
   signed char* map = reinterpret_cast<signed char*>(smem + plan.map_off());
   unsigned char* meta = smem + plan.meta_off();
@@ -394,8 +760,11 @@ score_kernel(Blocks bl, Pairs pr, float* __restrict__ out, int num_docs,
   auto len_of = [&](int k) { return min(kChunk, n_run - k * kChunk); };
   auto map_of = [&](int k) { return map + (k % 2) * plan.map_bytes(); };
 
-  // prologue: chunk 0's metadata, then its blocks and chunk 1's metadata
+  // prologue: chunk 0's metadata (and what the epilogue stages), then its
+  // blocks and chunk 1's metadata
   issue_meta<Blocks>(pr, meta_of(0), p0, len_of(0), q);
+  epi.template stage<kQ>(smem, tile_base, tile,
+                         min(tile, num_docs - tile_base));
   run_walk::commit();
   if constexpr (kQ == 0)
     for (int i = threadIdx.x; i < q * tile; i += kThreads) acc[i] = 0.0f;
@@ -430,19 +799,12 @@ score_kernel(Blocks bl, Pairs pr, float* __restrict__ out, int num_docs,
     add_chunk<Blocks, kQ>(bl, ring_of(k), meta_of(k), tf, len_of(k), q, tile,
                           map_of(k), acc, sum);
   }
-  if constexpr (kQ > 0) {
-    if (threadIdx.x < tile) {
-#pragma unroll
-      for (int qi = 0; qi < kQ; ++qi) acc[qi * tile + threadIdx.x] = sum[qi];
-    }
-  }
-  __syncthreads();
-  write_tile(acc, out, num_docs, q, tile, tile_base, width);
+  epi.template finish<kQ>(acc, sum, t, num_docs, q, tile);
 }
 
-// Allow score_kernel<Blocks, kQ> `smem` bytes of dynamic shared memory:
-// the opt-in above 48 KB, asked once per device and size.
-template <class Blocks, int kQ>
+// Allow score_kernel<Epi, Blocks, kQ> `smem` bytes of dynamic shared
+// memory: the opt-in above 48 KB, asked once per device and size.
+template <class Epi, class Blocks, int kQ>
 cudaError_t allow_smem(size_t smem) {
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   static size_t allowed[16] = {};
@@ -451,21 +813,21 @@ cudaError_t allow_smem(size_t smem) {
   if (e != cudaSuccess || smem <= 48 * 1024 ||
       (dev < 16 && smem <= allowed[dev]))
     return e;
-  e = cudaFuncSetAttribute(score_kernel<Blocks, kQ>,
+  e = cudaFuncSetAttribute(score_kernel<Epi, Blocks, kQ>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
   if (e == cudaSuccess && dev < 16) allowed[dev] = smem;
   return e;
 }
 
-template <class Blocks, int kQ>
-int launch_q(const Blocks& bl, const Pairs& pr, float* out, int n_tiles,
+template <class Epi, class Blocks, int kQ>
+int launch_q(const Blocks& bl, const Pairs& pr, const Epi& epi, int n_tiles,
              int num_docs, int q, int tile, void* stream) {
   const size_t smem = Plan<Blocks>(bl, q, tile).total();
-  const cudaError_t e = allow_smem<Blocks, kQ>(smem);
+  const cudaError_t e = allow_smem<Epi, Blocks, kQ>(smem);
   if (e != cudaSuccess) return (int)e;
-  score_kernel<Blocks, kQ>
-      <<<n_tiles, kThreads, smem, (cudaStream_t)stream>>>(bl, pr, out,
+  score_kernel<Epi, Blocks, kQ>
+      <<<n_tiles, kThreads, smem, (cudaStream_t)stream>>>(bl, pr, epi,
                                                           num_docs, q, tile);
   return (int)cudaGetLastError();
 }
@@ -473,43 +835,41 @@ int launch_q(const Blocks& bl, const Pairs& pr, float* out, int n_tiles,
 // The engines pad Q to a multiple of 8: 8 and 16 (batches of up to 16
 // queries) at tiles of up to 512 docs run the kernel compiled for their Q,
 // anything else the generic one.
-template <class Blocks>
-int launch(const Blocks& bl, const Pairs& pr, float* out, int n_tiles,
+template <class Epi, class Blocks>
+int launch(const Blocks& bl, const Pairs& pr, const Epi& epi, int n_tiles,
            int num_docs, int q, int tile, void* stream) {
-  if (tile > kThreads)
-    return launch_q<Blocks, 0>(bl, pr, out, n_tiles, num_docs, q, tile,
-                               stream);
-  if (q == 8)
-    return launch_q<Blocks, 8>(bl, pr, out, n_tiles, num_docs, q, tile,
-                               stream);
-  if (q == 16)
-    return launch_q<Blocks, 16>(bl, pr, out, n_tiles, num_docs, q, tile,
-                                stream);
-  return launch_q<Blocks, 0>(bl, pr, out, n_tiles, num_docs, q, tile,
-                             stream);
+  if (tile <= kThreads && q == 8)
+    return launch_q<Epi, Blocks, 8>(bl, pr, epi, n_tiles, num_docs, q, tile,
+                                    stream);
+  if (tile <= kThreads && q == 16)
+    return launch_q<Epi, Blocks, 16>(bl, pr, epi, n_tiles, num_docs, q, tile,
+                                     stream);
+  return launch_q<Epi, Blocks, 0>(bl, pr, epi, n_tiles, num_docs, q, tile,
+                                  stream);
 }
 
-template <class Blocks, int kQ>
+template <class Epi, class Blocks, int kQ>
 int occupancy_q(const Blocks& bl, int q, int tile, int* smem) {
   const size_t bytes = Plan<Blocks>(bl, q, tile).total();
   *smem = (int)bytes;
-  cudaError_t e = allow_smem<Blocks, kQ>(bytes);
+  cudaError_t e = allow_smem<Epi, Blocks, kQ>(bytes);
   int ctas = 0;
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &ctas, score_kernel<Blocks, kQ>, kThreads, bytes);
+        &ctas, score_kernel<Epi, Blocks, kQ>, kThreads, bytes);
   return e == cudaSuccess ? ctas : -(int)e;
 }
 
 // CTAs of the kernel `launch` picks for (q, tile) that fit on one SM, and
 // the dynamic shared memory each takes (*smem); a negative cudaError_t if
 // the runtime refuses.
-template <class Blocks>
+template <class Epi, class Blocks>
 int occupancy(const Blocks& bl, int q, int tile, int* smem) {
-  if (tile > kThreads) return occupancy_q<Blocks, 0>(bl, q, tile, smem);
-  if (q == 8) return occupancy_q<Blocks, 8>(bl, q, tile, smem);
-  if (q == 16) return occupancy_q<Blocks, 16>(bl, q, tile, smem);
-  return occupancy_q<Blocks, 0>(bl, q, tile, smem);
+  if (tile <= kThreads && q == 8)
+    return occupancy_q<Epi, Blocks, 8>(bl, q, tile, smem);
+  if (tile <= kThreads && q == 16)
+    return occupancy_q<Epi, Blocks, 16>(bl, q, tile, smem);
+  return occupancy_q<Epi, Blocks, 0>(bl, q, tile, smem);
 }
 
 }  // namespace fused_score

@@ -12,10 +12,11 @@ extern "C" int fused_score_blocked_launch(
   const fused_score::HorBlocks bl{docs, tfs};
   const fused_score::Pairs pr{pair_block, pair_tile, pair_cap, pair_qw,
                               nullptr,    nullptr,   nullptr,  n_pairs};
-  return fused_score::launch(bl, pr, out, n_tiles, num_docs, q, tile, stream);
+  const fused_score::DenseOut epi{out};
+  return fused_score::launch(bl, pr, epi, n_tiles, num_docs, q, tile, stream);
 }
 
 extern "C" int fused_score_blocked_occupancy(int q, int tile, int* smem) {
   const fused_score::HorBlocks bl{nullptr, nullptr};
-  return fused_score::occupancy(bl, q, tile, smem);
+  return fused_score::occupancy<fused_score::DenseOut>(bl, q, tile, smem);
 }

@@ -14,11 +14,12 @@ extern "C" int fused_score_packed_launch(
   const fused_score::PackedBlocks bl{words, tfs, wpb};
   const fused_score::Pairs pr{pair_block, pair_tile, pair_cap,  pair_qw,
                               pair_bits,  pair_base, pair_count, n_pairs};
-  return fused_score::launch(bl, pr, out, n_tiles, num_docs, q, tile, stream);
+  const fused_score::DenseOut epi{out};
+  return fused_score::launch(bl, pr, epi, n_tiles, num_docs, q, tile, stream);
 }
 
 extern "C" int fused_score_packed_occupancy(int wpb, int q, int tile,
                                             int* smem) {
   const fused_score::PackedBlocks bl{nullptr, nullptr, wpb};
-  return fused_score::occupancy(bl, q, tile, smem);
+  return fused_score::occupancy<fused_score::DenseOut>(bl, q, tile, smem);
 }

@@ -1,22 +1,29 @@
 // Packed candidate kernel: replaces fused_topk_packed_pallas
-// (repro/kernels/fused_decode_score.py), whose in-VMEM decode is
-// _unpack_block_vmem.  Each routed pair reads one delta+bit-packed block
-// (4*words_per_block B of u32 words + 256 B of f16 tfs) and decodes it in
-// registers and shared memory (tile_accumulate.cuh's PackedLoader).  See
-// fused_topk.cuh for the scoring and reduction body.
-#include "fused_topk.cuh"
+// (repro/kernels/fused_decode_score.py, body _fused_packed_topk_kernel,
+// decode _unpack_block_vmem).  The dense packed kernel's walk (each routed
+// pair reads one delta+bit-packed block, staged compressed with cp.async
+// and decoded in shared memory, one warp per pair) with the candidate
+// epilogue, TopkOut.  See fused_score.cuh.
+#include "fused_score.cuh"
 
 extern "C" int fused_topk_packed_launch(
-    const unsigned* words, const unsigned short* tfs, const int* pair_block,
-    const int* pair_cap, const float* pair_qw, const int* pair_bits,
-    const int* pair_base, const int* pair_count, int wpb,
-    const int* tile_start, const float* norm, const float* rank,
+    const unsigned* words, const unsigned short* tfs, int wpb,
+    const int* pair_block, const int* pair_tile, const int* pair_cap,
+    const float* pair_qw, const int* pair_bits, const int* pair_base,
+    const int* pair_count, int n_pairs, const float* norm, const float* rank,
     const float* qnorm, float* out_vals, int* out_ids, int n_tiles,
     int num_docs, int q, int tile, int k_tile, float rank_blend,
     void* stream) {
-  const tile_acc::PackedLoader ld{words, tfs, pair_block, pair_bits,
-                                  pair_base, pair_count, wpb};
-  return fused_topk::launch(ld, pair_cap, pair_qw, tile_start, norm, rank,
-                            qnorm, out_vals, out_ids, n_tiles, num_docs, q,
-                            tile, k_tile, rank_blend, stream);
+  const fused_score::PackedBlocks bl{words, tfs, wpb};
+  const fused_score::Pairs pr{pair_block, pair_tile, pair_cap,  pair_qw,
+                              pair_bits,  pair_base, pair_count, n_pairs};
+  const fused_score::TopkOut epi{norm,    rank,   qnorm,  out_vals,
+                                 out_ids, n_tiles, k_tile, rank_blend};
+  return fused_score::launch(bl, pr, epi, n_tiles, num_docs, q, tile, stream);
+}
+
+extern "C" int fused_topk_packed_occupancy(int wpb, int q, int tile,
+                                           int* smem) {
+  const fused_score::PackedBlocks bl{nullptr, nullptr, wpb};
+  return fused_score::occupancy<fused_score::TopkOut>(bl, q, tile, smem);
 }

@@ -1,13 +1,13 @@
 // A CTA's run of tile-sorted routing pairs, found on the device, and the
 // asynchronous copies that stage a run into shared memory, for sm_90a.
 // Shared by the single-query posting scorer (posting_score.cu) and the
-// dense fused scorers (fused_score.cuh).
+// four fused scorers (fused_score.cuh).
 //
 // The pair arrays are sorted by doc tile; padding pairs sit at tile
 // n_tiles, past every CTA.  CTA t owns the pairs [p0, p1) with
 // pair_tile == t.  It finds both bounds itself, so a launch needs no
-// tile_starts array (an arange, a searchsorted and a cast, three device
-// launches before the kernel): warp 0 searches for t and warp 1 for
+// array of run starts made before it (an arange, a searchsorted and a
+// cast: three device launches): warp 0 searches for t and warp 1 for
 // t + 1, each a 32-ary search.  Every lane loads one sample,
 // __ballot_sync counts the samples below the key, and the range shrinks
 // 32-fold per step: 5 dependent loads at 2^25 pairs, 6 at 2^27.

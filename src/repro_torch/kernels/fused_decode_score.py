@@ -17,8 +17,10 @@ reference's ``_finish``).
 
 Two implementations of each kernel live here:
 
-* the CUDA C++ kernel (``csrc/fused_{topk,score}_{blocked,packed}.cu``),
-  which a CUDA tensor always goes to — there is no fallback;
+* the CUDA C++ kernel (``csrc/fused_{topk,score}_{blocked,packed}.cu``,
+  four entry points over one walk, ``csrc/fused_score.cuh``, with a
+  dense or a candidate epilogue), which a CUDA tensor always goes to —
+  there is no fallback;
 * its plain PyTorch version (``fused_{topk,score}_{blocked,packed}
   _plain``), the path for CPU tensors and the kernel's yardstick on the
   card.  It adds the pairs in the kernel's order without colliding
@@ -38,15 +40,14 @@ import torch
 from repro_torch.core.layouts import take_rows, unpack_words
 from repro_torch.core.segments import run_ranks
 from repro_torch.core.query import final_scores, fma_f32
-from repro_torch.kernels.cuda_build import (check_tensors, entry, launch,
-                                            tensors_ok)
+from repro_torch.kernels.cuda_build import check_tensors, entry, tensors_ok
 
 Tensor = torch.Tensor
 
 TILE = 512   # doc-space tile width
 Q_PAD = 8    # query-batch padding quantum
 K_PAD = 8    # candidate-count padding quantum (per-tile k_tile)
-BLOCK = 128  # posting block width == CUDA threads per CTA
+BLOCK = 128  # posting block width
 REDUCERS = ("successive", "bitonic")
 NEG_INF = float("-inf")
 
@@ -72,13 +73,14 @@ def _check_k_tile(k_tile: int, tile: int) -> None:
 def _check_reducer(reducer: str, cuda: bool) -> None:
     """Both reducers define the same strict order (value descending,
     lowest lane first), so the plain path computes either; the CUDA
-    kernel implements successive maxima only."""
+    kernels give that order by their own reduction and take only
+    ``reducer="successive"``."""
     if reducer not in REDUCERS:
         raise ValueError(f"unknown reducer {reducer!r}; expected {REDUCERS}")
     if cuda and reducer != "successive":
         raise NotImplementedError(
-            f"reducer={reducer!r} has no CUDA kernel yet (ROADMAP queue 2, "
-            "item 4: the bitonic tile reducer); use reducer='successive'")
+            f"reducer={reducer!r} has no CUDA kernel yet (ROADMAP queue 2 "
+            "A: the bitonic tile reducer); use reducer='successive'")
 
 
 def _doc_tiles(norm: Tensor, rank: Tensor, n_tiles: int, tile: int):
@@ -284,29 +286,20 @@ def fused_score_packed_plain(packed, block_tfs, pair_block, pair_tile,
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signatures (csrc/fused_topk_{blocked,packed}.cu): layout-specific
-# block pointers, then pair_cap, pair_qw, [packed: bits, base, count,
-# wpb], tile_start, norm, rank, qnorm, out_vals, out_ids, n_tiles,
-# num_docs, q, tile, k_tile, rank_blend, stream
-_TAIL = [_P] * 6 + [_I] * 5 + [_F, _P]
-# csrc/fused_score_blocked.cu: docs, tfs, pair_block, pair_tile,
-# pair_cap, pair_qw, n_pairs, out, n_tiles, num_docs, q, tile, stream;
-# csrc/fused_score_packed.cu: words, tfs, wpb, pair_block, pair_tile,
-# pair_cap, pair_qw, pair_bits, pair_base, pair_count, then as blocked
+# C signatures (csrc/fused_{topk,score}_{blocked,packed}.cu): the layout's
+# blocks (blocked: docs, tfs; packed: words, tfs, wpb), the pairs
+# (pair_block, pair_tile, pair_cap, pair_qw, and packed: pair_bits,
+# pair_base, pair_count), n_pairs, the outputs (dense: out; candidates:
+# norm, rank, qnorm, vals, ids), n_tiles, num_docs, q, tile, (candidates:
+# k_tile, rank_blend), stream
 _DENSE_TAIL = [_I, _P] + [_I] * 4 + [_P]
+_TOPK_TAIL = [_I] + [_P] * 5 + [_I] * 5 + [_F, _P]
 _ARGTYPES = {
-    "fused_topk_blocked": [_P] * 3 + [_P, _P] + _TAIL,
-    "fused_topk_packed": [_P] * 3 + [_P, _P] + [_P] * 3 + [_I] + _TAIL,
+    "fused_topk_blocked": [_P] * 6 + _TOPK_TAIL,
+    "fused_topk_packed": [_P, _P, _I] + [_P] * 7 + _TOPK_TAIL,
     "fused_score_blocked": [_P] * 6 + _DENSE_TAIL,
     "fused_score_packed": [_P, _P, _I] + [_P] * 7 + _DENSE_TAIL,
 }
-
-
-def tile_starts(pair_tile: Tensor, n_tiles: int) -> Tensor:
-    """CTA t walks pairs [tile_start[t], tile_start[t+1])."""
-    bounds = torch.arange(n_tiles + 1, dtype=torch.int32,
-                          device=pair_tile.device)
-    return torch.searchsorted(pair_tile, bounds).to(torch.int32)
 
 
 def check_smem(name: str, q: int, tile: int) -> None:
@@ -315,110 +308,33 @@ def check_smem(name: str, q: int, tile: int) -> None:
                          "exceeds a CTA's 227 KB of shared memory")
 
 
-def _launch(name, blocks, pair_tile, pair_qw, pair_cap, decode, norm, rank,
-            qnorm, num_docs, tile, k_tile, rank_blend):
-    """Allocate the candidate outputs and launch kernel ``name``;
-    ``blocks`` / ``decode`` are its layout-specific tensors and ints."""
-    q = pair_qw.shape[1]
-    n_tiles = _n_tiles(num_docs, tile)
-    check_smem(name, q, tile)
-    vals = torch.empty((q, n_tiles * k_tile), dtype=torch.float32,
-                       device=pair_qw.device)
-    ids = torch.empty((q, n_tiles * k_tile), dtype=torch.int32,
-                      device=pair_qw.device)
-    tile_start = tile_starts(pair_tile, n_tiles)
-    launch(name, _ARGTYPES[name],
-           (*blocks, pair_cap, pair_qw, *decode, tile_start, norm, rank,
-            qnorm, vals, ids, n_tiles, num_docs, q, tile, k_tile,
-            rank_blend), pair_qw.device)
-    return vals, ids
-
-
-def _launch_dense(name, dev, specs, blocks, pairs, num_docs, tile):
-    """Check the dense kernel's tensors in one pass (``specs``, by name),
-    allocate f32[Q, num_docs] and call kernel ``name``'s entry point on
-    PyTorch's raw stream: every element is written (zeros in unvisited
-    tiles), in one device launch.  ``blocks`` are its layout's pointers
-    and ints, ``pairs`` its pair arrays after them."""
+def _checked_device(name, specs, tile) -> int:
+    """Kernel ``name``'s tensors checked in one pass (``specs``, by name:
+    contiguous, dtype, shape, one CUDA device); their device index.  On a
+    failure ``check_tensors`` names the tensor at fault."""
+    dev = specs["pair_qw"][0].get_device()
     if not tensors_ok(dev, specs.values()):
         check_tensors(name, **specs)
         raise ValueError(f"{name}: tensors on different devices")
-    pair_qw = specs["pair_qw"][0]
-    np_, q = pair_qw.shape
-    check_smem(name, q, tile)
-    out = torch.empty((q, num_docs), dtype=torch.float32,
-                      device=pair_qw.device)
-    # the entry point called directly, not through ``launch``'s loop over
-    # its arguments: a call's host time is most of a small launch's
+    check_smem(name, specs["pair_qw"][0].shape[1], tile)
+    return dev
+
+
+def _launch(name, dev, blocks, pairs, outs, num_docs, tile, extra=()):
+    """Call kernel ``name``'s entry point on PyTorch's raw stream: one
+    device launch.  ``blocks`` are its layout's pointers and ints,
+    ``pairs`` its pair arrays, ``outs`` the tensors after ``n_pairs`` (a
+    candidate kernel's doc metadata, then the outputs), ``extra`` the
+    numbers after ``tile``.  The entry point is called directly, not
+    through ``cuda_build.launch``'s loop over its arguments: a call's host
+    time is most of a small launch's."""
+    np_, q = pairs[3].shape
     err = entry(name, _ARGTYPES[name])(
-        *blocks, *(t.data_ptr() for t in pairs), np_, out.data_ptr(),
-        _n_tiles(num_docs, tile), num_docs, q, tile,
-        torch._C._cuda_getCurrentRawStream(dev))
+        *blocks, *(t.data_ptr() for t in pairs), np_,
+        *(t.data_ptr() for t in outs), _n_tiles(num_docs, tile), num_docs, q,
+        tile, *extra, torch._C._cuda_getCurrentRawStream(dev))
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed (error {err})")
-    return out
-
-
-def _pair_checks(pair_block, pair_tile, pair_qw, pair_cap):
-    """Shape/dtype specs of the arrays every launcher takes."""
-    i32, f32 = torch.int32, torch.float32
-    np_, q = pair_qw.shape
-    return dict(pair_block=(pair_block, i32, (np_,)),
-                pair_tile=(pair_tile, i32, (np_,)),
-                pair_qw=(pair_qw, f32, (np_, q)),
-                pair_cap=(pair_cap, i32, (np_,)))
-
-
-def _launch_blocked_cuda(block_docs, block_tfs, pair_block, pair_tile,
-                         pair_qw, pair_cap, norm, rank, qnorm, num_docs,
-                         k_tile, rank_blend, tile):
-    name = "fused_topk_blocked"
-    i32, f32 = torch.int32, torch.float32
-    nb, q = block_docs.shape[0], pair_qw.shape[1]
-    check_tensors(name, block_docs=(block_docs, i32, (nb, BLOCK)),
-                  block_tfs=(block_tfs, f32, (nb, BLOCK)),
-                  **_pair_checks(pair_block, pair_tile, pair_qw, pair_cap),
-                  norm=(norm, f32, (num_docs,)), rank=(rank, f32, (num_docs,)),
-                  qnorm=(qnorm, f32, (q,)))
-    return _launch(name, (block_docs, block_tfs, pair_block), pair_tile,
-                   pair_qw, pair_cap, (), norm, rank, qnorm, num_docs, tile,
-                   k_tile, rank_blend)
-
-
-def _launch_packed_cuda(packed, block_tfs, pair_block, pair_tile, pair_qw,
-                        pair_cap, pair_bits, pair_base, pair_count, norm,
-                        rank, qnorm, num_docs, k_tile, rank_blend, tile):
-    name = "fused_topk_packed"
-    i32, f32 = torch.int32, torch.float32
-    (nb, wpb), (np_, q) = packed.shape, pair_qw.shape
-    check_tensors(name, packed=(packed, i32, (nb, max(wpb, 1))),
-                  block_tfs=(block_tfs, torch.float16, (nb, BLOCK)),
-                  **_pair_checks(pair_block, pair_tile, pair_qw, pair_cap),
-                  pair_bits=(pair_bits, i32, (np_,)),
-                  pair_base=(pair_base, i32, (np_,)),
-                  pair_count=(pair_count, i32, (np_,)),
-                  norm=(norm, f32, (num_docs,)), rank=(rank, f32, (num_docs,)),
-                  qnorm=(qnorm, f32, (q,)))
-    return _launch(name, (packed, block_tfs, pair_block), pair_tile, pair_qw,
-                   pair_cap, (pair_bits, pair_base, pair_count,
-                              packed.shape[1]),
-                   norm, rank, qnorm, num_docs, tile, k_tile, rank_blend)
-
-
-def dense_occupancy(name: str, q: int, tile: int = TILE,
-                    wpb: int = 0) -> tuple[int, int]:
-    """(CTAs per SM, dynamic shared memory bytes per CTA) of dense kernel
-    ``name`` at Q = ``q`` (and, packed, ``wpb`` words per block), as the
-    CUDA runtime computes them on the current card."""
-    smem = ctypes.c_int(0)
-    args = ((wpb,) if name == "fused_score_packed" else ()) + (
-        q, tile, ctypes.byref(smem))
-    ctas = entry(name, [_I] * (len(args) - 1)
-                 + [ctypes.POINTER(ctypes.c_int)], f"{name}_occupancy")(*args)
-    if ctas < 0:
-        raise RuntimeError(f"{name}: occupancy query failed (error "
-                           f"{-ctas})")
-    return ctas, smem.value
 
 
 def _pair_specs(pair_qw):
@@ -427,19 +343,100 @@ def _pair_specs(pair_qw):
     return tuple(pair_qw.shape) if pair_qw.dim() == 2 else (0, 0)
 
 
-def _launch_score_blocked_cuda(block_docs, block_tfs, pair_block, pair_tile,
-                               pair_qw, pair_cap, num_docs, tile):
+def _blocked_specs(block_docs, block_tfs, pair_block, pair_tile, pair_qw,
+                   pair_cap):
+    """The HOR kernels' (tensor, dtype, shape) checks, by name."""
     i32, f32 = torch.int32, torch.float32
     nb = block_docs.shape[0] if block_docs.dim() else 0
     np_, q = _pair_specs(pair_qw)
-    specs = dict(block_docs=(block_docs, i32, (nb, BLOCK)),
-                 block_tfs=(block_tfs, f32, (nb, BLOCK)),
-                 pair_block=(pair_block, i32, (np_,)),
-                 pair_tile=(pair_tile, i32, (np_,)),
-                 pair_cap=(pair_cap, i32, (np_,)),
-                 pair_qw=(pair_qw, f32, (np_, q)))
+    return dict(block_docs=(block_docs, i32, (nb, BLOCK)),
+                block_tfs=(block_tfs, f32, (nb, BLOCK)),
+                pair_block=(pair_block, i32, (np_,)),
+                pair_tile=(pair_tile, i32, (np_,)),
+                pair_cap=(pair_cap, i32, (np_,)),
+                pair_qw=(pair_qw, f32, (np_, q)))
+
+
+def _packed_specs(packed, block_tfs, pair_block, pair_tile, pair_qw,
+                  pair_cap, pair_bits, pair_base, pair_count):
+    """The packed kernels' (tensor, dtype, shape) checks, by name."""
+    i32 = torch.int32
+    nb, wpb = tuple(packed.shape) if packed.dim() == 2 else (0, 0)
+    np_, q = _pair_specs(pair_qw)
+    return dict(packed=(packed, i32, (nb, max(wpb, 1))),
+                block_tfs=(block_tfs, torch.float16, (nb, BLOCK)),
+                pair_block=(pair_block, i32, (np_,)),
+                pair_tile=(pair_tile, i32, (np_,)),
+                pair_cap=(pair_cap, i32, (np_,)),
+                pair_qw=(pair_qw, torch.float32, (np_, q)),
+                pair_bits=(pair_bits, i32, (np_,)),
+                pair_base=(pair_base, i32, (np_,)),
+                pair_count=(pair_count, i32, (np_,)))
+
+
+def _launch_topk(name, specs, blocks, pairs, norm, rank, qnorm, num_docs,
+                 k_tile, rank_blend, tile):
+    """A candidate kernel's launch: the doc metadata checked with the
+    rest, then the tile-major candidate lists allocated (every element
+    is written, (-inf, -1) in unvisited tiles)."""
+    f32 = torch.float32
+    q = _pair_specs(specs["pair_qw"][0])[1]
+    dev = _checked_device(name, dict(
+        specs, norm=(norm, f32, (num_docs,)), rank=(rank, f32, (num_docs,)),
+        qnorm=(qnorm, f32, (q,))), tile)
+    n = _n_tiles(num_docs, tile) * k_tile
+    vals = torch.empty((q, n), dtype=f32, device=norm.device)
+    ids = torch.empty((q, n), dtype=torch.int32, device=norm.device)
+    _launch(name, dev, blocks, pairs, (norm, rank, qnorm, vals, ids),
+            num_docs, tile, (k_tile, rank_blend))
+    return vals, ids
+
+
+def _launch_dense(name, specs, blocks, pairs, num_docs, tile):
+    """A dense kernel's launch into a new f32[Q, num_docs] (every element
+    is written, zeros in unvisited tiles)."""
+    dev = _checked_device(name, specs, tile)
+    pair_qw = specs["pair_qw"][0]
+    out = torch.empty((pair_qw.shape[1], num_docs), dtype=torch.float32,
+                      device=pair_qw.device)
+    _launch(name, dev, blocks, pairs, (out,), num_docs, tile)
+    return out
+
+
+def _wpb(packed) -> int:
+    return packed.shape[1] if packed.dim() == 2 else 0
+
+
+def _launch_blocked_cuda(block_docs, block_tfs, pair_block, pair_tile,
+                         pair_qw, pair_cap, norm, rank, qnorm, num_docs,
+                         k_tile, rank_blend, tile):
+    return _launch_topk(
+        "fused_topk_blocked",
+        _blocked_specs(block_docs, block_tfs, pair_block, pair_tile, pair_qw,
+                       pair_cap),
+        (block_docs.data_ptr(), block_tfs.data_ptr()),
+        (pair_block, pair_tile, pair_cap, pair_qw), norm, rank, qnorm,
+        num_docs, k_tile, rank_blend, tile)
+
+
+def _launch_packed_cuda(packed, block_tfs, pair_block, pair_tile, pair_qw,
+                        pair_cap, pair_bits, pair_base, pair_count, norm,
+                        rank, qnorm, num_docs, k_tile, rank_blend, tile):
+    return _launch_topk(
+        "fused_topk_packed",
+        _packed_specs(packed, block_tfs, pair_block, pair_tile, pair_qw,
+                      pair_cap, pair_bits, pair_base, pair_count),
+        (packed.data_ptr(), block_tfs.data_ptr(), _wpb(packed)),
+        (pair_block, pair_tile, pair_cap, pair_qw, pair_bits, pair_base,
+         pair_count), norm, rank, qnorm, num_docs, k_tile, rank_blend, tile)
+
+
+def _launch_score_blocked_cuda(block_docs, block_tfs, pair_block, pair_tile,
+                               pair_qw, pair_cap, num_docs, tile):
     return _launch_dense(
-        "fused_score_blocked", pair_qw.get_device(), specs,
+        "fused_score_blocked",
+        _blocked_specs(block_docs, block_tfs, pair_block, pair_tile, pair_qw,
+                       pair_cap),
         (block_docs.data_ptr(), block_tfs.data_ptr()),
         (pair_block, pair_tile, pair_cap, pair_qw), num_docs, tile)
 
@@ -447,23 +444,29 @@ def _launch_score_blocked_cuda(block_docs, block_tfs, pair_block, pair_tile,
 def _launch_score_packed_cuda(packed, block_tfs, pair_block, pair_tile,
                               pair_qw, pair_cap, pair_bits, pair_base,
                               pair_count, num_docs, tile):
-    i32 = torch.int32
-    nb, wpb = tuple(packed.shape) if packed.dim() == 2 else (0, 0)
-    np_, q = _pair_specs(pair_qw)
-    specs = dict(packed=(packed, i32, (nb, max(wpb, 1))),
-                 block_tfs=(block_tfs, torch.float16, (nb, BLOCK)),
-                 pair_block=(pair_block, i32, (np_,)),
-                 pair_tile=(pair_tile, i32, (np_,)),
-                 pair_cap=(pair_cap, i32, (np_,)),
-                 pair_qw=(pair_qw, torch.float32, (np_, q)),
-                 pair_bits=(pair_bits, i32, (np_,)),
-                 pair_base=(pair_base, i32, (np_,)),
-                 pair_count=(pair_count, i32, (np_,)))
     return _launch_dense(
-        "fused_score_packed", pair_qw.get_device(), specs,
-        (packed.data_ptr(), block_tfs.data_ptr(), wpb),
+        "fused_score_packed",
+        _packed_specs(packed, block_tfs, pair_block, pair_tile, pair_qw,
+                      pair_cap, pair_bits, pair_base, pair_count),
+        (packed.data_ptr(), block_tfs.data_ptr(), _wpb(packed)),
         (pair_block, pair_tile, pair_cap, pair_qw, pair_bits, pair_base,
          pair_count), num_docs, tile)
+
+
+def occupancy(name: str, q: int, tile: int = TILE,
+              wpb: int = 0) -> tuple[int, int]:
+    """(CTAs per SM, dynamic shared memory bytes per CTA) of fused kernel
+    ``name`` at Q = ``q`` (and, packed, ``wpb`` words per block), as the
+    CUDA runtime computes them on the current card."""
+    smem = ctypes.c_int(0)
+    args = ((wpb,) if name.endswith("_packed") else ()) + (
+        q, tile, ctypes.byref(smem))
+    ctas = entry(name, [_I] * (len(args) - 1)
+                 + [ctypes.POINTER(ctypes.c_int)], f"{name}_occupancy")(*args)
+    if ctas < 0:
+        raise RuntimeError(f"{name}: occupancy query failed (error "
+                           f"{-ctas})")
+    return ctas, smem.value
 
 
 # ---------------------------------------------------------------------------

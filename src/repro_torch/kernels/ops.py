@@ -333,7 +333,7 @@ def fused_topk_args(index: BlockedIndex | PackedCsrIndex, term_ids: Tensor,
                     idf_w: Tensor, cap: int, k: int, rank_blend: float = 0.0,
                     max_pairs: int | None = None, tile: int = TILE,
                     k_tile: int | None = None, q_pad: int = Q_PAD,
-                    pairs_per_step: int = 1):
+                    pairs_per_step: int = 1, qnorm: Tensor | None = None):
     """One batch's routing pairs and metadata, as the arguments of the
     layout's candidate kernel: returns (kernel, plain, args, kwargs,
     overflow) so that ``kernel(*args, **kwargs)`` (or its plain version
@@ -341,7 +341,8 @@ def fused_topk_args(index: BlockedIndex | PackedCsrIndex, term_ids: Tensor,
     0-d tensor) counts routing pairs dropped for want of ``max_pairs``.
 
     term_ids i32[B, T] (-1 absent), idf_w f32[B, T] per-slot weights;
-    ``cap`` bounds postings read per term at posting granularity.
+    ``cap`` bounds postings read per term at posting granularity;
+    ``qnorm`` f32[B], ``query_norm(idf_w)``, is computed when not given.
     """
     b, t = term_ids.shape
     num_docs = index.docs.num_docs
@@ -350,7 +351,8 @@ def fused_topk_args(index: BlockedIndex | PackedCsrIndex, term_ids: Tensor,
     k_tile = min(k_tile, tile)
     # per-query norm of the idf weight vector (duplicate slots carry 0
     # after dedup) — the same reduction the oracle's scoring tail does
-    qnorm = query_norm(idf_w)
+    if qnorm is None:
+        qnorm = query_norm(idf_w)
 
     block = index.block
     m = _fanout(index, cap)
@@ -393,7 +395,7 @@ def fused_batched_topk(index: BlockedIndex | PackedCsrIndex,
                        max_pairs: int | None = None, tile: int = TILE,
                        k_tile: int | None = None, q_pad: int = Q_PAD,
                        reducer: str = "successive",
-                       pairs_per_step: int = 1):
+                       pairs_per_step: int = 1, qnorm: Tensor | None = None):
     """The candidate path: per-tile partial top-k inside the fused
     kernel, so the dense [B, num_docs] score array never exists.
 
@@ -404,7 +406,7 @@ def fused_batched_topk(index: BlockedIndex | PackedCsrIndex,
     kernel, _, args, kwargs, overflow = fused_topk_args(
         index, term_ids, idf_w, cap, k, rank_blend=rank_blend,
         max_pairs=max_pairs, tile=tile, k_tile=k_tile, q_pad=q_pad,
-        pairs_per_step=pairs_per_step)
+        pairs_per_step=pairs_per_step, qnorm=qnorm)
     vals, ids = kernel(*args, **kwargs, reducer=reducer)
     b = term_ids.shape[0]
     return vals[:b], ids[:b], overflow
@@ -426,10 +428,14 @@ def _global_ids(ids: Tensor, doc_base: int) -> Tensor:
 
 
 def _tile_candidates(index, scores: Tensor, idf_w: Tensor, doc_base: int,
-                     k_tile: int, rank_blend: float, tile: int):
-    """Scoring tail + per-tile candidates of dense accumulated scores."""
-    final = final_scores(scores, index.docs.norm, index.docs.rank,
-                         query_norm(idf_w), rank_blend)
+                     k_tile: int, rank_blend: float, tile: int,
+                     qnorm: Tensor | None):
+    """Scoring tail + per-tile candidates of dense accumulated scores;
+    ``qnorm`` is ``query_norm(idf_w)``, computed when None."""
+    if qnorm is None:
+        qnorm = query_norm(idf_w)
+    final = final_scores(scores, index.docs.norm, index.docs.rank, qnorm,
+                         rank_blend)
     vals, ids = extract_tile_candidates(final, tile, k_tile)
     return vals, _global_ids(ids, doc_base)
 
@@ -439,16 +445,18 @@ def fused_segment_topk(index: BlockedIndex | PackedCsrIndex,
                        k_tile: int, cap: int, max_pairs: int,
                        rank_blend: float = 0.0, tile: int = TILE,
                        q_pad: int = Q_PAD, reducer: str = "successive",
-                       pairs_per_step: int = 1):
+                       pairs_per_step: int = 1, qnorm: Tensor | None = None):
     """Candidate engine over one HOR or packed segment: the candidate
     kernel with in-kernel per-tile top-k (tombstones ride in as norm 0).
     query_hashes i32[B, T] dedup'd hash bit-views, idf_w f32[B, T]
-    global weights.  Returns (vals, global ids, overflow)."""
+    global weights, qnorm f32[B] their norms (computed when None: the
+    live index passes the batch's once for every segment).  Returns
+    (vals, global ids, overflow)."""
     vals, ids, overflow = fused_batched_topk(
         index, _segment_terms(index, query_hashes), idf_w, cap, k=k_tile,
         rank_blend=rank_blend, max_pairs=max_pairs, tile=tile,
         k_tile=k_tile, q_pad=q_pad, reducer=reducer,
-        pairs_per_step=pairs_per_step)
+        pairs_per_step=pairs_per_step, qnorm=qnorm)
     return vals, _global_ids(ids, doc_base), overflow
 
 
@@ -456,14 +464,16 @@ def fused_segment_dense_topk(index: BlockedIndex | PackedCsrIndex,
                              query_hashes: Tensor, idf_w: Tensor,
                              doc_base: int, *, k_tile: int, cap: int,
                              max_pairs: int, rank_blend: float = 0.0,
-                             tile: int = TILE, q_pad: int = Q_PAD):
+                             tile: int = TILE, q_pad: int = Q_PAD,
+                             qnorm: Tensor | None = None):
     """Dense engine over one segment: the dense kernel's score rows,
-    then the scoring tail and the per-tile candidate reduction."""
+    then the scoring tail and the per-tile candidate reduction (qnorm as
+    ``fused_segment_topk``)."""
     scores, overflow = fused_batched_scores(
         index, _segment_terms(index, query_hashes), idf_w, cap,
         max_pairs=max_pairs, tile=tile, q_pad=q_pad)
     vals, gids = _tile_candidates(index, scores, idf_w, doc_base, k_tile,
-                                  rank_blend, tile)
+                                  rank_blend, tile, qnorm)
     return vals, gids, overflow
 
 
@@ -480,13 +490,14 @@ def fused_segment_banded_topk(index: BandedCsrIndex, query_hashes: Tensor,
                               cap_packed: int, cap_hor: int,
                               max_pairs_packed: int, max_pairs_hor: int,
                               rank_blend: float = 0.0, tile: int = TILE,
-                              q_pad: int = Q_PAD):
+                              q_pad: int = Q_PAD,
+                              qnorm: Tensor | None = None):
     """Engine over one banded segment: one dense launch per band (packed
     band, then HOR tail), the partials summed as ``acc_p + acc_h`` — the
     reference's order, so the sum is bit-equal to it — then the scoring
     tail and the per-tile candidates.  A term lives in one band, so a
     doc whose terms all sit in one band gets an exact 0.0 from the
-    other."""
+    other.  qnorm as ``fused_segment_topk``."""
     tids = _segment_terms(index.packed, query_hashes)
     acc_p, ov_p = fused_batched_scores(
         index.packed, tids, idf_w, cap_packed, max_pairs=max_pairs_packed,
@@ -495,22 +506,24 @@ def fused_segment_banded_topk(index: BandedCsrIndex, query_hashes: Tensor,
         index.hor, tids, idf_w, cap_hor, max_pairs=max_pairs_hor,
         tile=tile, q_pad=q_pad)
     vals, gids = _tile_candidates(index, acc_p + acc_h, idf_w, doc_base,
-                                  k_tile, rank_blend, tile)
+                                  k_tile, rank_blend, tile, qnorm)
     return vals, gids, ov_p + ov_h
 
 
 def torch_segment_topk(index, query_hashes: Tensor, idf_w: Tensor,
                        doc_base: int, *, k_tile: int, cap: int,
-                       rank_blend: float = 0.0, tile: int = TILE):
+                       rank_blend: float = 0.0, tile: int = TILE,
+                       qnorm: Tensor | None = None):
     """Gather oracle over one segment (``jnp_segment_topk``'s
     counterpart): gather + slot-major scatter-add, reduced to the same
-    per-tile candidate lists as the fused engines."""
+    per-tile candidate lists as the fused engines (qnorm as
+    ``fused_segment_topk``)."""
     tids = _segment_terms(index, query_hashes)
     d, tf, valid = index.gather_postings(tids, cap)
     scores = accumulate_scores(d, tf * idf_w[..., None], valid,
                                index.docs.num_docs)
     vals, gids = _tile_candidates(index, scores, idf_w, doc_base, k_tile,
-                                  rank_blend, tile)
+                                  rank_blend, tile, qnorm)
     return vals, gids, 0
 
 

@@ -298,33 +298,183 @@ def test_dense_kernel_no_real_pairs_at_1m_docs(gpu, host, layout):
     assert not bool(got.view(torch.int32).any())
 
 
-def test_dense_kernel_is_one_device_launch(gpu, host):
-    """A dense call is one kernel on the card and nothing else: no
-    ``tile_starts``, copy or fill before it.  One profiler trace of an
-    HOR call then a packed call shows exactly their two kernels."""
+def _device_kernels(calls):
+    """The device kernels, in order, of one profiler trace of
+    ``kernel(*args, **kw)`` over ``calls``.  The trace opens on a spin
+    kernel of torch's (left out of the list), so that the first call's
+    kernel is not the trace's first activity."""
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(10_000)
+        for kernel, args, kw in calls:
+            kernel(*args, **kw)
+        torch.cuda.synchronize()
+    return [e.name for e in sorted(
+        (e for e in prof.events()
+         if e.device_type == torch.autograd.DeviceType.CUDA
+         and "spin_kernel" not in e.name),
+        key=lambda e: e.time_range.start)]
+
+
+def _layout_calls(host, gpu, make_args):
+    """One HOR call then one packed call of the kernel ``make_args``
+    routes to, each run once first (built and loaded)."""
     calls = []
     for layout in ("hor", "packed"):
         ix = BUILDERS[layout](host, device=gpu)
         qh = corpus.sample_query_terms(host.df, host.term_hashes, 8, 3,
                                        num_docs=host.num_docs, seed=4)
         tids, idf_t = query.lookup_query(ix, layouts.hash_tensor(qh, gpu))
-        kernel, _, args, kw, _ = ops.fused_score_args(
-            ix, tids, idf_t, host.max_posting_len)
-        kernel(*args, **kw)                              # built and loaded
+        kernel, _, args, kw, _ = make_args(ix, tids, idf_t,
+                                           host.max_posting_len)
+        kernel(*args, **kw)
         calls.append((kernel, args, kw))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for kernel, args, kw in calls:
-            kernel(*args, **kw)
-        torch.cuda.synchronize()
-    names = [e.name for e in sorted(
-        (e for e in prof.events()
-         if e.device_type == torch.autograd.DeviceType.CUDA),
-        key=lambda e: e.time_range.start)]
+    return calls
+
+
+def test_dense_kernel_is_one_device_launch(gpu, host):
+    """A dense call is one kernel on the card and nothing else: no
+    run-start search, copy or fill before it.  One profiler trace of an
+    HOR call then a packed call shows exactly their two kernels."""
+    names = _device_kernels(_layout_calls(host, gpu, ops.fused_score_args))
     assert len(names) == 2, names
-    assert "score_kernel<fused_score::HorBlocks" in names[0], names
-    assert "score_kernel<fused_score::PackedBlocks" in names[1], names
+    assert "score_kernel<fused_score::DenseOut, fused_score::HorBlocks" \
+        in names[0], names
+    assert "score_kernel<fused_score::DenseOut, fused_score::PackedBlocks" \
+        in names[1], names
+
+
+def test_topk_kernel_is_one_device_launch(gpu, host):
+    """A candidate call is one kernel on the card, the dense kernels'
+    walk with the candidate epilogue: no ``searchsorted``, ``arange``,
+    copy or fill before it.  One profiler trace of an HOR call then a
+    packed call shows exactly their two kernels."""
+    names = _device_kernels(_layout_calls(
+        host, gpu, lambda ix, tids, idf_t, cap: ops.fused_topk_args(
+            ix, tids, idf_t, cap, 10)))
+    assert len(names) == 2, names
+    assert "score_kernel<fused_score::TopkOut, fused_score::HorBlocks" \
+        in names[0], names
+    assert "score_kernel<fused_score::TopkOut, fused_score::PackedBlocks" \
+        in names[1], names
+
+
+def _assert_topk_equals_plain(kernel, plain, args, kw):
+    before = kernel.launches
+    gv, gi = kernel(*args, **kw)
+    wv, wi = plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert torch.equal(gi, wi)
+    assert torch.equal(gv.view(torch.int32), wv.view(torch.int32))
+    return gv, gi
+
+
+@pytest.mark.parametrize("layout", ["hor", "packed"])
+@pytest.mark.parametrize("queries", [8, 16])
+@pytest.mark.parametrize("num_docs", [3001, 4096])
+def test_topk_kernel_long_runs(gpu, layout, queries, num_docs):
+    """The candidate epilogue bit-equal to the plain version where every
+    tile's run spans several pipeline chunks (runs of 100+ pairs), at
+    Q = 8 and 16 (sums in registers, norm and rank staged), with a clipped
+    last tile and a rank blend; a mid-block cap too."""
+    h = _dense_terms_host(num_docs, 40, num_docs + queries)
+    ix = BUILDERS[layout](h, device=gpu)
+    rng = np.random.default_rng(queries)
+    qh = np.stack([rng.choice(h.term_hashes, 4, replace=False)
+                   for _ in range(queries)]).astype(np.uint32)
+    tids, idf_t = query.lookup_query(ix, layouts.hash_tensor(qh, gpu))
+    for cap in (h.max_posting_len, 300):
+        kernel, plain, args, kw, _ = ops.fused_topk_args(
+            ix, tids, idf_t, cap, 10, rank_blend=0.3)
+        pt = args[3].cpu().numpy()
+        runs = np.bincount(pt[pt < -(-num_docs // fds.TILE)])
+        assert runs.max() > 32 and args[4].shape[1] == queries
+        gv, gi = _assert_topk_equals_plain(kernel, plain, args, kw)
+        assert bool(gv.isfinite().any())
+
+
+@pytest.mark.parametrize("layout", ["hor", "packed"])
+@pytest.mark.parametrize("queries", [8, 16, 24])
+@pytest.mark.parametrize("tile", [256, 512, 1024])
+@pytest.mark.parametrize("k_tile", [1, 16, "tile"])
+def test_topk_kernel_q_tiles_and_k_tile(gpu, layout, queries, tile, k_tile):
+    """Bit-equal to the plain version at every kernel the launcher picks
+    (Q = 8 and 16 at tiles up to 512, the generic one at Q = 24 and
+    1,024-doc tiles, idle threads at 256) and at k_tile 1, 16 and the
+    whole tile, where every lane is emitted and the rows run out of
+    finite scores: (-inf, -1) fills them, as in successive maxima."""
+    k_tile = tile if k_tile == "tile" else k_tile
+    h = _dense_terms_host(3001, 40, queries + tile)
+    ix = BUILDERS[layout](h, device=gpu)
+    norm = ix.docs.norm.clone()
+    norm[::5] = 0.0
+    ix = dataclasses.replace(ix, docs=DocTable(norm=norm, rank=ix.docs.rank))
+    rng = np.random.default_rng(tile + k_tile)
+    qh = np.stack([rng.choice(h.term_hashes, 4, replace=False)
+                   for _ in range(queries)]).astype(np.uint32)
+    tids, idf_t = query.lookup_query(ix, layouts.hash_tensor(qh, gpu))
+    kernel, plain, args, kw, _ = ops.fused_topk_args(
+        ix, tids, idf_t, h.max_posting_len, k_tile, tile=tile, k_tile=k_tile)
+    assert args[4].shape[1] == queries and kw["tile"] == tile
+    assert args[-1] == k_tile
+    gv, gi = _assert_topk_equals_plain(kernel, plain, args, kw)
+    assert bool(gv.isfinite().any())
+    if k_tile == tile:
+        assert not bool(gv.isfinite().all()) and bool((gi == -1).any())
+
+
+@pytest.mark.parametrize("layout", ["hor", "packed"])
+def test_topk_kernel_visited_tile_all_deleted(gpu, layout):
+    """A visited tile whose every doc is deleted (norm 0) gives (-inf, -1)
+    in every slot, as an unvisited one does, beside live tiles."""
+    h = _dense_terms_host(3001, 40, 5)
+    ix = BUILDERS[layout](h, device=gpu)
+    norm = ix.docs.norm.clone()
+    norm[fds.TILE:2 * fds.TILE] = 0.0
+    ix = dataclasses.replace(ix, docs=DocTable(norm=norm, rank=ix.docs.rank))
+    qh = h.term_hashes[:24].reshape(8, 3)
+    tids, idf_t = query.lookup_query(ix, layouts.hash_tensor(qh, gpu))
+    kernel, plain, args, kw, _ = ops.fused_topk_args(
+        ix, tids, idf_t, h.max_posting_len, 10)
+    k_tile = args[-1]
+    assert bool((args[3] == 1).any())           # tile 1 is visited
+    gv, gi = _assert_topk_equals_plain(kernel, plain, args, kw)
+    dead = slice(k_tile, 2 * k_tile)
+    assert bool((gv[:, dead] == float("-inf")).all())
+    assert bool((gi[:, dead] == -1).all())
+    assert bool(gv[:, :k_tile].isfinite().all())
+
+
+@pytest.mark.parametrize("layout", ["hor", "packed"])
+def test_topk_kernel_no_real_pairs_at_1m_docs(gpu, host, layout):
+    """Zero real pairs (every pair padding) at 1,048,576 docs: (-inf, -1)
+    in every slot, as the plain version gives, in one launch."""
+    ix = BUILDERS[layout](host, device=gpu)
+    num_docs = 1 << 20
+    n_tiles = num_docs // fds.TILE
+    n, q, k_tile = 4096, 8, 16
+    i32 = dict(dtype=torch.int32, device=gpu)
+    pb = torch.zeros(n, **i32)
+    pt = torch.full((n,), n_tiles, **i32)
+    qw = torch.ones(n, q, device=gpu)
+    cap = torch.full((n,), 128, **i32)
+    norm = torch.ones(num_docs, device=gpu)
+    rank = torch.zeros(num_docs, device=gpu)
+    qnorm = torch.ones(q, device=gpu)
+    if layout == "hor":
+        args = (ix.block_docs, ix.block_tfs, pb, pt, qw, cap, norm, rank,
+                qnorm, num_docs, k_tile)
+        kernel, plain = fds.fused_topk_blocked, fds.fused_topk_blocked_plain
+    else:
+        zeros = torch.zeros(n, **i32)
+        args = (ix.packed, ix.block_tfs, pb, pt, qw, cap, zeros, zeros,
+                zeros, norm, rank, qnorm, num_docs, ix.block, k_tile)
+        kernel, plain = fds.fused_topk_packed, fds.fused_topk_packed_plain
+    gv, gi = _assert_topk_equals_plain(kernel, plain, args, {})
+    assert gv.shape == (q, n_tiles * k_tile)
+    assert bool((gv == float("-inf")).all()) and bool((gi == -1).all())
 
 
 def _live_schedule(tc, device):
@@ -467,8 +617,8 @@ def test_posting_score_kernel_edge_runs(gpu, case):
 def test_posting_score_is_one_device_launch(gpu):
     """A call of the scorer is one kernel on the card and nothing else
     (no run search, copy or fill of its own), counted by the
-    profiler."""
-    from torch.profiler import ProfilerActivity, profile
+    profiler (a trace that opens on a spin kernel: see
+    ``_device_kernels``)."""
     docs, tfs, rng = _synthetic_blocks(gpu, 64, 128, 20_000, 0)
     n_tiles = -(-20_000 // ps.TILE)
     pt = torch.from_numpy(np.sort(rng.integers(0, n_tiles + 1, 500))
@@ -476,12 +626,8 @@ def test_posting_score_is_one_device_launch(gpu):
     pb = torch.from_numpy(rng.integers(0, 64, 500).astype(np.int32)).to(gpu)
     pw = torch.ones(500, device=gpu)
     ps.posting_score(docs, tfs, pb, pt, pw, 20_000)      # built and loaded
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        ps.posting_score(docs, tfs, pb, pt, pw, 20_000)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = _device_kernels([(ps.posting_score,
+                              (docs, tfs, pb, pt, pw, 20_000), {})])
     assert len(names) == 1 and "posting_score_kernel" in names[0], names
 
 

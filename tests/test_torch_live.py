@@ -5,11 +5,13 @@ rewrite), the delta scorers and ``add_documents``.
 The port's index runs on the CPU (plain kernel versions) beside the
 reference's on the same schedule.  State (norms, df, ranks, stats,
 segment layouts, size classes, band cuts, every segment's arrays, the
-exported live corpus) must be EQUAL; ranked ids equal the reference's
-gather oracle, with scores within rtol 1e-5: the port's idf and query
-norm equal the reference's ``_query_weights`` to the bit
-(``test_query_weights_and_host_helpers_match_reference``), but scores
-still differ by up to 2 ulp in places the port has not traced yet.
+exported live corpus) must be EQUAL.  Answers are held engine to
+counterpart, ids and score bits: the fused engine in each mode to the
+reference's Pallas engine in that mode, the gather oracle to its jnp
+oracle, the AND filter to its AND filter.  The reference's own two
+engines are up to 2 ulp apart (its Pallas kernels add each ``qw * tf``
+as one fused multiply-add, its oracle rounds the product first), so
+they are paired, never crossed; all of them rank the oracle's ids.
 """
 import dataclasses
 
@@ -100,23 +102,33 @@ def _assert_same_state(ref, port):
         np.testing.assert_array_equal(a, b)
 
 
+def _bits(scores):
+    """f32 scores (a tensor or a jax array) as their int32 bit patterns."""
+    return _np(scores).astype(np.float32).view(np.int32)
+
+
 def _assert_same_answers(ref, port, qh, modes=("candidates", "dense")):
-    want = ref.topk(qh, k=K, engine="jnp")
-    ids = np.asarray(want.doc_ids)
-    for kw in [dict(mode=m) for m in modes] + [dict(engine="torch")]:
+    """Each port engine against its reference counterpart, ids and score
+    bits: the fused engine in each mode against the reference's Pallas
+    engine in that mode (interpret mode), the gather oracle against the
+    reference's jnp oracle.  Every engine ranks the oracle's ids."""
+    oracle = ref.topk(qh, k=K, engine="jnp")
+    ids = np.asarray(oracle.doc_ids)
+    pairs = [(dict(mode=m), ref.topk(qh, k=K, mode=m)) for m in modes]
+    pairs.append((dict(engine="torch"), oracle))
+    for kw, want in pairs:
         got, stats = port.topk(qh, k=K, return_stats=True, **kw)
         assert stats["pair_overflow"] == 0
         np.testing.assert_array_equal(got.doc_ids.numpy(), ids, str(kw))
-        np.testing.assert_allclose(got.scores.numpy(),
-                                   np.asarray(want.scores), rtol=1e-5,
-                                   atol=1e-7)
+        np.testing.assert_array_equal(np.asarray(want.doc_ids), ids, str(kw))
+        np.testing.assert_array_equal(_bits(got.scores), _bits(want.scores),
+                                      str(kw))
     for q in qh[:2]:
         (rw, rs), (pw, ps) = (ref.conjunctive(q, K, cap=40),
                               port.conjunctive(q, K, cap=40))
         np.testing.assert_array_equal(pw.doc_ids.numpy(),
                                       np.asarray(rw.doc_ids))
-        np.testing.assert_allclose(pw.scores.numpy(), np.asarray(rw.scores),
-                                   rtol=1e-5, atol=1e-7)
+        np.testing.assert_array_equal(_bits(pw.scores), _bits(rw.scores))
         assert ps == rs
 
 
@@ -171,7 +183,8 @@ def test_randomized_schedule_equals_reference_every_step():
 def test_fused_engine_equals_reference_pallas_engine():
     """On one mixed stack (banded, HOR and packed segments, tombstones, a
     live delta), the port's fused engine in both modes returns the
-    reference's Pallas engine's ids, run in interpret mode."""
+    reference's Pallas engine's ids and score bits, run in interpret
+    mode, and the gather oracle the jnp oracle's."""
     tc = rcorpus.generate(rcorpus.CorpusSpec(num_docs=300, vocab=250,
                                              avg_distinct=15, seed=3))
     ref, port = _pair(tc, min_run=100, delta_doc_capacity=128,
@@ -195,9 +208,12 @@ def test_fused_engine_equals_reference_pallas_engine():
         got = port.topk(qh, k=K, mode=mode)
         np.testing.assert_array_equal(got.doc_ids.numpy(),
                                       np.asarray(want.doc_ids))
-        np.testing.assert_allclose(got.scores.numpy(),
-                                   np.asarray(want.scores), rtol=1e-5,
-                                   atol=1e-7)
+        np.testing.assert_array_equal(_bits(got.scores), _bits(want.scores))
+    oracle = ref.topk(qh, k=K, engine="jnp")
+    got = port.topk(qh, k=K, engine="torch")
+    np.testing.assert_array_equal(got.doc_ids.numpy(),
+                                  np.asarray(oracle.doc_ids))
+    np.testing.assert_array_equal(_bits(got.scores), _bits(oracle.scores))
     # make_scorer hands a SegmentedIndex to its multi-segment path
     got = tquery.make_scorer(port, k=K, cap=None, engine="fused",
                              mode="dense")(qh)
@@ -211,6 +227,38 @@ def test_fused_engine_equals_reference_pallas_engine():
         port.topk(qh, k=K, engine="pallas")
     with pytest.raises(ValueError):
         port.topk(qh, k=K, mode="sparse")
+
+
+def test_query_norm_once_per_live_batch(monkeypatch):
+    """``LiveView.topk`` computes the batch's query norms once
+    (``prepare``) and hands them to every segment's engine, in both modes
+    and in the oracle: no segment engine computes a norm of its own."""
+    from repro_torch.kernels import ops as tops
+    tc = rcorpus.generate(rcorpus.CorpusSpec(num_docs=300, vocab=250,
+                                             avg_distinct=15, seed=4))
+    _, port = _pair(tc, min_run=100, delta_doc_capacity=128,
+                    delta_posting_capacity=4096, seal_layout="banded")
+    for b, layout in zip(_slices(tc, [0, 120, 200, 260, 300], tbuild),
+                         ("banded", "hor", "packed", None)):
+        port.add_batch(b)
+        if layout is not None:
+            port.seal(layout=layout)
+    qh = rcorpus.sample_query_terms(rbuild.bulk_build(tc).df, tc.term_hashes,
+                                    5, 3, num_docs=tc.num_docs, seed=1)
+    before = [port.topk(qh, k=K, **kw) for kw in (
+        dict(mode="candidates"), dict(mode="dense"), dict(engine="torch"))]
+    norms = []
+
+    def counted(w):
+        norms.append(w.shape)
+        return tquery.query_norm(w)
+    monkeypatch.setattr(tops, "query_norm", counted)
+    for kw, want in zip((dict(mode="candidates"), dict(mode="dense"),
+                         dict(engine="torch")), before):
+        got = port.topk(qh, k=K, **kw)
+        assert torch.equal(got.doc_ids, want.doc_ids)
+        assert torch.equal(got.scores, want.scores)
+    assert norms == []
 
 
 def _delta_inputs(seed):

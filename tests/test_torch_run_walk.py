@@ -1,16 +1,17 @@
-"""CPU mirrors of the dense fused scorers' device-side walk
-(``csrc/run_walk.cuh`` and ``csrc/fused_score.cuh``), which no CPU can
-run: each CTA's run search against ``tile_starts``, and the chunked
+"""CPU mirrors of the fused scorers' device-side walk (``csrc/run_walk.cuh``
+and ``csrc/fused_score.cuh``, shared by the dense and the candidate
+kernels), which no CPU can run: each CTA's run search against the run
+starts a ``searchsorted`` of the pair tiles gives, the chunked
 ``cp.async`` pipeline's schedule, which must hand every pair of a run to
 the accumulate once, in order, from buffers no later copy has
-overwritten.
+overwritten, and the candidate kernels' per-row reduction against the
+plain version's successive maxima.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import fused_decode_score as tfds  # noqa: E402
 
 # fused_score.cuh's pipeline constants
 CHUNK, META_BUFS, RING_BUFS = 16, 3, 2
@@ -67,13 +68,13 @@ def _sorted_tiles(rng, case, n_tiles):
                                   "no_pairs", "long_runs"])
 def test_dense_run_search_equals_tile_starts(case):
     """Every CTA's run [p0, p1), found by the two warp searches on the
-    card, is ``tile_starts``' [start[t], start[t + 1]): for random sorted
+    card, is [start[t], start[t + 1]) of ``searchsorted``: for random sorted
     pair tiles, unvisited tiles, pairs that are all padding, no pairs,
     and runs longer than 32 * 32 pairs."""
     rng = np.random.default_rng(len(case))
     n_tiles = 64
     pair_tile = _sorted_tiles(rng, case, n_tiles)
-    want = tfds.tile_starts(torch.from_numpy(pair_tile), n_tiles).numpy()
+    want = np.searchsorted(pair_tile, np.arange(n_tiles + 1))
     for t in range(n_tiles):
         p0, p1, loads = _find_run(pair_tile, t)
         assert (p0, p1) == (want[t], want[t + 1])
@@ -191,3 +192,211 @@ def test_copy_rows_copies_every_unit_once(n, bytes_, wide):
     got = _copy_rows_units(512, n, bytes_, wide)
     want = [(j, off) for j in range(n) for off in range(0, bytes_, unit)]
     assert sorted(got) == want
+
+
+def _order_key(v):
+    """``fused_score::order_key``: f32 -> u32 whose order is the floats'."""
+    u = np.asarray(v, np.float32).view(np.uint32)
+    return np.where(u >> 31, ~u, u | np.uint32(1 << 31)).astype(np.uint32)
+
+
+def _key_value(k):
+    k = np.uint32(k)
+    u = k & np.uint32(0x7FFFFFFF) if k >> 31 else ~k
+    return np.array([u], np.uint32).view(np.float32)[0]
+
+
+def _lane_best(row, lo, hi):
+    """``TopkOut::lane_best``: 16 keys a step, a tree of compares where
+    the later position wins only on a larger key; (0, lo) if none."""
+    best, at = 0, lo
+    for p0 in range(lo, hi, 16):
+        k = [int(row[p]) if p < hi else 0 for p in range(p0, p0 + 16)]
+        idx = list(range(16))
+        w = 1
+        while w < 16:
+            for u in range(0, 16, 2 * w):
+                if k[u + w] > k[u]:
+                    k[u], idx[u] = k[u + w], idx[u + w]
+            w *= 2
+        if k[0] > best:
+            best, at = k[0], p0 + idx[0]
+    return best, at
+
+
+def _warp_sort(key, pos):
+    """``TopkOut::warp_sort<R, true>``: the bitonic network over 32 * R
+    elements, element e = 32 * r + lane; strides below 32 by
+    ``__shfl_xor_sync``, the stride of 32 within a lane.  Element e ends
+    as the e-th (key descending, pos ascending)."""
+    key, pos = list(key), list(pos)
+    n = len(key)
+    size = 2
+    while size <= n:
+        stride = size // 2
+        while stride:
+            new_k, new_p = key[:], pos[:]
+            for e in range(n):
+                f = e ^ stride
+                first = key[f] > key[e] or (key[f] == key[e]
+                                            and pos[f] < pos[e])
+                forward, lower = (e & size) == 0, e < f
+                if first == (lower == forward):
+                    new_k[e], new_p[e] = key[f], pos[f]
+            key, pos = new_k, new_p
+            stride //= 2
+        size *= 2
+    return key, pos
+
+
+def _select_few(row, bounds, k_tile, base, tile):
+    """``TopkOut::select_few``: T, the k_tile-th largest of the lanes'
+    largest finite keys (of their two largest when more than 64 keys pass
+    the first); the row's finite keys >= T gathered in lane order and
+    sorted by the warp, 32 or 64 at once; None where more than 64 still
+    pass."""
+    neg_inf = int(_order_key(-np.inf))
+    tops = []
+    for lo, hi in bounds:
+        ks = sorted((int(row[p]) for p in range(lo, hi)
+                     if row[p] > neg_inf), reverse=True) + [0, 0]
+        tops.append(ks[:2])
+
+    def passing(thr):
+        return [(int(row[p]), p) for lo, hi in bounds for p in range(lo, hi)
+                if neg_inf < row[p] and row[p] >= thr]
+    got = passing(sorted((t[0] for t in tops), reverse=True)[k_tile - 1])
+    if len(got) > 64:
+        got = passing(sorted((x for t in tops for x in t),
+                             reverse=True)[k_tile - 1])
+    if len(got) > 64:
+        return None
+    n = 32 if len(got) <= 32 else 64
+    key = [k for k, _ in got] + [0] * (n - len(got))
+    pos = [p for _, p in got] + [tile + e for e in range(len(got), n)]
+    key, pos = _warp_sort(key, pos)
+    vals = [_key_value(key[j]) if j < len(got) else np.float32(-np.inf)
+            for j in range(k_tile)]
+    ids = [base + pos[j] if np.isfinite(vals[j]) else -1
+           for j in range(k_tile)]
+    return np.array(vals, np.float32), np.array(ids, np.int32), f"sort{n}"
+
+
+def _warp_topk(final, k_tile, base, width=None):
+    """``TopkOut::finish``'s reduction of one row: lane l holds positions
+    [l * per, (l + 1) * per) of the first ``width`` (the docs below
+    num_docs; the rest of the row is -inf).  ``select_few`` where it applies; else each
+    step takes the warp's largest key (``__reduce_max_sync``) from the
+    lowest lane holding it (a ballot), which emits it, zeroes it and
+    rescans.  Returns (vals, ids, the path: "sort32", "sort64" or
+    "maxima")."""
+    tile = len(final)
+    width = tile if width is None else width     # docs below num_docs
+    row = _order_key(final).copy()
+    per = -(-width // 32)
+    bounds = [(min(l * per, width), min(min(l * per, width) + per, width))
+              for l in range(32)]
+    if k_tile <= 32 and per <= 16 and tile >= 128:
+        few = _select_few(row, bounds, k_tile, base, tile)
+        if few is not None:
+            return few
+    lanes = [_lane_best(row, lo, hi) for lo, hi in bounds]
+    vals, ids = [], []
+    for _ in range(k_tile):
+        m = max(b for b, _ in lanes)
+        w = min(l for l in range(32) if lanes[l][0] == m)
+        at = lanes[w][1]
+        v = _key_value(m) if m else np.float32(-np.inf)
+        vals.append(v)
+        ids.append(base + at if np.isfinite(v) else -1)
+        if m:
+            row[at] = 0
+            lanes[w] = _lane_best(row, *bounds[w])
+    return np.array(vals, np.float32), np.array(ids, np.int32), "maxima"
+
+
+@pytest.mark.parametrize("tile,k_tile", [(512, 16), (512, 1), (512, 32),
+                                         (512, 512), (256, 16), (1024, 32),
+                                         (128, 16), (100, 100), (97, 10)])
+def test_candidate_reduction_equals_successive_maxima(tile, k_tile):
+    """The candidate kernels' per-row reduction, mirrored: the order of
+    ``_tile_topk`` (value descending, lowest lane first, id -1 where not
+    finite) from both of its paths, over rows of distinct values (the
+    gather-and-sort path), a row of one value (successive maxima), rows
+    of few values with many ties, -inf lanes (deleted docs, zero sums),
+    a row with one finite value, a row whose large values crowd into a
+    quarter of the lanes, tiles that are not a multiple of 32 or 4, and
+    k_tile up to the whole tile."""
+    from repro_torch.kernels import fused_decode_score as tfds
+    rng = np.random.default_rng(tile + k_tile)
+    rows = rng.choice(np.float32([0.5, 0.25, 1.5, 3.0, 1e-30, 7e20]),
+                      (5, tile))
+    rows[0] = rng.random(tile).astype(np.float32)
+    rows[1] = 1.0                       # one tie over the whole row
+    rows[:3, rng.random(tile) < 0.3] = -np.inf
+    rows[2, :] = -np.inf
+    rows[2, tile // 2] = 2.0
+    rows[3] = rng.random(tile).astype(np.float32)
+    rows[4] = rng.random(tile).astype(np.float32)
+    rows[4, :tile // 4] += 1.0          # the largest in the first lanes
+    base = 7 * tile
+    want_v, want_i = tfds._tile_topk(torch.from_numpy(rows),
+                                     torch.full((5,), base, dtype=torch.int32),
+                                     k_tile, tile)
+    paths = set()
+    for r in range(5):
+        got_v, got_i, few = _warp_topk(rows[r], k_tile, base)
+        paths.add(few)
+        np.testing.assert_array_equal(got_i, want_i[r].numpy())
+        np.testing.assert_array_equal(got_v.view(np.int32),
+                                      want_v[r].numpy().view(np.int32))
+    if k_tile <= 32 and tile in (128, 256, 512):
+        assert "maxima" in paths and "sort32" in paths   # both paths ran
+
+
+def test_candidate_reduction_sorts_64_keys():
+    """Between 33 and 64 keys pass the threshold (half the lanes hold
+    three large keys each): the gathered keys take the 64-element sort,
+    in ``_tile_topk``'s order; in a tile clipped to 242 docs the lanes
+    share those docs; and where the finite keys sit in the first 242 of
+    512 positions (padding docs of norm 0), T from the lanes' two largest
+    keys lets 64 or fewer through."""
+    from repro_torch.kernels import fused_decode_score as tfds
+    tile, k_tile, base = 512, 16, 1024
+    rng = np.random.default_rng(3)
+    rows = rng.random((2, tile)).astype(np.float32)
+    for lane in range(16):
+        rows[0, lane * 16 + rng.choice(16, 3, replace=False)] = \
+            np.float32([300, 300.5, 300.25]) + lane
+    rows[1, 242:] = -np.inf                        # docs past num_docs
+    rows = np.concatenate([rows, rows[1:]])        # ... or padding docs
+    want_v, want_i = tfds._tile_topk(torch.from_numpy(rows),
+                                     torch.full((3,), base, dtype=torch.int32),
+                                     k_tile, tile)
+    for r, width in ((0, tile), (1, 242), (2, tile)):
+        got_v, got_i, got_path = _warp_topk(rows[r], k_tile, base, width)
+        assert got_path == ("sort64" if r == 0 else "sort32")
+        np.testing.assert_array_equal(got_i, want_i[r].numpy())
+        np.testing.assert_array_equal(got_v.view(np.int32),
+                                      want_v[r].numpy().view(np.int32))
+
+
+@pytest.mark.parametrize("width,k_tile", [(20, 40), (5, 16), (1, 1)])
+def test_candidate_reduction_in_a_short_tile(width, k_tile):
+    """A tile clipped to fewer docs than k_tile: the reduction walks only
+    the docs below num_docs, and the rest of the k_tile slots are
+    (-inf, -1), as successive maxima over the whole -inf-padded row give
+    them."""
+    from repro_torch.kernels import fused_decode_score as tfds
+    tile, base = 512, 4096
+    rng = np.random.default_rng(width)
+    row = np.full(tile, -np.inf, np.float32)
+    row[:width] = rng.choice(np.float32([0.5, 2.0, 3.0]), width)
+    row[: width // 3] = -np.inf                    # deleted docs
+    want_v, want_i = tfds._tile_topk(torch.from_numpy(row[None]),
+                                     torch.full((1,), base, dtype=torch.int32),
+                                     k_tile, tile)
+    got_v, got_i, _ = _warp_topk(row, k_tile, base, width)
+    np.testing.assert_array_equal(got_i, want_i[0].numpy())
+    np.testing.assert_array_equal(got_v.view(np.int32),
+                                  want_v[0].numpy().view(np.int32))

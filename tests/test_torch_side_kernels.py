@@ -26,7 +26,6 @@ from repro.kernels.packed_postings import unpack_blocks_pallas  # noqa: E402
 from repro.text import corpus as rcorpus  # noqa: E402
 from repro_torch.core import layouts as tlayouts  # noqa: E402
 from repro_torch.core import query as tquery  # noqa: E402
-from repro_torch.kernels import fused_decode_score as tfds  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import packed_postings as tpp  # noqa: E402
 from repro_torch.kernels import posting_score as tps  # noqa: E402
@@ -191,11 +190,11 @@ def _runs(rng, n_tiles, sizes):
                                   "straddle", "empty", "long"])
 def test_run_search_equals_tile_starts(case):
     """Each CTA's on-device run search (two warp searches, for t and
-    t + 1) gives ``tile_starts``' bounds for sorted pair tiles: unvisited
-    tiles, pairs that are all padding, one tile holding every pair, runs
-    of 31-33, 1,023-1,025 and 32 * 32 + 1 pairs that straddle the warp's
-    32 samples, no pairs at all, and 2^25 pairs within 5 dependent
-    loads."""
+    t + 1) gives the run starts ``searchsorted(pair_tile, t)`` for sorted
+    pair tiles: unvisited tiles, pairs that are all padding, one tile
+    holding every pair, runs of 31-33, 1,023-1,025 and 32 * 32 + 1 pairs
+    that straddle the warp's 32 samples, no pairs at all, and 2^25 pairs
+    within 5 dependent loads."""
     rng = np.random.default_rng(len(case))
     n_tiles = 40
     if case == "gaps":
@@ -215,7 +214,7 @@ def test_run_search_equals_tile_starts(case):
         n_tiles = 300
         sizes = rng.multinomial(2**25, np.ones(n_tiles + 1) / (n_tiles + 1))
     pair_tile = _runs(rng, n_tiles, sizes)
-    want = tfds.tile_starts(torch.from_numpy(pair_tile), n_tiles).numpy()
+    want = np.searchsorted(pair_tile, np.arange(n_tiles + 1))
     got, loads = zip(*(_warp_lower_bound(pair_tile, t)
                        for t in range(n_tiles + 1)))
     assert list(got) == want.tolist()
