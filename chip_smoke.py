@@ -101,11 +101,19 @@
    its plain version, beside its bound and the one PyTorch call that
    computes it (``F.embedding_bag``, ``F.scaled_dot_product_attention``;
    none for PNA), and prints each attention site's achieved TFLOP/s.
+   Each bag and PNA site also prints its gather floor
+   (``gather_floor_ms``: the 32-byte sectors every valid slot's row
+   touches, plus the ids and the output, at 3.35 TB/s), the least a
+   gather moves when no row comes from cache; the bound counts each
+   distinct row once.
 9. Last, after every event timing (a trace slows the launches timed
    after it): one ``torch.profiler`` trace of each live call site of
    the four fused kernels, of the last bulk batch's candidate call per
-   layout, of both side kernels and of the two weights kernels, printed
-   as device ms per launch beside the event ms.  Then per-phase wall
+   layout, of both side kernels, of the two weights kernels and of every
+   model site (``MODEL_TRACED`` calls after one warm-up), printed as
+   device ms per launch beside the event ms (for the bag and PNA sites
+   with the host's share of the event time).
+   Then per-phase wall
    times, a ``{"kernels": [...]}`` line with all nine kernels and the
    two weights kernels (means per launch over every counted call site
    of the paths; ``device_ms`` where every site was traced) and, last,
@@ -135,6 +143,7 @@ NUM_DOCS, VOCAB, AVG_DISTINCT = 1_004_721, 50_000, 40
 BATCH, TERMS, K = 8, 3, 10
 BATCHES = 5                   # query batches served per layout
 REPS = 5                      # timing rounds over all batches per turn
+MODEL_TRACED = 3              # traced calls per model site (step 9)
 KERNELS = {
     "fused_topk_blocked": ("hor", "src/repro/kernels/fused_decode_score.py:513"),
     "fused_topk_packed": ("packed",
@@ -306,24 +315,28 @@ SYMBOLS = {"posting_score": "posting_score_kernel",
            "fused_score_blocked":
                "score_kernel<fused_score::DenseOut, fused_score::HorBlocks",
            "fused_score_packed":
-               "score_kernel<fused_score::DenseOut, fused_score::PackedBlocks"}
+               "score_kernel<fused_score::DenseOut, fused_score::PackedBlocks",
+           "embedding_bag": "bag_kernel", "pna_multi_agg": "pna_kernel",
+           "flash_attention": "flash_"}
 
 
 def device_ms(runs):
     """Mean device time per launch of each kernel alone (no wrapper
-    work, no other kernel), for every ``key: (kernel, fn, calls)`` of
-    ``runs``, from ONE ``torch.profiler`` trace that runs ``fn(*c)`` over
-    ``calls`` for each key in turn: the trace's kernels named
-    ``SYMBOLS[kernel]``, in launch order, are the keys' launches in
-    order.  None for a key whose launches the trace does not show.  A
-    trace slows the launches timed after it, so this runs once, after
-    every event timing of the script."""
+    work, no other kernel), for every ``key: (kernel, fn, calls)`` or
+    ``key: (kernel, fn, calls, warm)`` of ``runs``, from ONE
+    ``torch.profiler`` trace that runs ``fn(*c)`` over ``calls`` for
+    each key in turn: the trace's kernels named ``SYMBOLS[kernel]``, in
+    launch order, are the keys' launches in order.  The first ``warm``
+    calls of a key (default 0) are traced but not counted.  None for a
+    key whose launches the trace does not show.  A trace slows the
+    launches timed after it, so this runs once, after every event timing
+    of the script."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda._sleep(10_000)     # a trace can miss its first kernel
-        for kernel, fn, calls in runs.values():
+        for _, fn, calls, *_ in runs.values():
             for c in calls:
                 fn(*c)
         torch.cuda.synchronize()
@@ -332,13 +345,15 @@ def device_ms(runs):
                     key=lambda e: e.time_range.start)
     queues = {k: [e.time_range.elapsed_us() for e in events
                   if SYMBOLS[k] in e.name]
-              for k in {kernel for kernel, _, _ in runs.values()}}
+              for k in {run[0] for run in runs.values()}}
     out = {}
-    for key, (kernel, _, calls) in runs.items():
+    for key, (kernel, _, calls, *warm) in runs.items():
         mine, queues[kernel] = (queues[kernel][:len(calls)],
                                 queues[kernel][len(calls):])
-        out[key] = (sum(mine) / len(mine) / 1e3
-                    if len(mine) == len(calls) and sum(mine) > 0 else None)
+        n = len(calls) - sum(warm)
+        mine = mine[len(mine) - n:] if len(mine) == len(calls) else []
+        out[key] = (sum(mine) / n / 1e3
+                    if mine and sum(mine) > 0 else None)
     return out
 
 
@@ -652,7 +667,9 @@ def main() -> int:
     print(f"phase paper: {phase_s['paper']:.1f} s")
 
     t_phase = time.perf_counter()
-    sites += model_phase(a.seed, dev, report)
+    model_sites, model_traces = model_phase(a.seed, dev, report)
+    sites += model_sites
+    traces.update(model_traces)
     phase_s["model"] = time.perf_counter() - t_phase
     print(f"phase model: {phase_s['model']:.1f} s")
 
@@ -662,11 +679,19 @@ def main() -> int:
     for site in sites:
         if site["site"] in dev_ms:
             site["device_ms"] = dev_ms[site["site"]]
+            host = ""
+            if site["kernel"] in ("embedding_bag", "pna_multi_agg") and \
+                    site["device_ms"] is not None:
+                # the share of the call's event time the device is not
+                # running the kernel: the host's, when calls run back to back
+                site["host_share"] = 1 - site["device_ms"] / site["kernel_ms"]
+                host = (f", host share {site['host_share']:.3f}, gather "
+                        f"floor {site['gather_floor_ms']:.4f} ms")
             print(f"device time: {site['site']}: {site['kernel_ms']:.4f} "
                   f"ms per call by events (wrapper included), device "
                   f"{site['device_ms']} ms, bound "
                   f"{max(site['t_bytes_ms'], site['t_ops_ms']):.4f} ms, "
-                  f"library {site.get('library_ms')} ms")
+                  f"library {site.get('library_ms')} ms{host}")
     report["device_ms_by_site"] = dev_ms
     del traces
     torch.cuda.empty_cache()
@@ -1480,11 +1505,37 @@ def live_pairs(s, window):
     return sum(min(i + 1, window) for i in range(s))
 
 
+SECTOR = 32                   # bytes: the unit device memory moves
+
+
+def row_sectors(ids, row_bytes, base=0):
+    """The 32-byte sectors that the row of each id touches in a table of
+    ``row_bytes``-byte rows starting ``base`` bytes past a sector
+    boundary; 0 for padding (a negative id)."""
+    import torch
+    start = ids.long() * row_bytes + base
+    n = (start + row_bytes - 1) // SECTOR - start // SECTOR + 1
+    return torch.where(ids >= 0, n, 0)
+
+
+def gather_floor_bytes(table, ids, out_bytes, chunk=1 << 24):
+    """Bytes a gather must move when no row is served from cache: the
+    sectors that every valid slot's row touches, the ids and the
+    output."""
+    row_bytes = table.shape[1] * table.element_size()
+    base = table.data_ptr() % SECTOR
+    flat = ids.reshape(-1)
+    sectors = sum(int(row_sectors(flat[i:i + chunk], row_bytes, base).sum())
+                  for i in range(0, flat.numel(), chunk))
+    return sectors * SECTOR + ids.numel() * 4 + out_bytes
+
+
 def model_work(kernel, args, kw):
     """(bytes, ops, extra) one call must move/do at least: every input
     read once and the output written once, counted from this call's
     data (distinct table and neighbour rows, valid slots, live
-    pairs)."""
+    pairs).  For the two gathers ``extra`` also holds the gather floor's
+    bytes (``gather_floor_bytes``)."""
     import torch
     if kernel == "embedding_bag":
         table, idx = args
@@ -1493,21 +1544,25 @@ def model_work(kernel, args, kw):
         valid = int(ok.sum())
         rows = int(torch.unique(idx[ok]).numel())
         d = table.shape[1]
-        nbytes = idx.numel() * 4 + rows * d * elt + idx.shape[0] * d * elt
-        return nbytes, valid * d, {"valid_slots": valid,
-                                   "distinct_rows": rows,
-                                   "gathered_row_bytes": valid * d * elt}
+        out_bytes = idx.shape[0] * d * elt
+        nbytes = idx.numel() * 4 + rows * d * elt + out_bytes
+        return nbytes, valid * d, {
+            "valid_slots": valid, "distinct_rows": rows,
+            "gathered_row_bytes": valid * d * elt,
+            "gather_floor_bytes": gather_floor_bytes(table, idx, out_bytes)}
     if kernel == "pna_multi_agg":
         feats, nbr = args
         d = feats.shape[1]
         ok = nbr >= 0
         valid = int(ok.sum())
         rows = int(torch.unique(nbr[ok]).numel())
-        nbytes = nbr.numel() * 4 + rows * d * 4 + nbr.shape[0] * 4 * d * 4
+        out_bytes = nbr.shape[0] * 4 * d * 4
+        nbytes = nbr.numel() * 4 + rows * d * 4 + out_bytes
         # per valid (neighbour, column): add, two for the fma, min, max
         return nbytes, valid * d * 5, {
             "valid_edges": valid, "distinct_rows": rows,
-            "gathered_row_bytes": valid * d * 4}
+            "gathered_row_bytes": valid * d * 4,
+            "gather_floor_bytes": gather_floor_bytes(feats, nbr, out_bytes)}
     q, k, v = args
     b, hq, s, d = q.shape
     live = live_pairs(s, kw["window"])
@@ -1517,8 +1572,8 @@ def model_work(kernel, args, kw):
 
 def model_phase(seed, dev, report):
     """The model kernels at the widths of the repository's model
-    configurations (step 8 of the module docstring); returns their
-    sites."""
+    configurations (step 8 of the module docstring); returns their sites
+    and, for step 9's trace, each site's call."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1568,7 +1623,7 @@ def model_phase(seed, dev, report):
             raise AssertionError(f"model path launched {name} "
                                  f"{launches[name]} times, not {want}")
 
-    sites = []
+    sites, traces = [], {}
     for (site, kern, args, kw), got, ms_e2e in zip(calls, outs, e2e_ms):
         want = plain[kern](*args, **kw)
         torch.cuda.synchronize()
@@ -1667,6 +1722,12 @@ def model_phase(seed, dev, report):
                     t_ops_ms=nops / peak * 1e3,
                     clocks_sm_mem_power_temp=clocks)
         info["bound_ms"] = max(info["t_bytes_ms"], info["t_ops_ms"])
+        if "gather_floor_bytes" in info:
+            info["gather_floor_ms"] = (info["gather_floor_bytes"]
+                                       / HBM_BYTES_PER_S * 1e3)
+            print(f"{site}: kernel {ms:.4f} ms, gather floor "
+                  f"{info['gather_floor_ms']:.4f} ms, bound "
+                  f"{info['bound_ms']:.4f} ms, library {lib_ms} ms")
         if kern == "flash_attention":
             info["tflops"] = nops / ms / 1e9
             print(f"{site}: {info['tflops']:.1f} TFLOP/s; kernel {ms:.4f} "
@@ -1674,12 +1735,16 @@ def model_phase(seed, dev, report):
                   f"ms ({info['dtype']})")
         print(f"model kernel site: {json.dumps(info)}")
         sites.append(info)
+        # the site's call, traced at the end for its device time: one
+        # warm-up, then MODEL_TRACED counted calls
+        traces[site] = (kern, functools.partial(entry[kern], **kw),
+                        [args] * (1 + MODEL_TRACED), 1)
     model["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
     print(f"model: {json.dumps(model)}")
     report["model"] = {**model, "kernel_sites": sites}
     del calls, outs
     torch.cuda.empty_cache()
-    return sites
+    return sites, traces
 
 
 def kernel_rows(sites):

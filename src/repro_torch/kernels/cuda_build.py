@@ -161,7 +161,9 @@ def tensors_ok(dev: int, specs) -> bool:
 
 def check_ids(name: str, arg: str, ids, rows: int) -> None:
     """Refuse an id past the ``rows`` rows it indexes (a negative id is
-    padding): kernel ``name`` reads row ``id`` without a bound."""
+    padding), reading ``ids.max()`` back: for host tensors only, since
+    the read synchronises; the gather kernels check their CUDA ids
+    themselves and trap on one past the table."""
     top = int(ids.max()) if ids.numel() else -1
     if top >= rows:
         raise ValueError(f"{name}: {arg} holds id {top}, past the {rows} "

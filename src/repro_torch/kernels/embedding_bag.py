@@ -9,7 +9,14 @@ rounding per slot).  A padding slot adds +0.0, so a bag of padding only
 sums to +0.0.
 
 * ``embedding_bag``'s CUDA C++ kernel (``csrc/embedding_bag.cu``), which
-  a CUDA tensor always goes to; there is no fallback;
+  a CUDA tensor always goes to; there is no fallback.  It refuses an id
+  past the table itself: the thread that reads one prints it and traps
+  before reading the row, so the launch fails and the next synchronising
+  call raises.  Nothing on the launch path synchronises with the device.
+  The refusal changed form, not reach: the launcher used to read
+  ``indices.max()`` back (a sync before every launch) and raise a
+  ``ValueError``; host tensors are still refused that way, by
+  ``check_ids``;
 * ``embedding_bag_plain``, its plain PyTorch version, the path for CPU
   tensors and the kernel's yardstick on the card.
 
@@ -24,7 +31,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.cuda_build import check_ids, check_tensors, launch
+from repro_torch.kernels.cuda_build import (check_ids, check_tensors, entry,
+                                            tensors_ok)
 
 Tensor = torch.Tensor
 
@@ -59,15 +67,17 @@ def embedding_bag_plain(table: Tensor, indices: Tensor) -> Tensor:
     return acc
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signature (csrc/embedding_bag.cu): table, indices, out, bags, hot, dim,
-# dtype code, stream
-_ARGTYPES = [_P, _P, _P, _I, _I, _I, _I, _P]
+# rows, dtype code, stream
+_ARGTYPES = [_P, _P, _P, _I, _I, _I, _L, _I, _P]
+# output elements the kernel indexes with 32-bit ints, less a CTA's reach
+OUT_LIMIT = 2**31 - 2**15
 
 
-def _launch_embedding_bag_cuda(table: Tensor, indices: Tensor) -> Tensor:
-    """Check both tensors and the ids' range, then launch the kernel."""
-    name = "embedding_bag"
+def _refuse(name: str, table: Tensor, indices: Tensor) -> None:
+    """Raise the error that names what the kernel would misread; a
+    host tensor's ids are checked against the table too."""
     if table.dtype not in DTYPES:
         raise ValueError(f"{name}: table is {table.dtype}, the kernel takes "
                          f"{sorted(map(str, DTYPES))}")
@@ -75,24 +85,46 @@ def _launch_embedding_bag_cuda(table: Tensor, indices: Tensor) -> Tensor:
         raise ValueError(f"{name}: table [V, D] and indices [B, H] needed, "
                          f"got {tuple(table.shape)} and "
                          f"{tuple(indices.shape)}")
-    bags, hot = indices.shape
-    check_ids(name, "indices", indices, table.shape[0])
+    if not indices.is_cuda:
+        check_ids(name, "indices", indices, table.shape[0])
     check_tensors(name, table=(table, table.dtype, tuple(table.shape)),
-                  indices=(indices, torch.int32, (bags, hot)))
-    out = torch.empty((bags, table.shape[1]), dtype=table.dtype,
-                      device=table.device)
+                  indices=(indices, torch.int32, tuple(indices.shape)))
+    raise ValueError(f"{name}: table and indices refused")
+
+
+def _launch_embedding_bag_cuda(table: Tensor, indices: Tensor) -> Tensor:
+    """Check both tensors in one pass, then launch the kernel, which
+    checks the ids' range itself (nothing here synchronises); on a
+    mismatch ``_refuse`` names the fault."""
+    name = "embedding_bag"
+    dev = table.get_device()
+    if not (table.dtype in DTYPES and table.dim() == 2
+            and indices.dim() == 2 and tensors_ok(dev, (
+                (table, table.dtype, table.shape),
+                (indices, torch.int32, indices.shape)))):
+        _refuse(name, table, indices)
+    (rows, dim), (bags, hot) = table.shape, indices.shape
+    if bags * dim >= OUT_LIMIT:
+        raise ValueError(f"{name}: a [{bags}, {dim}] output reaches "
+                         f"2^31 - 2^15 elements, past the kernel's 32-bit "
+                         f"indexing; split the batch")
+    out = torch.empty((bags, dim), dtype=table.dtype, device=table.device)
     if out.numel():
-        launch(name, _ARGTYPES, (table, indices, out, bags, hot,
-                                 table.shape[1], DTYPES[table.dtype]),
-               table.device)
+        err = entry(name, _ARGTYPES)(
+            table.data_ptr(), indices.data_ptr(), out.data_ptr(), bags, hot,
+            dim, rows, DTYPES[table.dtype],
+            torch._C._cuda_getCurrentRawStream(dev))
+        if err:
+            raise RuntimeError(f"{name}: CUDA launch failed (error {err})")
     return out
 
 
 def embedding_bag(table: Tensor, indices: Tensor) -> Tensor:
     """Bag sums (replaces ``embedding_bag_pallas``): table f32 or bf16
     [V, D], indices i32[B, H] (-1 = padding) -> [B, D] in the table's
-    dtype.  Any B.  CUDA tensors launch the kernel; CPU tensors take the
-    plain version."""
+    dtype.  On the card, B x D stays below ``OUT_LIMIT`` (a larger batch
+    is refused with a ``ValueError``).  CUDA tensors launch the kernel;
+    CPU tensors take the plain version."""
     if not table.is_cuda:
         return embedding_bag_plain(table, indices)
     out = _launch_embedding_bag_cuda(table, indices)

@@ -13,7 +13,14 @@ too), ``std = sqrt(var + EPS)`` correctly rounded (torch's CPU ``sqrt``
 is not always); a node with no valid neighbour gets 0 for min and max.
 
 * ``pna_multi_agg``'s CUDA C++ kernel (``csrc/pna_multi_agg.cu``), which
-  a CUDA tensor always goes to; there is no fallback;
+  a CUDA tensor always goes to; there is no fallback.  It refuses a
+  neighbour past the feature table itself: the lanes that read the list
+  print the id and trap before any of its rows is read, so the launch
+  fails and the next synchronising call raises.  Nothing on the launch
+  path synchronises with the device.  The refusal changed form, not
+  reach: the launcher used to read ``nbr.max()`` back (a sync before
+  every launch) and raise a ``ValueError``; host tensors are still
+  refused that way, by ``check_ids``;
 * ``pna_multi_agg_plain``, its plain PyTorch version, the path for CPU
   tensors and the kernel's yardstick on the card, run in node chunks
   whose ``[chunk, K, D]`` gather stays under ``CHUNK_BYTES``.
@@ -27,7 +34,8 @@ import ctypes
 import torch
 
 from repro_torch.core.query import fma_f32
-from repro_torch.kernels.cuda_build import check_ids, check_tensors, launch
+from repro_torch.kernels.cuda_build import (check_ids, check_tensors, entry,
+                                            tensors_ok)
 
 Tensor = torch.Tensor
 
@@ -74,27 +82,43 @@ def pna_multi_agg_plain(feats: Tensor, nbr: Tensor) -> Tensor:
                      [feats.new_zeros((0, 4 * feats.shape[1]))])
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signature (csrc/pna_multi_agg.cu): feats, nbr, out, nodes, k, dim,
-# stream
-_ARGTYPES = [_P, _P, _P, _I, _I, _I, _P]
+# rows, stream
+_ARGTYPES = [_P, _P, _P, _I, _I, _I, _L, _P]
 
 
-def _launch_pna_cuda(feats: Tensor, nbr: Tensor) -> Tensor:
-    """Check both tensors and the ids' range, then launch the kernel."""
-    name = "pna_multi_agg"
+def _refuse(name: str, feats: Tensor, nbr: Tensor) -> None:
+    """Raise the error that names what the kernel would misread; a
+    host tensor's neighbours are checked against the table too."""
     if feats.dim() != 2 or nbr.dim() != 2:
         raise ValueError(f"{name}: feats [Nsrc, D] and nbr [N, K] needed, "
                          f"got {tuple(feats.shape)} and {tuple(nbr.shape)}")
-    n, k = nbr.shape
-    check_ids(name, "nbr", nbr, feats.shape[0])
+    if not nbr.is_cuda:
+        check_ids(name, "nbr", nbr, feats.shape[0])
     check_tensors(name, feats=(feats, torch.float32, tuple(feats.shape)),
-                  nbr=(nbr, torch.int32, (n, k)))
-    d = feats.shape[1]
+                  nbr=(nbr, torch.int32, tuple(nbr.shape)))
+    raise ValueError(f"{name}: feats and nbr refused")
+
+
+def _launch_pna_cuda(feats: Tensor, nbr: Tensor) -> Tensor:
+    """Check both tensors in one pass, then launch the kernel, which
+    checks the neighbours' range itself (nothing here synchronises); on
+    a mismatch ``_refuse`` names the fault."""
+    name = "pna_multi_agg"
+    dev = feats.get_device()
+    if not (feats.dim() == 2 and nbr.dim() == 2 and tensors_ok(dev, (
+            (feats, torch.float32, feats.shape),
+            (nbr, torch.int32, nbr.shape)))):
+        _refuse(name, feats, nbr)
+    (rows, d), (n, k) = feats.shape, nbr.shape
     out = torch.empty((n, 4 * d), dtype=torch.float32, device=feats.device)
     if out.numel():
-        launch(name, _ARGTYPES, (feats, nbr, out, n, k, d),
-               feats.device)
+        err = entry(name, _ARGTYPES)(
+            feats.data_ptr(), nbr.data_ptr(), out.data_ptr(), n, k, d, rows,
+            torch._C._cuda_getCurrentRawStream(dev))
+        if err:
+            raise RuntimeError(f"{name}: CUDA launch failed (error {err})")
     return out
 
 

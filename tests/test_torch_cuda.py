@@ -6,6 +6,10 @@ no jax, so it runs on a machine that has only torch:
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
 import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -919,3 +923,168 @@ def test_model_entry_points_take_views(gpu, view):
         if view == "transposed" or wrapper is tfa.flash_attention:
             with pytest.raises(ValueError, match="contiguous|16-byte"):
                 wrapper(*views, **kw)
+
+
+# ---------------------------------------------------------------------------
+# the two gathers at their kernels' edges, one launch with no
+# synchronisation, ids past the table refused on the card
+# ---------------------------------------------------------------------------
+
+
+def _pna_case(gpu, case):
+    """(feats, nbr) for one edge of the PNA kernel: ogbn-like lists (d 75,
+    K 64, degrees 37-64, padding only at the tail); padding scattered
+    with some nodes of no valid neighbour; lists longer than the
+    kernel's 64-slot chunk; rows wider than one pass of columns."""
+    g = torch.Generator(device=gpu).manual_seed(len(case))
+    n, k, d, nsrc = {"ogbn": (3000, 64, 75, 40_000),
+                     "scattered": (2000, 15, 75, 5000),
+                     "long_lists": (300, 150, 75, 5000),
+                     "wide_rows": (500, 12, 300, 3000)}[case]
+    feats = torch.randn(nsrc, d, generator=g, device=gpu)
+    feats[torch.rand(nsrc, d, generator=g, device=gpu) < 0.1] = -0.0
+    nbr = torch.randint(0, nsrc, (n, k), generator=g, device=gpu,
+                        dtype=torch.int32)
+    if case == "ogbn":
+        deg = torch.randint(37, 65, (n, 1), generator=g, device=gpu)
+        nbr[torch.arange(k, device=gpu)[None, :] >= deg] = -1
+    else:
+        nbr[torch.rand(n, k, generator=g, device=gpu) < 0.3] = -1
+        nbr[::7] = -1
+    return feats, nbr
+
+
+@pytest.mark.parametrize("case", ["ogbn", "scattered", "long_lists",
+                                  "wide_rows"])
+def test_pna_kernel_edges(gpu, case):
+    """The PNA kernel gives the plain version's bits at each edge of its
+    design (padding anywhere, nodes of no neighbour, several 64-slot list
+    chunks, several blocks of 128 columns)."""
+    feats, nbr = _pna_case(gpu, case)
+    got = tpna._launch_pna_cuda(feats, nbr)
+    want = tpna.pna_multi_agg_plain(feats, nbr)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if case != "ogbn":
+        assert not got[::7, 75:225].view(torch.int32).any()
+
+
+def _bag_case(gpu, case):
+    """(table, indices) for one edge of the bag kernel: a one-hot batch
+    larger than one wave of the card, and one too small to fill it; bf16
+    tables at d 10 (4-byte vectors) and 64 (16-byte vectors); an odd bf16
+    width (2-byte vectors); f32 rows of 128 (32 vectors); 13 slots (a
+    partial group of eight); a table 4 bytes past an 8-byte boundary."""
+    g = torch.Generator(device=gpu).manual_seed(len(case))
+    v, d, b, h, dtype = {
+        "one_hot_waves": (1_000_000, 10, 600_000, 1, torch.float32),
+        "small_one_hot": (1_000_000, 10, 50_000, 1, torch.float32),
+        "bf16_d10": (5000, 10, 2000, 8, torch.bfloat16),
+        "bf16_d64": (3000, 64, 700, 5, torch.bfloat16),
+        "bf16_d7": (3000, 7, 700, 3, torch.bfloat16),
+        "f32_d128": (2000, 128, 500, 3, torch.float32),
+        "slots_13": (4000, 10, 900, 13, torch.float32),
+        "misaligned": (4000, 10, 900, 4, torch.float32)}[case]
+    scale = torch.tensor([1.0, 300.0, 1e-3], device=gpu)[
+        torch.randint(0, 3, (v, 1), generator=g, device=gpu)]
+    table = (torch.randn(v, d, generator=g, device=gpu) * scale).to(dtype)
+    if case == "misaligned":
+        buf = torch.empty(table.numel() + 1, device=gpu)
+        table = buf[1:].view(v, d).copy_(table)
+        assert table.data_ptr() % 8 == 4
+    idx = torch.randint(0, v, (b, h), generator=g, device=gpu,
+                        dtype=torch.int32)
+    if h > 1:
+        idx[torch.rand(b, h, generator=g, device=gpu) < 0.25] = -1
+    idx[::11] = -1
+    return table, idx
+
+
+@pytest.mark.parametrize("case", ["one_hot_waves", "small_one_hot",
+                                  "bf16_d10", "bf16_d64", "bf16_d7",
+                                  "f32_d128", "slots_13", "misaligned"])
+def test_embedding_bag_kernel_edges(gpu, case):
+    """The bag kernel gives the plain version's bits at each edge of its
+    design (4 items per thread, or 1 below 2**20 items; vectors of 16, 8,
+    4 and 2 bytes; groups of 8 slots); a bag of padding only sums to
+    +0.0."""
+    table, idx = _bag_case(gpu, case)
+    got = tbag._launch_embedding_bag_cuda(table, idx)
+    want = tbag.embedding_bag_plain(table, idx)
+    torch.cuda.synchronize()
+    assert got.dtype == table.dtype and got.shape == want.shape
+    assert torch.equal(got.float().view(torch.int32),
+                       want.float().view(torch.int32))
+    assert not got[::11].float().view(torch.int32).any()
+
+
+def test_gathers_are_one_launch_without_sync(gpu):
+    """Each call of the two gathers, through the entry point or the
+    wrapper, is one device kernel and nothing else (no reduction of the
+    ids), and nothing on its path synchronises with the device: the calls
+    run under ``set_sync_debug_mode("error")``, which raises at any
+    synchronising call of torch's."""
+    table, idx = _bag_case(gpu, "bf16_d10")
+    feats, nbr = _pna_case(gpu, "scattered")
+    calls = [(ops.embedding_bag, (table, idx), {}),
+             (tbag.embedding_bag, (table, idx), {}),
+             (ops.pna_multi_agg, (feats, nbr), {}),
+             (tpna.pna_multi_agg, (feats, nbr), {})]
+    for fn, args, kw in calls:                 # built and loaded
+        fn(*args, **kw)
+    torch.cuda.synchronize()
+    before = (tbag.embedding_bag.launches, tpna.pna_multi_agg.launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for fn, args, kw in calls:
+            fn(*args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert (tbag.embedding_bag.launches, tpna.pna_multi_agg.launches) == (
+        before[0] + 2, before[1] + 2)
+    names = _device_kernels(calls)
+    assert len(names) == 4, names
+    for name, want in zip(names, ("bag_kernel", "bag_kernel", "pna_kernel",
+                                  "pna_kernel")):
+        assert want in name, names
+
+
+_REFUSE = """
+import torch
+from repro_torch.kernels import ops
+dev = torch.device("cuda", 0)
+if {kernel!r} == "embedding_bag":
+    idx = torch.full((64, 3), -1, dtype=torch.int32, device=dev)
+    idx[:, 0] = 5
+    idx[17, 2] = {bad}
+    ops.embedding_bag(torch.ones(100, 10, device=dev), idx)
+else:
+    nbr = torch.full((300, 64), -1, dtype=torch.int32, device=dev)
+    nbr[:, :40] = 7
+    nbr[123, 41] = {bad}
+    ops.pna_multi_agg(torch.ones(100, 75, device=dev), nbr)
+torch.cuda.synchronize()
+print("no error")
+"""
+
+
+@pytest.mark.parametrize("kernel", ["embedding_bag", "pna_multi_agg"])
+def test_gather_refuses_id_past_table(gpu, kernel):
+    """An id past the table is refused on the card: the kernel prints
+    the id and traps, so the launch fails and the next synchronising
+    call raises.  A trap ends the process's CUDA context, so the call
+    runs in a child process, which must exit non-zero with the id in its
+    output."""
+    src = Path(__file__).resolve().parents[1] / "src"
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(src)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                      if p])
+    bad = 100_007
+    run = subprocess.run(
+        [sys.executable, "-c", _REFUSE.format(kernel=kernel, bad=bad)],
+        capture_output=True, text=True, env=env, timeout=600)
+    said = run.stdout + run.stderr
+    assert run.returncode != 0, said
+    assert "no error" not in said
+    assert f"holds id {bad}" in said, said

@@ -245,6 +245,52 @@ def test_pna_launcher_checks(bad):
         tpna._launch_pna_cuda(feats, nbr)
 
 
+def _record_launch(monkeypatch, module):
+    """Let ``module``'s CUDA launcher run on CPU tensors up to its C
+    call, which is recorded instead of made: (argtypes, arguments)."""
+    calls = []
+    monkeypatch.setattr(module, "tensors_ok", lambda dev, specs: True)
+    monkeypatch.setattr(module, "entry", lambda name, argtypes: (
+        lambda *args: calls.append((argtypes, args)) or 0))
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda dev: 0, raising=False)
+    return calls
+
+
+@pytest.mark.parametrize("kernel", ["embedding_bag", "pna_multi_agg"])
+def test_gather_launchers_pass_rows_past_int32(monkeypatch, kernel):
+    """A table of 2^31 rows or more reaches the kernel's range check
+    with its row count whole, not wrapped to a negative C int (which
+    would refuse every id)."""
+    import ctypes
+
+    from repro_torch.kernels import embedding_bag as tbag
+    from repro_torch.kernels import segment_multi_agg as tpna
+    module, launcher = {
+        "embedding_bag": (tbag, tbag._launch_embedding_bag_cuda),
+        "pna_multi_agg": (tpna, tpna._launch_pna_cuda)}[kernel]
+    calls = _record_launch(monkeypatch, module)
+    rows = 2**31 + 5
+    table = torch.zeros(1, 4).expand(rows, 4)      # no storage of that size
+    launcher(table, torch.zeros(2, 3, dtype=torch.int32))
+    (argtypes, args), = calls
+    assert args[6] == rows                         # table, ids, out, 3 ints
+    assert argtypes[6](args[6]).value == rows
+
+
+def test_embedding_bag_launcher_refuses_batch_past_int32(monkeypatch):
+    """The bag kernel indexes its output with 32-bit ints: a batch whose
+    B x D reaches ``OUT_LIMIT`` is refused by name before any launch."""
+    from repro_torch.kernels import embedding_bag as tbag
+    calls = _record_launch(monkeypatch, tbag)
+    bags = tbag.OUT_LIMIT // 8
+    idx = torch.zeros(1, 1, dtype=torch.int32).expand(bags, 1)
+    with pytest.raises(ValueError, match=rf"\[{bags}, 8\] output reaches "
+                                         r"2\^31 - 2\^15 elements"):
+        tbag._launch_embedding_bag_cuda(torch.zeros(4, 8), idx)
+    assert not calls
+
+
 @pytest.mark.parametrize("bad", ["head_dim", "groups", "k_shape", "v_dtype",
                                  "q_dtype", "rank"])
 def test_flash_launcher_checks(bad):
