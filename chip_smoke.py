@@ -6,8 +6,8 @@
 1. Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, started together), prints each kernel's
    ``ptxas -v`` registers and spills (with the entry functions of the
-   redesigned ``posting_score``, ``flash_attention`` and four fused
-   scorers),
+   redesigned ``posting_score``, ``unpack_blocks``, ``flash_attention``
+   and four fused scorers),
    the attention kernels' threads and dynamic shared memory per head
    width, and the card's name and power limit.
 2. Generates the repository's 1M-document tier
@@ -75,7 +75,10 @@
    beside the size model, lookup bytes, ms per query) and times both
    kernels, their plain versions and, for the posting scorer, the one
    PyTorch call that computes its sum (``index_add_`` over lanes already
-   gathered and multiplied: less work than the kernel does).
+   gathered and multiplied: less work than the kernel does).  The
+   decode's bound counts each block's own ``ceil(block * bits / 32)``
+   words, as the kernel reads them; the padded rows' bytes are printed
+   beside it.
 8. The model phase: the three model kernels through their entry points
    (``ops.embedding_bag``, ``ops.pna_multi_agg``, ``ops.attention``) at
    the widths of the repository's model configurations, inputs made on
@@ -101,6 +104,9 @@
    its plain version, beside its bound and the one PyTorch call that
    computes it (``F.embedding_bag``, ``F.scaled_dot_product_attention``;
    none for PNA), and prints each attention site's achieved TFLOP/s.
+   Attention's bound counts its products on the tensor cores: one bf16
+   pass, or three TF32 passes for f32 (3xTF32, as the kernel computes
+   them; the f32 CUDA-core time is printed beside it).
    Each bag and PNA site also prints its gather floor
    (``gather_floor_ms``: the 32-byte sectors every valid slot's row
    touches, plus the ids and the output, at 3.35 TB/s), the least a
@@ -173,7 +179,8 @@ WEIGHT_KERNELS = {
     "query_norm": "src/repro/core/live_index.py:134",
 }
 # whose ptxas entry lines are printed
-REDESIGNED = ("posting_score", "flash_attention", *FUSED_KERNELS)
+REDESIGNED = ("posting_score", "unpack_blocks", "flash_attention",
+              *FUSED_KERNELS)
 # live phase: the 1m tier's ingest batch and delta (benchmarks/campaign.py)
 NEW_DOCS, DELTA_DOCS = 50_000, 16_384
 SEALS = ((0, 10_000, None), (10_000, 20_000, None), (20_000, 30_000, None),
@@ -206,6 +213,10 @@ ATTN_SITES = {       # site: (batch, Hq, Hkv, head dim, window, dtype name)
 # one bf16 rounding apart at most (2**-7 of the value), above a floor
 BF16_RTOL, BF16_ATOL = 8e-3, 1e-3
 BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core rate
+# H100 SXM dense TF32 tensor-core rate (NVIDIA's data sheet): an f32
+# product to f32 accuracy takes three TF32 passes (3xTF32), the least time
+# this card can do it in
+TF32_OPS_PER_S = 495e12
 
 
 def smi(fields: str) -> str:
@@ -1286,8 +1297,13 @@ def paper_phase(host, dev, report):
     if not torch.equal(decoded.reshape(-1), expect):
         raise AssertionError("unpack_postings != the host's doc ids")
     del expect, src, brow, lane
+    # each block's own ceil(block bits / 32) words (the kernel reads no
+    # more), its metadata and its output; the padded rows beside it
     nb, wpb = packed.packed.shape
-    u_bytes = nb * wpb * 4 + nb * 12 + nb * packed.block * 4
+    words = int(((packed.block_bits.long() * packed.block + 31) // 32)
+                .clamp(1, wpb).sum())
+    u_bytes = words * 4 + nb * 12 + nb * packed.block * 4
+    u_padded = nb * wpb * 4 + nb * 12 + nb * packed.block * 4
     u_ops = nb * packed.block * 5
     ms_u, turns_u, plain_u, clocks_u = time_in_turns(
         pp.unpack_blocks, pp.unpack_blocks_plain, [args])
@@ -1296,8 +1312,10 @@ def paper_phase(host, dev, report):
         "launches": launches["unpack_blocks"], "max_abs_err": 0.0,
         "kernel_ms": ms_u, "kernel_ms_turns": turns_u, "plain_ms": plain_u,
         "library_ms": None, "e2e_ms": unpack_e2e_ms, "blocks": nb,
-        "words_per_block": wpb, "bytes": u_bytes, "ops": u_ops,
-        "t_bytes_ms": u_bytes / HBM_BYTES_PER_S * 1e3,
+        "words_per_block": wpb, "words_read": words, "bytes": u_bytes,
+        "ops": u_ops, "t_bytes_ms": u_bytes / HBM_BYTES_PER_S * 1e3,
+        "bytes_padded_rows": u_padded,
+        "t_bytes_padded_rows_ms": u_padded / HBM_BYTES_PER_S * 1e3,
         "t_ops_ms": u_ops / F32_OPS_PER_S * 1e3,
         "clocks_sm_mem_power_temp": clocks_u})
     del decoded
@@ -1683,10 +1701,17 @@ def model_phase(seed, dev, report):
         del want
 
         nbytes, nops, extra = model_work(kern, args, kw)
-        # attention's products belong on the tensor cores in bf16; every
-        # other operation here is f32 on the CUDA cores
-        peak = BF16_OPS_PER_S if kern == "flash_attention" and \
-            args[0].dtype == torch.bfloat16 else F32_OPS_PER_S
+        # attention's products belong on the tensor cores: in bf16 one
+        # pass, in f32 three TF32 passes (3xTF32; the f32 CUDA-core time is
+        # printed beside it); every other operation here is f32 on the CUDA
+        # cores
+        t_ops_ms = nops / F32_OPS_PER_S * 1e3
+        if kern == "flash_attention":
+            if args[0].dtype == torch.bfloat16:
+                t_ops_ms = nops / BF16_OPS_PER_S * 1e3
+            else:
+                extra["t_ops_cuda_cores_ms"] = t_ops_ms
+                t_ops_ms = 3 * nops / TF32_OPS_PER_S * 1e3
         ms, turns, plain_ms, clocks = time_in_turns(
             lambda *c: entry[kern](*c, **kw),
             lambda *c: plain[kern](*c, **kw), [args])
@@ -1719,7 +1744,7 @@ def model_phase(seed, dev, report):
                     kernel_ms_turns=turns, plain_ms=plain_ms,
                     library_ms=lib_ms, library=lib_note,
                     t_bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-                    t_ops_ms=nops / peak * 1e3,
+                    t_ops_ms=t_ops_ms,
                     clocks_sm_mem_power_temp=clocks)
         info["bound_ms"] = max(info["t_bytes_ms"], info["t_ops_ms"])
         if "gather_floor_bytes" in info:

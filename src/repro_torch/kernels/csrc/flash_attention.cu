@@ -48,17 +48,39 @@
 //   D = 64, 96 KB at D = 128, 160 KB at D = 256, plus 1 KB of alignment
 //   slack (flash_attention_shape reports it).
 //
-// * f32: flash_f32_kernel, on the CUDA cores (f32 FMAs; TF32 would lose
-//   the 2e-4 tolerance).  One CTA of 256 threads per (batch x q-head,
-//   64-query tile); a loop over 64-key tiles bounded by the tile's causal
-//   and window frontier; shared memory holds the query tile, one
-//   key-or-value tile (K, then V over it) and the [64 x 64]
-//   probabilities, all f32, rows padded by 4 floats against bank
-//   conflicts.  Thread (ty, tx) owns query rows 4ty..4ty+3: their logits
-//   for keys tx + 16c, their running max and sum (a row's 16 threads share
-//   them through warp shuffles) and D/16 columns of each row's output.
-//   Shared memory per CTA: 52 KB at D = 64, 83 KB at D = 128, 147 KB at
-//   D = 256.
+// * f32: flash_f32_kernel, its products on the tensor cores as 3xTF32.
+//   One TF32 product keeps 11 bits of each operand, 2^-11 of the value,
+//   which misses the 2e-4 tolerance even at unit-variance inputs; so each
+//   operand is split, x = hi + lo with hi = tf32(x) (cvt.rna) and lo =
+//   x - hi, of which the tensor cores read the top 19 bits, and each
+//   product is issued as lo*hi + hi*lo + hi*hi with f32 accumulation:
+//   2^-21 of the value.  That is 3 TF32 passes at 495 TFLOP/s, the least
+//   time in which this card can do f32-accurate products, against 67
+//   TFLOP/s for f32 FMAs on the CUDA cores.  The tensor cores truncate
+//   each step of a sum to its largest term, so S's hi*hi products and its
+//   small ones go to separate sums, and each tile's P V starts from zero
+//   and is added to O in f32.  The instruction is mma.sync.m16n8k8
+//   (tf32): it takes its fragments from registers in any order, so both
+//   products read plain row-major tiles; wgmma takes tf32 only with B
+//   K-major, which V (stored [keys, D]) is not.  mma.sync's own rate on
+//   this card, ~300 TFLOP/s, bounds the design, not the 495.
+//   One CTA per (batch x q-head, query tile): 8 warps of 16 query rows (4
+//   warps and 32-key tiles at D = 256, for shared memory).  Q's tile is
+//   staged once; K and V get separate buffers in a two-stage ring filled
+//   by cp.async, the next tile's copy issued right after the one barrier
+//   per tile, so it overlaps the current tile's products.  S = Q K^T: a
+//   thread reads one float4 of its Q rows and of a K row per 16 columns
+//   (the k order within them permuted alike in A and B; rows padded to 16
+//   mod 32 floats, no bank conflict) and splits both.  The mask (edge
+//   tiles only), the online softmax in log2 units (as the bf16 kernel)
+//   and the rescale run in f32 registers in the accumulator layout, which
+//   is P V's A fragment once each 8-key block's keys 2t and 2t + 1 take
+//   slots t and t + 4; V's rows are read in that order, from a layout
+//   whose 16-byte chunks are XOR-swizzled by row, and O's column n of
+//   block nb is D column n * D/8 + nb, so a thread's V loads and O stores
+//   are float4s.  A warp with no live key in a tile skips it.  Shared
+//   memory per CTA: 115 KB at D = 64, 213 KB at D = 128, 205 KB at D =
+//   256.
 #include <cmath>
 #include <cstdint>
 
@@ -71,199 +93,331 @@ namespace {
 constexpr float kNegInf = -1e30f;
 
 // ---------------------------------------------------------------------------
-// f32: CUDA cores
+// f32: 3xTF32 products on the tensor cores (mma.sync m16n8k8)
 // ---------------------------------------------------------------------------
 
-constexpr int kBQ = 64;          // queries per CTA
-constexpr int kBK = 64;          // keys per tile
-constexpr int kThreads = 256;    // 16 x 16: 4 query rows x 4 keys each
-constexpr int kPStride = kBK + 4;
-
-template <int D>
-__host__ __device__ constexpr int row_stride() { return D + 4; }
-
-template <int D>
-constexpr size_t smem_bytes() {
-  return (size_t)(kBQ * row_stride<D>() + kBK * row_stride<D>() +
-                  kBQ * kPStride) * sizeof(float);
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// Rows [row0, row0 + 64) of a [S, D] matrix into dst [64][D + 4].
 template <int D>
-__device__ __forceinline__ void load_tile(const float* src, int row0, int s,
-                                          float* dst) {
-  constexpr int kVec = D / 4;
-  for (int i = threadIdx.x; i < 64 * kVec; i += kThreads) {
-    const int r = i / kVec, c = (i % kVec) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < s)
-      v = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * D + c);
-    *reinterpret_cast<float4*>(dst + r * row_stride<D>() + c) = v;
+struct F32Cfg {
+  static constexpr int kWarps = D == 256 ? 4 : 8;   // 16 query rows each
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kRowsQ = 16 * kWarps;        // query rows per CTA
+  static constexpr int kKeys = D == 256 ? 32 : 64;  // keys per K/V tile
+  // Q and K rows padded to 16 mod 32 floats: the 8 lanes of a quarter
+  // warp read rows g and g + 1 at columns 4t as float4s, 8 bank groups
+  static constexpr int kStride = D % 32 == 0 ? D + 16 : D;
+  static constexpr int kNB = D / 8;                 // 8-column blocks of O
+  static constexpr int kVW = kNB >= 4 ? 4 : kNB;    // floats per V load
+  static constexpr size_t kSmem =
+      ((size_t)kRowsQ * kStride + 2 * (size_t)kKeys * kStride +
+       2 * (size_t)kKeys * D) * sizeof(float);
+};
+
+// A 16-byte cp.async that fills zeros when ok is false.
+__device__ __forceinline__ void copy16z(float* smem, const float* gmem,
+                                        bool ok) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(gmem), "r"(ok ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Rows [row0, row0 + rows) of a [S, D] f32 matrix into shared memory at
+// `stride` floats per row, rows past s as zeros, by all kThreads threads.
+// kSwz (V's layout): row r's 16-byte chunk c lands at chunk c ^ (r / 2 % 4).
+template <int D, int kThreads, bool kSwz>
+__device__ __forceinline__ void stage_rows(float* dst, int stride,
+                                           const float* src, int row0,
+                                           int rows, int s) {
+  constexpr int kC = D / 4;
+  for (int i = threadIdx.x; i < rows * kC; i += kThreads) {
+    const int r = i / kC, c = i % kC;
+    const int pc = kSwz ? c ^ ((r >> 1) & 3) : c;
+    const bool ok = row0 + r < s;
+    copy16z(dst + r * stride + 4 * pc,
+            ok ? src + (size_t)(row0 + r) * D + 4 * c : src, ok);
   }
 }
 
-// Reduce over the 16 lanes that share a query row (xor offsets < 16 stay
-// inside each half of the warp).
-__device__ __forceinline__ float row_max(float x) {
-  for (int o = 8; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float row_sum(float x) {
-  for (int o = 8; o > 0; o >>= 1)
-    x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+// x = hi + lo: hi = tf32(x), rounded to nearest (ties away from zero), and
+// lo = x - hi (exact), of which the tensor cores read the top 19 bits: the
+// pair holds x to 2^-21 of its value.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
+  lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi)));
 }
 
-// Output column of a thread's e-th accumulator: float4 runs of 64-wide
-// stripes when D allows, else a stride of 16.
-template <int D>
-__device__ __forceinline__ int out_col(int tx, int e) {
-  if constexpr (D % 64 == 0) return (e / 4) * 64 + tx * 4 + (e % 4);
-  else return tx + 16 * e;
+// d[16 x 8] += a[16 x 8] b[8 x 8], TF32 products, f32 accumulation.
+// Fragments (g = lane / 4, t = lane % 4): a = (g, t), (g + 8, t), (g,
+// t + 4), (g + 8, t + 4); b = (t, g), (t + 4, g); d = (g, 2t), (g, 2t + 1),
+// (g + 8, 2t), (g + 8, 2t + 1).
+__device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b to f32 accuracy from split operands: lo hi + hi lo + hi hi (the
+// small terms first; lo lo, below 2^-22 of the product, is dropped).
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(F32Cfg<D>::kThreads, 1)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int hq,
-                 int hkv, int s, float scale, int causal, int window) {
+                 int hkv, int s, float scale_log2, int causal, int window) {
+  using C = F32Cfg<D>;
   static_assert(D % 16 == 0 && D <= 256, "D must be a multiple of 16");
-  constexpr int kStride = row_stride<D>();
-  constexpr int kCols = D / 16;  // output columns per thread and row
+  constexpr int kNT = C::kKeys / 8;           // 8-key blocks of a tile
   extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);
-  float* kv = qs + kBQ * kStride;
-  float* ps = kv + kBK * kStride;
+  float* qs = reinterpret_cast<float*>(smem4);        // [kRowsQ][kStride]
+  float* ks = qs + C::kRowsQ * C::kStride;            // [2][kKeys][kStride]
+  float* vs = ks + 2 * C::kKeys * C::kStride;         // [2][kKeys][D]
 
-  const int nq = (s + kBQ - 1) / kBQ;
-  const int q0 = (nq - 1 - (int)blockIdx.x) * kBQ;  // latest tiles first
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int bkv = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-
-  // keys with a live entry for some query of this tile: [k_lo, k_hi)
-  const int k_hi = causal ? min(s, q0 + kBQ) : s;
+  // the latest (heaviest) query tiles first, across all heads
+  const int q0 = ((int)gridDim.y - 1 - (int)blockIdx.y) * C::kRowsQ;
+  // keys with a live entry for some query of this CTA: [k_lo, k_hi)
+  const int k_hi = causal ? min(s, q0 + C::kRowsQ) : s;
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_start = (k_lo / C::kKeys) * C::kKeys;
+  const int n_tiles = (k_hi - k_start + C::kKeys - 1) / C::kKeys;
 
-  float m[4], l[4], acc[4][kCols];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int e = 0; e < kCols; ++e) acc[i][e] = 0.f;
-  }
-  load_tile<D>(q + (size_t)bh * s * D, q0, s, qs);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int w0 = q0 + 16 * warp;              // the warp's first query row
+  const int my_hi = causal ? min(s, w0 + 16) : s;
+  const int my_lo = window > 0 ? max(0, w0 - window + 1) : 0;
   const float* kh = k + (size_t)bkv * s * D;
   const float* vh = v + (size_t)bkv * s * D;
 
-  for (int k0 = (k_lo / kBK) * kBK; k0 < k_hi; k0 += kBK) {
-    __syncthreads();                       // the last tile's V and P are read
-    load_tile<D>(kh, k0, s, kv);
-    __syncthreads();
+  stage_rows<D, C::kThreads, false>(qs, C::kStride, q + (size_t)bh * s * D,
+                                    q0, C::kRowsQ, s);
+  stage_rows<D, C::kThreads, false>(ks, C::kStride, kh, k_start, C::kKeys,
+                                    s);
+  stage_rows<D, C::kThreads, true>(vs, D, vh, k_start, C::kKeys, s);
+  cp_commit();
 
-    float sc[4][4];
+  float acc[C::kNB][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int nb = 0; nb < C::kNB; ++nb)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) sc[i][c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 qv[4], kk[4];
+    for (int e = 0; e < 4; ++e) acc[nb][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  // this thread's Q rows g and g + 8 of the warp's 16, columns 16c + 4t
+  const float* qa = qs + (16 * warp + g) * C::kStride + 4 * t;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int k0 = k_start + i * C::kKeys;
+    cp_wait_all();
+    __syncthreads();      // tile i has landed; tile i - 1 is no longer read
+    if (i + 1 < n_tiles) {
+      const int st = (i + 1) & 1;
+      stage_rows<D, C::kThreads, false>(ks + st * C::kKeys * C::kStride,
+                                        C::kStride, kh, k0 + C::kKeys,
+                                        C::kKeys, s);
+      stage_rows<D, C::kThreads, true>(vs + st * C::kKeys * D, D, vh,
+                                       k0 + C::kKeys, C::kKeys, s);
+      cp_commit();
+    }
+    // a warp with no live key in this tile skips it
+    if (w0 >= s || k0 >= my_hi || k0 + C::kKeys <= my_lo) continue;
+    const float* kt = ks + (i & 1) * C::kKeys * C::kStride;
+    const float* vt = vs + (i & 1) * C::kKeys * D;
+
+    // S = Q K^T.  Within 16 columns c, k step 2c takes d = 16c + 4t (slot
+    // t) and 16c + 4t + 1 (slot t + 4), step 2c + 1 the next two: the same
+    // order in A and B, so a thread reads one float4 of each row.  The hi
+    // hi products (sc) and the two small ones (sm) go to separate sums: the
+    // tensor cores truncate each step of a sum to its largest term, and
+    // small terms added to a large sum lose what they carry.
+    float sc[kNT][4], sm[kNT][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(qs + (ty * 4 + i) * kStride + d);
+    for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
-        kk[c] = *reinterpret_cast<const float4*>(kv + (tx + 16 * c) * kStride + d);
+      for (int e = 0; e < 4; ++e) sc[nt][e] = sm[nt][e] = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int c = 0; c < D / 16; ++c) {
+      const float4 x0 = *reinterpret_cast<const float4*>(qa + 16 * c);
+      const float4 x1 =
+          *reinterpret_cast<const float4*>(qa + 8 * C::kStride + 16 * c);
+      uint32_t ah[2][4], al[2][4];
+      split_tf32(x0.x, ah[0][0], al[0][0]);
+      split_tf32(x1.x, ah[0][1], al[0][1]);
+      split_tf32(x0.y, ah[0][2], al[0][2]);
+      split_tf32(x1.y, ah[0][3], al[0][3]);
+      split_tf32(x0.z, ah[1][0], al[1][0]);
+      split_tf32(x1.z, ah[1][1], al[1][1]);
+      split_tf32(x0.w, ah[1][2], al[1][2]);
+      split_tf32(x1.w, ah[1][3], al[1][3]);
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          float a = sc[i][c];
-          a = __fmaf_rn(qv[i].x, kk[c].x, a);
-          a = __fmaf_rn(qv[i].y, kk[c].y, a);
-          a = __fmaf_rn(qv[i].z, kk[c].z, a);
-          a = __fmaf_rn(qv[i].w, kk[c].w, a);
-          sc[i][c] = a;
+      for (int nt = 0; nt < kNT; ++nt) {
+        const float4 y = *reinterpret_cast<const float4*>(
+            kt + (8 * nt + g) * C::kStride + 16 * c + 4 * t);
+        uint32_t bh[4], bl[4];
+        split_tf32(y.x, bh[0], bl[0]);
+        split_tf32(y.y, bh[1], bl[1]);
+        split_tf32(y.z, bh[2], bl[2]);
+        split_tf32(y.w, bh[3], bl[3]);
+        mma_tf32(sm[nt], al[0], bh[0], bh[1]);
+        mma_tf32(sm[nt], ah[0], bl[0], bl[1]);
+        mma_tf32(sc[nt], ah[0], bh[0], bh[1]);
+        mma_tf32(sm[nt], al[1], bh[2], bh[3]);
+        mma_tf32(sm[nt], ah[1], bl[2], bl[3]);
+        mma_tf32(sc[nt], ah[1], bh[2], bh[3]);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sc[nt][e] = __fadd_rn(sc[nt][e], sm[nt][e]);
+
+    // mask (edge tiles only), online softmax in log2 units, rescale O
+    const bool interior = k0 + C::kKeys <= s &&
+                          (!causal || k0 + C::kKeys - 1 <= w0) &&
+                          (window <= 0 || k0 > w0 + 15 - window);
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e / 2;
+        float x = __fmul_rn(sc[nt][e], scale_log2);
+        if (!interior) {
+          const int qpos = w0 + g + 8 * r;
+          const int kpos = k0 + 8 * nt + 2 * t + (e % 2);
+          const bool live = kpos < s && (!causal || kpos <= qpos) &&
+                            (window <= 0 || kpos > qpos - window);
+          x = live ? x : kNegInf;
         }
-    }
-
-    // mask, online softmax, P into shared memory, rescale the output
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty * 4 + i;
-      bool live[4];
-      float mx = kNegInf;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int kpos = k0 + tx + 16 * c;
-        live[c] = kpos < s && (!causal || kpos <= qpos) &&
-                  (window <= 0 || kpos > qpos - window);
-        sc[i][c] = live[c] ? __fmul_rn(sc[i][c], scale) : kNegInf;
-        mx = fmaxf(mx, sc[i][c]);
+        sc[nt][e] = x;
+        mx[r] = fmaxf(mx[r], x);
       }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float alpha = expf(__fsub_rn(m[i], m_new));
-      float sum = 0.f;
+    float alpha[2];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float p = live[c] ? expf(__fsub_rn(sc[i][c], m_new)) : 0.f;
-        ps[(ty * 4 + i) * kPStride + tx + 16 * c] = p;
-        sum = __fadd_rn(sum, p);
-      }
-      l[i] = __fmaf_rn(alpha, l[i], row_sum(sum));
-      m[i] = m_new;
-#pragma unroll
-      for (int e = 0; e < kCols; ++e) acc[i][e] = __fmul_rn(acc[i][e], alpha);
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = ex2(__fsub_rn(m[r], m_new));
+      m[r] = m_new;
     }
-    __syncthreads();                       // P written, K no longer read
-    load_tile<D>(vh, k0, s, kv);
-    __syncthreads();
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e / 2;
+        float p = ex2(__fsub_rn(sc[nt][e], m[r]));
+        if (!interior && sc[nt][e] == kNegInf) p = 0.f;
+        sc[nt][e] = p;
+        sum[r] = __fadd_rn(sum[r], p);
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = __fmaf_rn(alpha[r], l[r], sum[r]);
 
-#pragma unroll 2
-    for (int kk0 = 0; kk0 < kBK; kk0 += 4) {
-      float4 p4[4];
+    // O = alpha O + P V.  P's accumulator layout is the A fragment's once
+    // key block j's keys 2t and 2t + 1 take slots t and t + 4; V's B
+    // fragment reads rows 8j + 2t and 8j + 2t + 1 to match.  Column n of O
+    // block nb is D column n * kNB + nb, so a thread reads kNB consecutive
+    // floats of each V row and writes 2 kNB consecutive floats of each O
+    // row.  A tile's P V starts from zero and is added to the rescaled O in
+    // f32 (truncation again).
+    uint32_t ph[kNT][4], pl[kNT][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        p4[i] = *reinterpret_cast<const float4*>(ps + (ty * 4 + i) * kPStride + kk0);
+    for (int j = 0; j < kNT; ++j) {
+      split_tf32(sc[j][0], ph[j][0], pl[j][0]);
+      split_tf32(sc[j][2], ph[j][1], pl[j][1]);
+      split_tf32(sc[j][1], ph[j][2], pl[j][2]);
+      split_tf32(sc[j][3], ph[j][3], pl[j][3]);
+    }
 #pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const float* vrow = kv + (kk0 + t) * kStride;
-        float vv[kCols];
-        if constexpr (D % 64 == 0) {
+    for (int qq = 0; qq < C::kNB / C::kVW; ++qq) {
+      const int col = g * C::kNB + qq * C::kVW;
+      const int off = (((col >> 2) ^ t) << 2) + (col & 3);   // swizzled by t
+      float pv[C::kVW][4];
 #pragma unroll
-          for (int j = 0; j < kCols / 4; ++j) {
-            const float4 x = *reinterpret_cast<const float4*>(vrow + j * 64 + tx * 4);
-            vv[4 * j] = x.x; vv[4 * j + 1] = x.y;
-            vv[4 * j + 2] = x.z; vv[4 * j + 3] = x.w;
-          }
+      for (int e = 0; e < C::kVW; ++e)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) pv[e][x] = 0.f;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        const float* v0 = vt + (8 * j + 2 * t) * D + off;
+        float b0[C::kVW], b1[C::kVW];
+        if constexpr (C::kVW == 4) {
+          const float4 y0 = *reinterpret_cast<const float4*>(v0);
+          const float4 y1 = *reinterpret_cast<const float4*>(v0 + D);
+          b0[0] = y0.x; b0[1] = y0.y; b0[2] = y0.z; b0[3] = y0.w;
+          b1[0] = y1.x; b1[1] = y1.y; b1[2] = y1.z; b1[3] = y1.w;
         } else {
-#pragma unroll
-          for (int e = 0; e < kCols; ++e) vv[e] = vrow[tx + 16 * e];
+          const float2 y0 = *reinterpret_cast<const float2*>(v0);
+          const float2 y1 = *reinterpret_cast<const float2*>(v0 + D);
+          b0[0] = y0.x; b0[1] = y0.y;
+          b1[0] = y1.x; b1[1] = y1.y;
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float p = t == 0 ? p4[i].x : t == 1 ? p4[i].y
-                        : t == 2 ? p4[i].z : p4[i].w;
-#pragma unroll
-          for (int e = 0; e < kCols; ++e)
-            acc[i][e] = __fmaf_rn(p, vv[e], acc[i][e]);
+        for (int e = 0; e < C::kVW; ++e) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(b0[e], bh0, bl0);
+          split_tf32(b1[e], bh1, bl1);
+          mma_3xtf32(pv[e], ph[j], pl[j], bh0, bh1, bl0, bl1);
         }
       }
+#pragma unroll
+      for (int e = 0; e < C::kVW; ++e)
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          acc[qq * C::kVW + e][x] =
+              __fmaf_rn(acc[qq * C::kVW + e][x], alpha[x / 2], pv[e][x]);
     }
   }
 
+  // a row's sum is spread over the 4 threads of its quad
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + ty * 4 + i;
+  for (int r = 0; r < 2; ++r) {
+    float tot = __fadd_rn(l[r], __shfl_xor_sync(0xffffffffu, l[r], 1));
+    tot = __fadd_rn(tot, __shfl_xor_sync(0xffffffffu, tot, 2));
+    const float denom = fmaxf(tot, 1e-30f);
+    const int qpos = w0 + g + 8 * r;
     if (qpos >= s) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-    float* orow = o + ((size_t)bh * s + qpos) * D;
+    // D columns 2t kNB + c: c < kNB from block c's d[2r], else from block
+    // c - kNB's d[2r + 1]
+    float* orow = o + ((size_t)bh * s + qpos) * D + 2 * t * C::kNB;
 #pragma unroll
-    for (int e = 0; e < kCols; ++e)
-      orow[out_col<D>(tx, e)] = __fdiv_rn(acc[i][e], denom);
+    for (int c = 0; c < 2 * C::kNB; c += 4) {
+      float x[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        x[e] = __fdiv_rn(c + e < C::kNB ? acc[c + e][2 * r]
+                                        : acc[c + e - C::kNB][2 * r + 1],
+                         denom);
+      *reinterpret_cast<float4*>(orow + c) =
+          make_float4(x[0], x[1], x[2], x[3]);
+    }
   }
 }
 
@@ -271,16 +425,16 @@ template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int b,
                int hq, int hkv, int s, int causal, int window,
                cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  const float scale = (float)(1.0 / sqrt((double)D));
+  using C = F32Cfg<D>;
   const cudaError_t e = cudaFuncSetAttribute(
       flash_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      (int)C::kSmem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((s + kBQ - 1) / kBQ, b * hq);
-  flash_f32_kernel<D><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid(b * hq, (s + C::kRowsQ - 1) / C::kRowsQ);
+  const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
+  flash_f32_kernel<D><<<grid, C::kThreads, C::kSmem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, hq, hkv,
-      s, scale, causal, window);
+      s, scale_log2, causal, window);
   return (int)cudaGetLastError();
 }
 
@@ -460,12 +614,6 @@ __device__ __forceinline__ void wgmma_rs<16>(float (&d)[8],
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -788,7 +936,7 @@ extern "C" int flash_attention_shape(int d, int dtype, int* smem,
                                      int* threads) {
   switch (d * 2 + (dtype != 0)) {
 #define SHAPE(D)                                                        \
-    case 2 * D: *smem = (int)smem_bytes<D>(); *threads = kThreads; return 0; \
+    case 2 * D: *smem = (int)F32Cfg<D>::kSmem; *threads = F32Cfg<D>::kThreads; return 0; \
     case 2 * D + 1: *smem = (int)Cfg<D>::kSmem; *threads = Cfg<D>::kThreads; return 0;
     SHAPE(16) SHAPE(32) SHAPE(64) SHAPE(128) SHAPE(256)
 #undef SHAPE

@@ -12,7 +12,9 @@ Hq, S, D] in q's dtype.  Causal attention keeps keys ``kpos <= qpos``; a
   1e-30)``), GQA through the KV-head index, for D in ``HEAD_DIMS``.  bf16
   runs on the tensor cores (``wgmma``, K and V streamed by TMA through an
   ``mbarrier`` ring; p split into two bf16 halves for the second product),
-  f32 on the CUDA cores.  A CUDA tensor always goes to them; there is no
+  f32 on the tensor cores too, as 3xTF32 (``mma.sync``: every operand
+  split into a TF32 hi and lo, three products each; K and V through a
+  ``cp.async`` ring).  A CUDA tensor always goes to them; there is no
   fallback;
 * ``flash_attention_plain``, its plain PyTorch version, the path for CPU
   tensors and the kernel's yardstick on the card: the reference's

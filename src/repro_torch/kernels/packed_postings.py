@@ -7,10 +7,12 @@ blocks to i32 doc ids: per-lane shifts and masks, then an in-block
 prefix sum from the block's base; lanes at or past a block's count get
 -1.
 
-* ``unpack_blocks``' CUDA C++ kernel (``csrc/unpack_blocks.cu``) shares
-  its decode with the fused packed kernels (``csrc/tile_accumulate.cuh``)
-  and takes blocks of 1 to 1024 lanes; a CUDA tensor always goes to it,
-  and a wider block raises.  There is no fallback.
+* ``unpack_blocks``' CUDA C++ kernel (``csrc/unpack_blocks.cu``) does
+  the fused packed kernels' decode arithmetic (``csrc/tile_accumulate.cuh``)
+  and takes blocks of 1 to 1024 lanes: persistent warps, a few blocks
+  per warp step, only the words a block holds staged by ``cp.async``
+  while the batch before decodes.  A CUDA tensor always goes to it, and
+  a wider block raises.  There is no fallback.
 * ``unpack_blocks_plain`` is its plain PyTorch version, the path for CPU
   tensors and the kernel's yardstick on the card: the vectorized decode
   of ``core.layouts.unpack_words``, which computes the same function.
@@ -28,7 +30,7 @@ from repro_torch.kernels.cuda_build import check_tensors, launch
 
 Tensor = torch.Tensor
 
-MAX_BLOCK = 1024   # lanes per block the CUDA kernel decodes (one thread each)
+MAX_BLOCK = 1024   # lanes per block the CUDA kernel decodes (32 per thread)
 
 
 def unpack_blocks_plain(packed: Tensor, bits: Tensor, base: Tensor,

@@ -706,24 +706,53 @@ def test_query_weights_refuse_bad_inputs(gpu):
         query.query_norm(df.float().t())
 
 
-@pytest.mark.parametrize("bits", list(range(4, 33)))
-@pytest.mark.parametrize("block", [16, 32, 128])
+@pytest.mark.parametrize("bits", list(range(1, 33)))
+@pytest.mark.parametrize("block", [1, 7, 16, 32, 33, 100, 128, 1000, 1024])
 def test_unpack_kernel_equals_plain(gpu, bits, block):
     """Random words with all-ones high bytes, bases that wrap int32,
-    counts below the block width: kernel and plain version agree."""
+    counts below the block width and blocks with count 0, every width
+    class of the kernel (1 to 32 lanes per thread, widths that are not
+    a multiple of 4 or of a warp): kernel and plain version agree."""
     rng = np.random.default_rng(bits * 1000 + block)
     nb = 64
     wpb = (block * bits + 31) // 32
     words = rng.integers(0, 2**32, size=(nb, wpb), dtype=np.uint32)
     words[:, -1] |= np.uint32(0xFF000000)
+    count = rng.integers(0, block + 1, nb).astype(np.int32)
+    count[::5] = 0
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(gpu)  # noqa
     args = (t(words.view(np.int32)), t(np.full(nb, bits, np.int32)),
             t(np.r_[rng.integers(-5, 1000, nb - 1), [2**31 - 7]]
               .astype(np.int32)),
-            t(rng.integers(0, block + 1, nb).astype(np.int32)))
+            t(count))
     before = pp.unpack_blocks.launches
     got = pp.unpack_blocks(*args, block)
     want = pp.unpack_blocks_plain(*args, block)
+    torch.cuda.synchronize()
+    assert pp.unpack_blocks.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("nb,block", [(200_003, 32), (200_003, 128),
+                                      (30_011, 1000)])
+def test_unpack_kernel_walk_wraps(gpu, nb, block):
+    """More blocks than the card's resident warps take in one sweep, so
+    each warp's walk wraps many times; a bit width per block from 0 to
+    40 (above 32 a block decodes from device memory, not its staged
+    words), a row as wide as 40 bits need, counts from 0 to the width."""
+    g = torch.Generator(device=gpu).manual_seed(nb + block)
+    wpb = (block * 40 + 31) // 32
+    words = torch.randint(-2**31, 2**31 - 1, (nb, wpb), generator=g,
+                          device=gpu, dtype=torch.int32)
+    bits = torch.randint(0, 41, (nb,), generator=g, device=gpu,
+                         dtype=torch.int32)
+    base = torch.randint(-2**31, 2**31 - 1, (nb,), generator=g, device=gpu,
+                         dtype=torch.int32)
+    count = torch.randint(0, block + 1, (nb,), generator=g, device=gpu,
+                          dtype=torch.int32)
+    before = pp.unpack_blocks.launches
+    got = pp.unpack_blocks(words, bits, base, count, block)
+    want = pp.unpack_blocks_plain(words, bits, base, count, block)
     torch.cuda.synchronize()
     assert pp.unpack_blocks.launches == before + 1
     assert torch.equal(got, want)
@@ -830,6 +859,7 @@ def test_pna_kernel_equals_plain(gpu, n, k, d, nsrc):
     (False, 40, 1, 4, 2, 190, 16, torch.float32),
     (True, 0, 1, 4, 2, 256, 128, torch.float32),
     (True, 100, 1, 2, 1, 300, 256, torch.float32),
+    (True, 512, 1, 16, 8, 4096, 128, torch.float32),
     (True, 16, 1, 8, 2, 128, 16, torch.bfloat16),
     (True, 0, 2, 4, 2, 320, 128, torch.bfloat16),
     (True, 128, 1, 4, 2, 512, 256, torch.bfloat16),
@@ -869,6 +899,29 @@ def test_flash_kernel_equals_plain(gpu, causal, window, b, hq, hkv, s, d,
         torch.testing.assert_close(got.float(),
                                    f32.to(torch.bfloat16).float(),
                                    rtol=8e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,window", [
+    (1, 4, 2, 1000, 128, 0), (1, 16, 8, 4096, 128, 0),
+    (2, 4, 2, 300, 64, 100), (1, 2, 1, 500, 256, 0),
+    (1, 8, 2, 333, 16, 40)])
+def test_flash_f32_wide_logits(gpu, b, hq, hkv, s, d, window):
+    """Logits 30 times wider than unit-variance q and k give (q and k
+    scaled by its root): the kernel's three TF32 passes stay within 2e-4
+    of the plain version, where the plain version on inputs rounded to
+    TF32 alone, less error than one pass, is already outside it."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=gpu).manual_seed(s + d + window)
+    q, k, v = (torch.randn(b, h, s, d, generator=g, device=gpu)
+               for h in (hq, hkv, hkv))
+    q, k = q * 30 ** 0.5, k * 30 ** 0.5
+    got = tfa.flash_attention(q, k, v, causal=True, window=window)
+    want = tfa.flash_attention_plain(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    tf32 = [((x.view(torch.int32) + 0x1000) & -8192).view(torch.float32)
+            for x in (q, k, v)]
+    one = tfa.flash_attention_plain(*tf32, causal=True, window=window)
+    assert not bool(((one - want).abs() <= 2e-4 + 2e-4 * want.abs()).all())
 
 
 def _misaligned(x):
