@@ -21,6 +21,15 @@
    PyTorch version on the same routing pairs (values and ids, to the
    bit); the engine's ids equal the dense oracle's (``engine="torch"``),
    scores within rtol 1e-5; no routing overflow; HOR and packed agree.
+4b. The reference's own routing budget on each bulk index:
+   ``make_adaptive_scorer(index, k=10, cap=max_posting_len)`` over the
+   ``BATCHES`` batches ``ADAPTIVE_ROUNDS`` times from its initial budget
+   of 64 pairs.  Prints each call's budget before and after, its
+   overflow and its ms (host clock with ``synchronize``) beside the
+   static-budget batch's ms.  Checks: the first call overflows; the last
+   pass overflows nowhere; every call without overflow equals the
+   static-budget scorer on the same batch, ids and score bits; the last
+   call's kernel launch equals its plain version to the bit.
 5. Times each kernel and its plain version with CUDA events, in turns
    (kernel, plain, kernel) beside a reading of the card's clocks, and
    computes its bound at 3.35 TB/s from the bytes this run's pairs must
@@ -51,6 +60,38 @@
    beside the plain versions and, for the norm,
    ``torch.linalg.vector_norm``), over every df up to the live doc
    count, and at every width from 1 to 32.
+6c. The serving phase, on the live phase's index (the 1M banded
+   segment, the 40,000-doc banded merge, the HOR and packed seals, the
+   300-doc delta): ``QueryServer(ServerConfig(batch_size=8,
+   n_terms_budget=8, k=10, trace_sample=1))`` after ``warmup()``.  At
+   epoch e0 it serves 64 distinct queries (the live batches' 40 rows and
+   8 each of 4, 6 and 8 terms in the same df band), each submitted on
+   its own and all before pumping (a closed backlog: the latencies
+   include queue wait), then 16 of them again.  Under the server's lock
+   it ingests 2,048 docs (``seed+2``) and deletes every 64th of them;
+   ``IndexMaintenance.run_once`` seals the delta in the index's own
+   layout; at epoch e1 it serves the 64 again.  Checks: (a) each fresh
+   response equals ``view.topk`` (fused, candidates) on the same padded
+   batch of the view pinned for its epoch, ids and score bits; (b) its
+   ids equal the gather oracle's but at printed near ties, scores
+   within rtol 1e-5, every id live; (c) each cache hit equals the
+   response it repeats, bit for bit, at the same epoch; (d) the epochs,
+   and how many answers changed between them; (e) each traced
+   response's stages sum to its ``latency_us`` (rel 1e-9: the same
+   clock readings, summed in floats); (f) with every launch counter
+   reset just before each epoch's batches and read just after, each
+   micro-batch launched ``idf`` and ``query_norm`` once and each fused
+   kernel once per segment (band) of its layout, and the cache hits
+   launched nothing; (g) the last e1 micro-batch's kernel calls, the new
+   seal's included, each equal their plain versions to the bit; (h) no
+   routing overflow (``engine_pair_overflow`` does not grow).  Then the
+   full index is serialized (``serialize_segmented``) and restored on
+   the card (``restore_segmented``), and the copy answers e1's batches
+   with the same ids and score bits.  Prints one ``serving:`` line
+   (latency p50/p99 per epoch, QPS, batch fill, cache hit rate, stage
+   summary and the score span's children, maintenance, epochs, the
+   seconds of each step, peak memory, the card) and the recorded calls
+   on ``serving kernel site:`` lines.
 7. The paper phase, on the same corpus: the paper's four
    representations as Table 7 compares them, PR (``CooIndex``) and OR
    (``CsrIndex``) each with a B+tree (``SortedLookup``) and a hash
@@ -150,6 +191,7 @@ BATCH, TERMS, K = 8, 3, 10
 BATCHES = 5                   # query batches served per layout
 REPS = 5                      # timing rounds over all batches per turn
 MODEL_TRACED = 3              # traced calls per model site (step 9)
+ADAPTIVE_ROUNDS = 2           # passes of the adaptive scorer over BATCHES
 KERNELS = {
     "fused_topk_blocked": ("hor", "src/repro/kernels/fused_decode_score.py:513"),
     "fused_topk_packed": ("packed",
@@ -513,7 +555,7 @@ def main() -> int:
         for i in range(BATCHES)]
 
     # 3-4. each layout on the card ----------------------------------------
-    sites, bulk_traces = [], {}
+    sites, bulk_traces, static = [], {}, {}
     weight_launches = dict.fromkeys(WEIGHT_KERNELS, 0)
     ids_by_layout = {}
     builders = {"hor": layouts.build_blocked,
@@ -634,6 +676,7 @@ def main() -> int:
         }
         report[kind] = layout_report
         print(f"{kind}: {json.dumps(layout_report)}")
+        static[kind] = (results, e2e_ms)
         site = f"bulk:{name}@{host.num_docs}"
         sites.append({
             "site": site, "kernel": name,
@@ -648,11 +691,20 @@ def main() -> int:
 
     if not np.array_equal(ids_by_layout["hor"], ids_by_layout["packed"]):
         raise AssertionError("HOR and packed engines rank differently")
+    # 4b, each index built again after both layouts' timings, so that no
+    # other work runs between them
+    for kind, build_index in builders.items():
+        ix = build_index(host, device=dev)
+        report[f"adaptive_{kind}"] = adaptive_budget(ix, cap, batches,
+                                                     *static[kind], kind)
+        del ix
+        torch.cuda.empty_cache()
+    del static
     phase_s["bulk"] = time.perf_counter() - t_phase
     print(f"phase bulk: {phase_s['bulk']:.1f} s")
 
     t_phase = time.perf_counter()
-    live_sites, traces = live_phase(host, batches, a.seed, dev, report)
+    live_sites, traces, si = live_phase(host, batches, a.seed, dev, report)
     sites += live_sites
     traces.update(bulk_traces)
     del bulk_traces
@@ -669,6 +721,13 @@ def main() -> int:
     del weight_args
     phase_s["live"] = time.perf_counter() - t_phase
     print(f"phase live: {phase_s['live']:.1f} s")
+
+    t_phase = time.perf_counter()
+    serving_phase(si, batches, a.seed, dev, report, card)
+    del si
+    torch.cuda.empty_cache()
+    phase_s["serving"] = time.perf_counter() - t_phase
+    print(f"phase serving: {phase_s['serving']:.1f} s")
 
     t_phase = time.perf_counter()
     paper_sites, paper_traces = paper_phase(host, dev, report)
@@ -762,10 +821,11 @@ def site_stats(name, args, num_docs, tile):
     return stats
 
 
-def replay(calls, fds, label, timed=True):
+def replay(calls, fds, label, timed=True, tag="live"):
     """Holds each recorded kernel call against its plain version on the
     same arguments, to the bit, and (``timed``) times both in turns.
-    Returns one dict per call (a call site of the path)."""
+    Returns one dict per call (a call site of the path), each printed
+    on a ``<tag> kernel site:`` line."""
     import torch
     sites = []
     for i, (name, args, kw) in enumerate(calls):
@@ -802,8 +862,63 @@ def replay(calls, fds, label, timed=True):
             site.update(kernel_ms=ms, kernel_ms_turns=turns,
                         plain_ms=plain_ms, clocks_sm_mem_power_temp=clocks)
         sites.append(site)
-        print(f"live kernel site: {json.dumps(site)}")
+        print(f"{tag} kernel site: {json.dumps(site)}")
     return sites
+
+
+def adaptive_budget(ix, cap, batches, static, static_ms, kind):
+    """The reference's own routing budget, ``make_adaptive_scorer``, on a
+    bulk index: ``ADAPTIVE_ROUNDS`` passes over the bulk batches from
+    its initial budget.  Prints each call's budget before and after, its
+    overflow and its ms (host clock with ``synchronize``) beside the
+    static-budget batch's ms.  Checks: the last pass overflows nowhere;
+    every call without overflow equals the static-budget scorer on the
+    same batch (``static``: its (result, stats)), ids and score bits;
+    the last call's kernel launch equals its plain version to the bit.
+    A measurement: nothing is claimed from it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import query
+    from repro_torch.kernels import fused_decode_score as fds
+    from repro_torch.kernels import ops
+
+    scorer = query.make_adaptive_scorer(ix, k=K, cap=cap)
+    rows = []
+    n_calls = ADAPTIVE_ROUNDS * len(batches)
+    for c in range(n_calls):
+        i = c % len(batches)
+        before = dict(scorer.budget._budgets)
+        with recording(ops, on=c == n_calls - 1) as calls:
+            t0 = time.perf_counter()
+            res, stats = scorer(batches[i])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        row = {"round": c // len(batches), "batch": i,
+               "budget_before": before,
+               "budget_after": dict(scorer.budget._budgets),
+               "overflow": int(stats["pair_overflow"]), "ms": ms,
+               "static_ms": static_ms[i]}
+        if row["overflow"] == 0:
+            want = static[i][0]
+            if not (torch.equal(res.doc_ids, want.doc_ids) and torch.equal(
+                    res.scores.view(torch.int32),
+                    want.scores.view(torch.int32))):
+                raise AssertionError(f"adaptive {kind} batch {i}: answer "
+                                     "!= the static budget's")
+        rows.append(row)
+        print(f"adaptive budget {kind}: {json.dumps(row)}")
+    last = [r for r in rows if r["round"] == ADAPTIVE_ROUNDS - 1]
+    if rows[0]["overflow"] == 0:
+        raise AssertionError(f"adaptive {kind}: the initial budget did not "
+                             "overflow, so it never grew")
+    if any(r["overflow"] for r in last):
+        raise AssertionError(f"adaptive {kind}: overflow in the last pass")
+    held = replay(calls, fds, f"adaptive-{kind}", timed=False,
+                  tag="adaptive")
+    return {"calls": rows, "final_budgets": rows[-1]["budget_after"],
+            "converged_ms": [r["ms"] for r in last],
+            "static_ms": list(static_ms), "held_call": held}
 
 
 def hor_band_batch(view, batches):
@@ -828,7 +943,8 @@ def hor_band_batch(view, batches):
 
 def live_phase(host, batches, seed, dev, report):
     """The live index at the 1M tier (step 6 of the module docstring);
-    returns its per-call-site kernel measurements."""
+    returns its per-call-site kernel measurements, their traces, and the
+    index (the serving phase serves it)."""
     import numpy as np
     import torch
 
@@ -983,9 +1099,322 @@ def live_phase(host, batches, seed, dev, report):
         span_ms_per_batch=spans, kernel_sites=sites)
     print(f"live serving: {json.dumps({k: live[k] for k in ('launches', 'max_memory_allocated', 'e2e_ms_per_batch', 'oracle_ms_per_batch')})}")
     report["live"] = live
-    del si, view
+    del view
     torch.cuda.empty_cache()
-    return sites, traces
+    return sites, traces, si
+
+
+# serving phase: the serving tier over the live phase's index
+SERVE_EXTRA = (4, 6, 8)       # widths of the extra queries, 8 of each
+SERVE_REPEATS = 16            # queries resubmitted at e0: cache hits
+SERVE_NEW_DOCS = 2_048        # ingested between the two epochs
+SERVE_SEAL_FILL = 0.1         # the delta then holds ~2,348 of 16,384 docs
+STAGE_REL = 1e-9              # stage sums vs latency_us: float rounding
+
+
+def path_launches(view, batches):
+    """Launch counts ``batches`` micro-batches through ``view`` imply:
+    ``idf`` and ``query_norm`` once each per batch, one dense launch per
+    band of each banded segment, one candidate launch per HOR or packed
+    segment (``LiveView.topk``, mode "candidates")."""
+    want = dict.fromkeys((*ALL_KERNELS, *WEIGHT_KERNELS), 0)
+    want["idf"] = want["query_norm"] = batches
+    for seg in view.segments:
+        names = {"banded": ("fused_score_packed", "fused_score_blocked"),
+                 "hor": ("fused_topk_blocked",),
+                 "packed": ("fused_topk_packed",)}[seg.layout]
+        for name in names:
+            want[name] += batches
+    return want
+
+
+def serving_phase(si, batches, seed, dev, report, card):
+    """The serving tier on the live phase's index (``QueryServer``,
+    ``IndexMaintenance``, the snapshot): 64 distinct queries at epoch
+    e0, 16 of them again as cache hits, a write step (2,048 docs in,
+    every 64th deleted, the delta sealed by maintenance), the 64 again
+    at e1, then a full-size snapshot restored on the card.  Every
+    request is submitted before pumping, so the latencies are a closed
+    backlog's, queue wait included, not those of an open arrival rate.
+    Checks (a)-(h) of the module docstring's step 6c; prints one
+    ``serving:`` line."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import fused_decode_score as fds
+    from repro_torch.kernels import ops
+    from repro_torch.obs.registry import GLOBAL, percentiles
+    from repro_torch.serve import (IndexMaintenance, QueryServer,
+                                   ServerConfig, restore_segmented,
+                                   serialize_segmented)
+    from repro_torch.text import corpus
+
+    class Server(QueryServer):
+        """Records every view it pins, by epoch."""
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.views = {self._pinned.epoch: self._pinned}
+
+        def refresh_view(self):
+            v = super().refresh_view()
+            self.views[v.epoch] = v
+            return v
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = ServerConfig(batch_size=BATCH, n_terms_budget=8, k=K,
+                       trace_sample=1)
+    view = si.view()
+    rows, seen = [], set()
+
+    def take(q):
+        row = np.zeros(cfg.n_terms_budget, np.uint32)
+        row[:len(q)] = q
+        if tuple(row.tolist()) in seen:
+            return 0
+        seen.add(tuple(row.tolist()))
+        rows.append(row)
+        return 1
+    for qb in batches:
+        for q in qb:
+            take(q)
+    n_live_rows = len(rows)
+    for t in SERVE_EXTRA:
+        got, s = 0, 0
+        while got < BATCH:
+            got += take(corpus.sample_query_terms(
+                view.df, view.hashes, 1, t, df_band=(0.15, 0.5),
+                num_docs=view.live_docs, seed=seed * 1000 + 100 * t + s)[0])
+            s += 1
+    if len(rows) % BATCH:
+        raise AssertionError(f"serving: {len(rows)} distinct queries")
+    n_batches = len(rows) // BATCH
+
+    server = Server(si, cfg)
+    t0 = time.perf_counter()
+    server.warmup()
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    GLOBAL.counter("engine_pair_overflow")        # get or create
+    overflow0 = server.metrics_snapshot()["engine_pair_overflow"]["value"]
+
+    def serve(qs, record=False):
+        """Submit every query, then pump until drained: (responses,
+        wall seconds, the kernel calls of the last micro-batch)."""
+        t0 = time.perf_counter()
+        tickets = [server.submit(q) for q in qs]
+        last = []
+        while server.pending:
+            on = record and server.pending <= cfg.batch_size
+            with recording(ops, on=on) as calls:
+                server.pump()
+            if on:
+                last = calls
+        wall = time.perf_counter() - t0
+        return [t.result(timeout=600.0) for t in tickets], wall, last
+
+    def check_launches(label, got, want):
+        if got != want:
+            raise AssertionError(f"serving {label}: launches {got}, the "
+                                 f"layout implies {want}")
+
+    # epoch e0: the 64, then 16 of them again
+    reset_launches()
+    e0_resp, e0_wall, _ = serve(rows)
+    e0 = server.pinned_epoch
+    launches_e0 = read_launches()
+    check_launches("e0", launches_e0, path_launches(server.views[e0],
+                                                    n_batches))
+    rep_idx = list(range(0, len(rows), len(rows) // SERVE_REPEATS))
+    reset_launches()
+    hits, hits_wall, _ = serve([rows[i] for i in rep_idx])
+    check_launches("cache hits", read_launches(),
+                   dict.fromkeys((*ALL_KERNELS, *WEIGHT_KERNELS), 0))
+    for i, r in zip(rep_idx, hits):                              # (c)
+        want = e0_resp[i]
+        if not (r.cached and r.epoch == want.epoch == e0
+                and np.array_equal(r.doc_ids, want.doc_ids)
+                and np.array_equal(r.scores.view(np.int32),
+                                   want.scores.view(np.int32))):
+            raise AssertionError(f"serving: cache hit {i} differs from "
+                                 "the response it repeats")
+
+    # the write step, then maintenance seals the delta
+    new = corpus.generate(corpus.CorpusSpec(
+        num_docs=SERVE_NEW_DOCS, vocab=VOCAB, avg_distinct=AVG_DISTINCT,
+        seed=seed + 2))
+    t0 = time.perf_counter()
+    with server.index_lock:
+        base = si.num_docs
+        si.add_batch(new)
+        si.delete(np.arange(base, base + SERVE_NEW_DOCS, 64))
+    torch.cuda.synchronize()
+    write_s = time.perf_counter() - t0
+    fill = si.delta_fill
+    maint = IndexMaintenance(si, server.index_lock, seal_fill=SERVE_SEAL_FILL)
+    t0 = time.perf_counter()
+    did = maint.run_once()
+    torch.cuda.synchronize()
+    maint_s = time.perf_counter() - t0
+    if not did["sealed"]:
+        raise AssertionError(f"serving: maintenance did not seal the delta "
+                             f"(fill {fill}): {did}")
+    sealed = si.segments()[-1]
+
+    # epoch e1: the 64 again, the last micro-batch's kernel calls recorded
+    reset_launches()
+    e1_resp, e1_wall, e1_calls = serve(rows, record=True)
+    e1 = server.pinned_epoch
+    launches_e1 = read_launches()
+    check_launches("e1", launches_e1, path_launches(server.views[e1],
+                                                    n_batches))
+    if not e0 < e1 == si.epoch:
+        raise AssertionError(f"serving: epochs e0 {e0}, e1 {e1}, index "
+                             f"{si.epoch}")
+    serving_sites = replay(e1_calls, fds, "serving-e1", timed=False,
+                           tag="serving")                        # (g)
+    if not any(x["num_docs"] == sealed.index.docs.num_docs
+               for x in serving_sites):
+        raise AssertionError("serving: the new seal's kernel calls were not "
+                             "recorded")
+
+    def check_epoch(epoch, resp):
+        """(a) each response == ``view.topk`` on the same padded batch of
+        the pinned view, ids and score bits, with no overflow (h); (b)
+        ids == the gather oracle's but at printed near ties, scores
+        within rtol 1e-5, every id live; (d) the epoch."""
+        view = server.views[epoch]
+        swaps = []
+        for b0 in range(0, len(resp), cfg.batch_size):
+            group = resp[b0:b0 + cfg.batch_size]
+            qb = np.stack(rows[b0:b0 + cfg.batch_size])
+            ids = np.stack([r.doc_ids for r in group])
+            sc = np.stack([r.scores for r in group])
+            if any(r.epoch != epoch or r.cached or not r.ok
+                   for r in group):
+                raise AssertionError(f"serving: batch {b0} not served "
+                                     f"fresh at epoch {epoch}")
+            res, st = view.topk(qb, K, engine="fused", mode="candidates",
+                                return_stats=True)
+            if st["pair_overflow"] != 0:
+                raise AssertionError(f"serving: overflow {st}")
+            if not (np.array_equal(ids, res.doc_ids.cpu().numpy())
+                    and np.array_equal(
+                        sc.view(np.int32),
+                        res.scores.cpu().numpy().view(np.int32))):
+                raise AssertionError(f"serving: batch {b0} at epoch {epoch} "
+                                     "!= view.topk on the same batch")
+            ref = view.topk(qb, K + 1, engine="torch")
+            for case in near_tie_swaps(ids, sc, ref.doc_ids.cpu().numpy(),
+                                       ref.scores.cpu().numpy(), K):
+                case.update(batch=b0 // cfg.batch_size, epoch=epoch)
+                print(f"near-tie swap: {json.dumps(case)}")
+                swaps.append(case)
+            if not ((ids >= 0) & (ids < view.num_docs)).all() or \
+                    not view.live[ids].all():
+                raise AssertionError(f"serving: missing or dead ids at "
+                                     f"epoch {epoch}")
+        return swaps
+    swaps = check_epoch(e0, e0_resp) + check_epoch(e1, e1_resp)
+    changed_ids = sum(not np.array_equal(a.doc_ids, b.doc_ids)
+                      for a, b in zip(e0_resp, e1_resp))
+    changed = sum(not (np.array_equal(a.doc_ids, b.doc_ids)
+                       and np.array_equal(a.scores, b.scores))
+                  for a, b in zip(e0_resp, e1_resp))
+    if changed == 0:                                              # (d)
+        print("serving: no answer changed between e0 and e1, though the "
+              "live doc count behind every idf did")
+    for r in (*e0_resp, *hits, *e1_resp):                         # (e)
+        stages = r.trace.stage_durations()
+        want = ({"queue_wait", "cache_hit"} if r.cached
+                else {"queue_wait", "assemble", "score", "respond"})
+        total = sum(stages.values())
+        if set(stages) != want or \
+                abs(total - r.latency_us) > STAGE_REL * r.latency_us:
+            raise AssertionError(f"serving: stages {stages} sum to {total}, "
+                                 f"latency {r.latency_us} us")
+    overflow1 = server.metrics_snapshot()["engine_pair_overflow"]["value"]
+    if overflow1 != overflow0:                                    # (h)
+        raise AssertionError(f"serving: engine_pair_overflow grew "
+                             f"{overflow0} -> {overflow1}")
+
+    # the snapshot at full size, in memory
+    t0 = time.perf_counter()
+    state = serialize_segmented(si, server.index_lock)
+    serialize_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    si2 = restore_segmented(state, device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if si2.epoch != e1 or si2.layout_mix() != si.layout_mix():
+        raise AssertionError("serving: the restored index differs")
+    for b0 in range(0, len(rows), cfg.batch_size):
+        res = si2.topk(np.stack(rows[b0:b0 + cfg.batch_size]), K)
+        group = e1_resp[b0:b0 + cfg.batch_size]
+        if not (np.array_equal(np.stack([r.doc_ids for r in group]),
+                               res.doc_ids.cpu().numpy())
+                and np.array_equal(
+                    np.stack([r.scores for r in group]).view(np.int32),
+                    res.scores.cpu().numpy().view(np.int32))):
+            raise AssertionError(f"serving: the restored index answers "
+                                 f"batch {b0} otherwise")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    del si2, state
+    torch.cuda.empty_cache()
+
+    def lat(resp):
+        p = percentiles([r.latency_us for r in resp if not r.cached])
+        return {"p50_us": p["p50"], "p99_us": p["p99"]}
+
+    def score_children(resp):
+        """Mean ms per micro-batch of the score span's children (one
+        trace per batch: its tickets adopt the same spans)."""
+        acc: dict = {}
+        for r in resp[::cfg.batch_size]:
+            for sp in r.trace.spans:
+                if sp.parent == "score":
+                    key = sp.name + (f"@{sp.attrs['doc_base']}"
+                                     if sp.name == "segment" else "")
+                    acc[key] = acc.get(key, 0.0) + sp.duration_us / 1e3
+        return {key: ms / n_batches for key, ms in acc.items()}
+
+    def nonzero(counts):
+        return {k: v for k, v in counts.items() if v}
+    summary = server.metrics.summary()
+    line = {
+        "card": card,
+        "arrival": "closed backlog: every request submitted before "
+                   "pumping; latency includes queue wait; not an open "
+                   "arrival rate",
+        "queries": len(rows), "live_phase_queries": n_live_rows,
+        "micro_batches_per_epoch": n_batches,
+        "latency_e0": lat(e0_resp), "latency_e1": lat(e1_resp),
+        "qps_e0": len(rows) / e0_wall, "qps_e1": len(rows) / e1_wall,
+        "cache_hits_wall_s": hits_wall,
+        "qps_window": summary["qps"], "batch_fill": summary["batch_fill"],
+        "cache_hit_rate": server.cache.hit_rate,
+        "cache_hits": server.cache.hits,
+        "stages": server.stage_summary(),
+        "score_children_ms_per_batch": {"e0": score_children(e0_resp),
+                                        "e1": score_children(e1_resp)},
+        "maintenance": {"did": did, "delta_fill": fill,
+                        "seconds": maint_s,
+                        "sealed": {"doc_base": sealed.doc_base,
+                                   "docs": sealed.doc_span,
+                                   "layout": sealed.layout,
+                                   "size_class": sealed.size_class}},
+        "epochs": [e0, e1], "answers_changed": changed,
+        "ids_changed": changed_ids, "near_tie_swaps": swaps,
+        "warmup_s": warmup_s, "write_s": write_s,
+        "serialize_s": serialize_s, "restore_s": restore_s,
+        "launches": {"e0": nonzero(launches_e0),
+                     "e1": nonzero(launches_e1)},
+        "max_memory_allocated": peak,
+    }
+    report["serving"] = {**line, "kernel_sites": serving_sites}
+    print(f"serving: {json.dumps(line)}")
 
 
 # f32 operations per slot of ``idf`` (a fused multiply-add counts two):

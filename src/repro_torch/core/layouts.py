@@ -1060,6 +1060,17 @@ def build_banded(h: PostingsHost, max_band_words: int | None = None,
     return BandedCsrIndex(packed=packed, hor=hor)
 
 
+# the paper's representations by name; each builder takes ``device``
+# ("cuda" unless the caller asks for the CPU)
+REPRESENTATIONS = {
+    "pr": build_coo,            # Plain-Relational
+    "or": build_csr,            # Object-Relational
+    "cor": build_compact_csr,   # Compact Object-Relational
+    "hor": build_blocked,       # HStore Object-Relational
+    "packed": build_packed_csr,  # beyond the paper
+    "banded": build_banded,      # beyond the paper: per-term-band choice
+}
+
 LAYOUTS = {"coo": CooIndex, "csr": CsrIndex, "compact_csr": CompactCsrIndex,
            "hor": BlockedIndex, "packed": PackedCsrIndex}
 LOOKUPS = {"sorted": SortedLookup, "hash": HashLookup}

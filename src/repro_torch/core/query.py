@@ -470,3 +470,97 @@ def make_scorer(index: Any, k: int, cap: int | None, rank_blend: float = 0.0,
             stats = {"pair_overflow": 0}
         return (result, stats) if return_stats else result
     return scorer
+
+
+# ---------------------------------------------------------------------------
+# adaptive routing budgets (the fused engine's max_pairs, learned online)
+# ---------------------------------------------------------------------------
+
+
+def _pow2_at_least(n: int, floor: int = 8) -> int:
+    """Power-of-two budget quantizer: ``layouts.size_class`` at growth 2,
+    so budgets and segment size classes quantize alike."""
+    from repro_torch.core.layouts import size_class
+    return size_class(n, base=floor, growth=2)
+
+
+class AdaptiveRoutingBudget:
+    """Per-``n_terms`` routing-pair budgets learned from the fused
+    engine's overflow counter and a rolling window of observed demand.
+
+    A static ``max_pairs`` trades memory and routing work against
+    dropped postings: too small and the engine overflows (counted and
+    warned, but work is lost), too large and every batch builds and
+    sorts routing slots it never fills.  When a batch overflows, its
+    true demand is exactly ``budget + overflow`` (the counter reports
+    dropped pairs), so one growth step reaches a sufficient budget; a
+    rolling window of recent demands lets quiet buckets shrink back.
+    Budgets quantize to powers of two.  The reference's rules, unchanged.
+    """
+
+    def __init__(self, initial: int = 64, window: int = 64,
+                 shrink_ratio: int = 4):
+        self.initial = int(initial)
+        self.window = int(window)
+        self.shrink_ratio = int(shrink_ratio)
+        self._budgets: dict[int, int] = {}
+        self._demands: dict[int, list] = {}
+        self.overflows = 0          # batches that overflowed (telemetry)
+
+    def budget(self, n_terms: int) -> int:
+        return self._budgets.setdefault(
+            int(n_terms), _pow2_at_least(self.initial))
+
+    def observe(self, n_terms: int, used_budget: int,
+                overflow: int) -> None:
+        """Record one batch: ``overflow`` pairs were dropped beyond
+        ``used_budget``, so the exact demand was their sum."""
+        n_terms = int(n_terms)
+        demand = int(used_budget) + int(overflow)
+        hist = self._demands.setdefault(n_terms, [])
+        hist.append(demand)
+        del hist[:-self.window]
+        cur = self.budget(n_terms)
+        if overflow > 0:
+            self.overflows += 1
+            # one doubling of headroom past the exact demand, so
+            # batch-to-batch jitter does not overflow at the next
+            # power-of-two boundary
+            self._budgets[n_terms] = _pow2_at_least(demand) * 2
+        elif (len(hist) >= self.window and
+              _pow2_at_least(max(hist)) * self.shrink_ratio <= cur):
+            # sustained quiet: shrink toward the sampled demand (one
+            # headroom doubling), at most once per window
+            self._budgets[n_terms] = _pow2_at_least(max(hist)) * 2
+
+
+def make_adaptive_scorer(index: Any, k: int, cap: int,
+                         budget: AdaptiveRoutingBudget | None = None,
+                         **scorer_kw):
+    """Fused-engine scorer whose ``max_pairs`` follows the workload.
+
+    Batches are bucketed by their widest query (unique present terms,
+    after ``dedup_query_hashes``); each bucket's budget starts small and
+    converges through the overflow counter.  One ``make_scorer(...,
+    engine="fused", max_pairs=budget, return_stats=True)`` is kept per
+    budget, as in the reference (it holds the index and the routing
+    arguments; nothing is compiled).  Returns ``fn(query_hashes) ->
+    (QueryResult, stats)`` with the budget object on ``fn.budget``.
+    """
+    budget = budget if budget is not None else AdaptiveRoutingBudget()
+    scorers: dict[int, Callable] = {}
+
+    def scorer(query_hashes):
+        deduped = dedup_query_hashes(hash_tensor(query_hashes, "cpu"))
+        n_terms = max(int((deduped != 0).sum(dim=-1).max()), 1)
+        mp = budget.budget(n_terms)
+        if mp not in scorers:
+            scorers[mp] = make_scorer(index, k=k, cap=cap, engine="fused",
+                                      max_pairs=mp, return_stats=True,
+                                      **scorer_kw)
+        result, stats = scorers[mp](query_hashes)
+        budget.observe(n_terms, mp, int(stats["pair_overflow"]))
+        return result, stats
+
+    scorer.budget = budget
+    return scorer

@@ -314,6 +314,18 @@ class LayoutCostModel:
             f"analytic:{best} only {ratio:.2f}x hor @{size_class}"
             f" (>{self.hbm_ratio_max})"))
 
+    def to_dict(self) -> dict:
+        """The snapshot manifest's form (``serve.snapshot``, format v2+)."""
+        return {"min_packed_docs": self.min_packed_docs,
+                "hbm_ratio_max": self.hbm_ratio_max,
+                "candidates": list(self.candidates)}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "LayoutCostModel":
+        return cls(min_packed_docs=int(d["min_packed_docs"]),
+                   hbm_ratio_max=float(d["hbm_ratio_max"]),
+                   candidates=tuple(d.get("candidates", ("hor", "packed"))))
+
 
 def resolve_layout(explicit: str | None, policy, stats: SegmentStats,
                    default: str, size_class: int | None = None

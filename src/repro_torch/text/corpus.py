@@ -28,6 +28,9 @@ class CorpusSpec:
     seed: int = 0
 
 
+PAPER_SPEC = CorpusSpec(num_docs=1_004_721, vocab=216_449, avg_distinct=239)
+
+
 def _zipf_cdf(vocab: int, s: float) -> np.ndarray:
     ranks = np.arange(1, vocab + 1, dtype=np.float64)
     p = ranks ** (-s)

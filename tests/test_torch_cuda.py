@@ -1141,3 +1141,159 @@ def test_gather_refuses_id_past_table(gpu, kernel):
     assert run.returncode != 0, said
     assert "no error" not in said
     assert f"holds id {bad}" in said, said
+
+
+# ---------------------------------------------------------------------------
+# the serving tier on the card
+# ---------------------------------------------------------------------------
+
+
+def _recording_server(index, config, lock=None):
+    """A ``QueryServer`` that remembers every view it pinned, by epoch."""
+    from repro_torch.serve import QueryServer
+
+    class Server(QueryServer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.views = {self._pinned.epoch: self._pinned}
+
+        def refresh_view(self):
+            v = super().refresh_view()
+            self.views[v.epoch] = v
+            return v
+    return Server(index, config, lock)
+
+
+def _held_to_views(server, tickets, k):
+    """Every response equals ``view.topk`` (fused, candidates) of the
+    view pinned for its epoch on its own padded row, ids and score bits,
+    and its ids equal the gather oracle's there.  A row's answer does
+    not depend on the other rows of its batch."""
+    by_epoch = {}
+    for t in tickets:
+        r = t.result(timeout=120.0)
+        assert r.ok
+        by_epoch.setdefault(r.epoch, []).append(t)
+    for epoch, group in by_epoch.items():
+        view = server.views[epoch]
+        for b0 in range(0, len(group), 8):
+            part = group[b0:b0 + 8]
+            qb = np.stack([t.row for t in part])
+            want = view.topk(qb, k)
+            oracle = view.topk(qb, k, engine="torch")
+            ids = np.stack([t.response.doc_ids for t in part])
+            sc = np.stack([t.response.scores for t in part])
+            np.testing.assert_array_equal(ids, want.doc_ids.cpu().numpy())
+            np.testing.assert_array_equal(
+                sc.view(np.int32), want.scores.cpu().numpy().view(np.int32))
+            np.testing.assert_array_equal(ids, oracle.doc_ids.cpu().numpy())
+    return by_epoch
+
+
+def test_server_on_card_equals_view_and_oracle(gpu):
+    """A small live stack on the card (banded, HOR and packed seals, a
+    delta, tombstones) behind a ``QueryServer``: every response equals
+    ``view.topk`` on the same batch, ids and score bits, its ids equal
+    the oracle's, cache hits repeat it bit for bit, and each micro-batch
+    launched ``idf`` and ``query_norm`` once."""
+    from repro_torch.serve import ServerConfig
+    tc = corpus.generate(corpus.CorpusSpec(num_docs=4900, vocab=3000,
+                                           avg_distinct=30, seed=5))
+    si = _live_schedule(tc, gpu)
+    server = _recording_server(si, ServerConfig(trace_sample=1))
+    server.warmup()
+    pool = corpus.sample_query_terms(np.asarray(si._df), si.term_hashes, 16,
+                                     3, num_docs=si.live_doc_count, seed=4)
+    query.idf.launches = query.query_norm.launches = 0
+    tickets = [server.submit(q) for q in pool]
+    while server.pending:
+        server.pump()
+    assert query.idf.launches == query.query_norm.launches == 2
+    _held_to_views(server, tickets, 10)
+    query.idf.launches = 0
+    again = [server.query(q) for q in pool[:4]]
+    assert query.idf.launches == 0          # hits launch nothing
+    for r, t in zip(again, tickets):
+        assert r.cached and r.epoch == t.response.epoch
+        np.testing.assert_array_equal(r.scores.view(np.int32),
+                                      t.response.scores.view(np.int32))
+
+
+def test_threaded_server_with_maintenance_on_card(gpu):
+    """The worker thread serves while an ingest thread adds docs under
+    the lock and an ``IndexMaintenance`` thread seals and compacts:
+    every wait is bounded, and every response is held only to the view
+    recorded for its epoch.  Nothing is asserted on timing."""
+    import threading
+
+    from repro_torch.serve import IndexMaintenance, ServerConfig
+    tc = corpus.generate(corpus.CorpusSpec(num_docs=1500, vocab=800,
+                                           avg_distinct=20, seed=7))
+    si = live_index.SegmentedIndex(
+        term_hashes=tc.term_hashes, delta_doc_capacity=96,
+        delta_posting_capacity=96 * 40, seal_layout="packed", device=gpu)
+    si.add_batch(build.TokenizedCorpus(tc.doc_term_ids[:600],
+                                       tc.doc_counts[:600], tc.term_hashes,
+                                       600))
+    server = _recording_server(si, ServerConfig(batch_size=8, k=10))
+    maint = IndexMaintenance(si, server.index_lock, seal_fill=0.5,
+                             interval_s=0.001)
+    pool = corpus.sample_query_terms(np.asarray(si._df), si.term_hashes, 12,
+                                     3, num_docs=si.live_doc_count, seed=2)
+    server.warmup()
+
+    def ingest():
+        for a in range(600, 1500, 100):
+            with server.index_lock:
+                si.add_batch(build.TokenizedCorpus(
+                    tc.doc_term_ids[a:a + 100], tc.doc_counts[a:a + 100],
+                    tc.term_hashes, 100))
+                if a % 300 == 0:
+                    si.delete([a - 7, a - 50])
+
+    rng = np.random.default_rng(3)
+    server.start()
+    maint.start()
+    writer = threading.Thread(target=ingest, daemon=True)
+    writer.start()
+    tickets = []
+    for _ in range(8):
+        wave = [server.submit(pool[rng.integers(len(pool))])
+                for _ in range(12)]
+        for t in wave:
+            t.result(timeout=120.0)
+        tickets += wave
+    writer.join(timeout=300.0)
+    assert not writer.is_alive()
+    maint.stop()
+    server.stop()
+    by_epoch = _held_to_views(server, tickets, 10)
+    assert sum(len(g) for g in by_epoch.values()) == len(tickets)
+    assert maint.stats.seals >= 1
+
+
+def test_snapshot_saved_on_card_restores_on_cpu(gpu, tmp_path):
+    """A snapshot of an index on the card loads on the CPU (and back on
+    the card) with the same answers: ids and score bits in both modes,
+    and the oracle's ids."""
+    from repro_torch.serve import load_segmented, save_segmented
+    tc = corpus.generate(corpus.CorpusSpec(num_docs=4900, vocab=3000,
+                                           avg_distinct=30, seed=5))
+    card = _live_schedule(tc, gpu)
+    path = tmp_path / "live.npz"
+    save_segmented(card, path)
+    cpu = load_segmented(path, device="cpu")
+    back = load_segmented(path, device=gpu)
+    assert cpu.device.type == "cpu" and back.device.type == "cuda"
+    assert cpu.layout_mix() == card.layout_mix() == back.layout_mix()
+    qh = corpus.sample_query_terms(np.asarray(card._df), card.term_hashes, 8,
+                                   8, num_docs=card.live_doc_count, seed=6)
+    for kw in (dict(mode="candidates"), dict(mode="dense")):
+        want = card.topk(qh, k=10, **kw)
+        for other in (cpu, back):
+            got = other.topk(qh, k=10, **kw)
+            assert torch.equal(got.doc_ids.cpu(), want.doc_ids.cpu())
+            assert torch.equal(got.scores.cpu().view(torch.int32),
+                               want.scores.cpu().view(torch.int32))
+    assert torch.equal(cpu.topk(qh, k=10, engine="torch").doc_ids,
+                       card.topk(qh, k=10, engine="torch").doc_ids.cpu())

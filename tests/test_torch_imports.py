@@ -24,14 +24,19 @@ def test_port_imports_neither_jax_nor_repro():
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
-        "assert len(mods) >= 21, mods\n"
+        "assert len(mods) >= 35, mods\n"
         "new = {'repro_torch.core.segments',\n"
         "       'repro_torch.core.direct_index',\n"
         "       'repro_torch.kernels.posting_score',\n"
         "       'repro_torch.kernels.packed_postings',\n"
         "       'repro_torch.kernels.embedding_bag',\n"
         "       'repro_torch.kernels.segment_multi_agg',\n"
-        "       'repro_torch.kernels.flash_attention'}\n"
+        "       'repro_torch.kernels.flash_attention',\n"
+        "       'repro_torch.serve', 'repro_torch.serve.cache',\n"
+        "       'repro_torch.serve.maintenance',\n"
+        "       'repro_torch.serve.metrics', 'repro_torch.serve.server',\n"
+        "       'repro_torch.serve.snapshot', 'repro_torch.launch',\n"
+        "       'repro_torch.launch.serve'}\n"
         "assert new <= set(mods), sorted(new - set(mods))\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))
