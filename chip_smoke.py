@@ -153,18 +153,48 @@
    touches, plus the ids and the output, at 3.35 TB/s), the least a
    gather moves when no row comes from cache; the bound counts each
    distinct row once.
+10. The tuning phase, after every other event timing: the tuned-geometry
+   path at the 1M tier.  On freshly built HOR and packed indexes,
+   ``autotune.autotune_index(index, qh, idf_w, k=10, reps=TUNE_REPS)``
+   sweeps the reference's eight candidate configs (the default, tiles 256
+   and 1,024, the bitonic reducer, two pairs per step, k_tile 32 with
+   each reducer, tile 1,024 with two pairs per step) over the first bulk
+   batch, with every launch counter reset just before and read just
+   after; the winner goes into a fresh ``TuningTable`` under ("cuda",
+   size class, layout), which round-trips through ``save`` / ``load`` in
+   a temporary directory.  Checks, in this order: (e) on the live
+   phase's index (after the serving phase; then freed), one batch per
+   mode with ``tune=TuneConfig(reducer="bitonic")`` and one with each
+   winner give the untuned answers, and the bitonic batch's candidate
+   kernel calls equal their plain versions; (a) every config gives the
+   default config's answer on every bulk batch, ids and score bits, with
+   no routing overflow; (b) every bitonic call on the bulk batches
+   equals its plain version (``reducer="bitonic"``) to the bit, and the
+   successive kernel's ids (and value bits, but at signed zeros, whose
+   count is printed), and the ids of a stable ``torch.sort`` of the dense
+   kernel's tiled final scores; (c) with the loaded table active,
+   ``make_scorer(engine="fused")`` gives the empty table's answers
+   through the winner's kernel; (d) ``LayoutCostModel().choose`` at the
+   1M class gives a ``measured:cuda@...`` reason; (f) the empty table
+   is active again.  Prints a ``tune <layout>:`` line per layout (each
+   config's median ms, ``max_pairs``, peak memory and candidate bytes
+   per query, the winner, default / winner) and a ``tune kernel site:``
+   line per bitonic config: its ms by events over the last two bulk
+   batches, in turns with the successive kernel on the same pairs and
+   with the plain version, its bound and the ``torch.sort`` yardstick.
 9. Last, after every event timing (a trace slows the launches timed
    after it): one ``torch.profiler`` trace of each live call site of
    the four fused kernels, of the last bulk batch's candidate call per
-   layout, of both side kernels, of the two weights kernels and of every
-   model site (``MODEL_TRACED`` calls after one warm-up), printed as
-   device ms per launch beside the event ms (for the bag and PNA sites
-   with the host's share of the event time).
+   layout, of each bitonic site's last call, of both side kernels, of
+   the two weights kernels and of every model site (``MODEL_TRACED``
+   calls after one warm-up), printed as device ms per launch beside the
+   event ms (for the bag and PNA sites with the host's share of the
+   event time).
    Then per-phase wall
-   times, a ``{"kernels": [...]}`` line with all nine kernels and the
-   two weights kernels (means per launch over every counted call site
-   of the paths; ``device_ms`` where every site was traced) and, last,
-   ``{"ok": true, "device": {...}}``.
+   times, a ``{"kernels": [...]}`` line with all nine kernels, the two
+   bitonic entry points and the two weights kernels (means per launch
+   over every counted call site of the paths; ``device_ms`` where every
+   site was traced) and, last, ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.  Every failed check raises.
@@ -192,6 +222,7 @@ BATCHES = 5                   # query batches served per layout
 REPS = 5                      # timing rounds over all batches per turn
 MODEL_TRACED = 3              # traced calls per model site (step 9)
 ADAPTIVE_ROUNDS = 2           # passes of the adaptive scorer over BATCHES
+TUNE_REPS = 3                 # timed calls per config of the sweep (step 10)
 KERNELS = {
     "fused_topk_blocked": ("hor", "src/repro/kernels/fused_decode_score.py:513"),
     "fused_topk_packed": ("packed",
@@ -204,6 +235,16 @@ DENSE_KERNELS = {
                            "src/repro/kernels/fused_decode_score.py:342"),
 }
 FUSED_KERNELS = (*KERNELS, *DENSE_KERNELS)
+# the bitonic epilogue of the candidate kernels (reducer="bitonic"): its own
+# entry points and launch counters (``launches_bitonic``)
+BITONIC_KERNELS = {
+    "fused_topk_blocked_bitonic": (
+        "hor", "src/repro/kernels/fused_decode_score.py:194",
+        "fused_topk_blocked"),
+    "fused_topk_packed_bitonic": (
+        "packed", "src/repro/kernels/fused_decode_score.py:194",
+        "fused_topk_packed"),
+}
 PAPER_KERNELS = {
     "posting_score": "src/repro/kernels/posting_score.py:87",
     "unpack_blocks": "src/repro/kernels/packed_postings.py:46",
@@ -213,7 +254,8 @@ MODEL_KERNELS = {
     "pna_multi_agg": "src/repro/kernels/segment_multi_agg.py:59",
     "flash_attention": "src/repro/kernels/flash_attention.py:78",
 }
-ALL_KERNELS = (*FUSED_KERNELS, *PAPER_KERNELS, *MODEL_KERNELS)
+ALL_KERNELS = (*FUSED_KERNELS, *BITONIC_KERNELS, *PAPER_KERNELS,
+               *MODEL_KERNELS)
 # the query weights' kernels (csrc/query_weights.cu): every bulk and live
 # batch launches them; they replace XLA code of the reference, not Pallas
 WEIGHT_KERNELS = {
@@ -369,6 +411,11 @@ SYMBOLS = {"posting_score": "posting_score_kernel",
                "score_kernel<fused_score::DenseOut, fused_score::HorBlocks",
            "fused_score_packed":
                "score_kernel<fused_score::DenseOut, fused_score::PackedBlocks",
+           "fused_topk_blocked_bitonic":
+               "score_kernel<fused_score::BitonicOut, fused_score::HorBlocks",
+           "fused_topk_packed_bitonic":
+               "score_kernel<fused_score::BitonicOut, "
+               "fused_score::PackedBlocks",
            "embedding_bag": "bag_kernel", "pna_multi_agg": "pna_kernel",
            "flash_attention": "flash_"}
 
@@ -439,13 +486,23 @@ def wrappers():
     return out
 
 
+def counters():
+    """Each kernel's launch counter, by name: (wrapper, attribute); the
+    bitonic epilogue counts on its candidate wrapper's
+    ``launches_bitonic``."""
+    out = {n: (fn, "launches") for n, fn in wrappers().items()}
+    out.update({n: (out[base][0], "launches_bitonic")
+                for n, (_, _, base) in BITONIC_KERNELS.items()})
+    return out
+
+
 def reset_launches():
-    for fn in wrappers().values():
-        fn.launches = 0
+    for fn, attr in counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_launches():
-    return {n: fn.launches for n, fn in wrappers().items()}
+    return {n: getattr(fn, attr) for n, (fn, attr) in counters().items()}
 
 
 def near_tie_swaps(ids, scores, ref_ids, ref_scores, k):
@@ -724,7 +781,6 @@ def main() -> int:
 
     t_phase = time.perf_counter()
     serving_phase(si, batches, a.seed, dev, report, card)
-    del si
     torch.cuda.empty_cache()
     phase_s["serving"] = time.perf_counter() - t_phase
     print(f"phase serving: {phase_s['serving']:.1f} s")
@@ -742,6 +798,21 @@ def main() -> int:
     traces.update(model_traces)
     phase_s["model"] = time.perf_counter() - t_phase
     print(f"phase model: {phase_s['model']:.1f} s")
+
+    t_phase = time.perf_counter()
+    state = tuning_sweep(host, cap, batches, dev)
+    tune_live = tuning_live(si, batches, state)
+    del si
+    torch.cuda.empty_cache()
+    tune_sites, tune_traces = tuning_checks(host, batches, cap, dev, report,
+                                            state)
+    report["tuning"]["live"] = tune_live
+    del state
+    torch.cuda.empty_cache()
+    sites += tune_sites
+    traces.update(tune_traces)
+    phase_s["tuning"] = time.perf_counter() - t_phase
+    print(f"phase tuning: {phase_s['tuning']:.1f} s")
 
     # last, after every event timing: the traced sites' device time
     t_phase = time.perf_counter()
@@ -810,14 +881,16 @@ def recording(ops, on=True):
             setattr(ops, n, fn)
 
 
-def site_stats(name, args, num_docs, tile):
+def site_stats(name, args, num_docs, tile, reducer="successive"):
     """A fused call's runs (``run_stats``), and the CTAs per SM and
-    dynamic shared memory per CTA of the kernel it launches."""
+    dynamic shared memory per CTA of the kernel it launches (a candidate
+    kernel by ``reducer``'s epilogue)."""
     from repro_torch.kernels import fused_decode_score as fds
     stats = run_stats(args[3], num_docs, tile)
     wpb = args[0].shape[1] if name.endswith("_packed") else 0
     stats["ctas_per_sm"], stats["smem_bytes"] = fds.occupancy(
-        name, args[4].shape[1], tile, wpb)
+        name, args[4].shape[1], tile, wpb,
+        reducer if name in KERNELS else "successive")
     return stats
 
 
@@ -830,7 +903,7 @@ def replay(calls, fds, label, timed=True, tag="live"):
     sites = []
     for i, (name, args, kw) in enumerate(calls):
         wrapper, plain = getattr(fds, name), getattr(fds, name + "_plain")
-        pkw = {k: v for k, v in kw.items() if k != "reducer"}
+        pkw = kw
         got, want = wrapper(*args, **kw), plain(*args, **pkw)
         torch.cuda.synchronize()
         if name in DENSE_KERNELS:
@@ -844,8 +917,10 @@ def replay(calls, fds, label, timed=True, tag="live"):
             nbytes, nops, real, blocks, _ = kernel_work(
                 KERNELS[name][0], args, kw["tile"], BATCH)
             num_docs = args[-2 if name == "fused_topk_blocked" else -3]
-        extra = site_stats(name, args, num_docs, kw["tile"])
-        site = {"site": f"{label}#{i}:{name}@{num_docs}", "kernel": name,
+        reducer = kw.get("reducer", "successive")
+        extra = site_stats(name, args, num_docs, kw["tile"], reducer)
+        kname = name + ("_bitonic" if reducer == "bitonic" else "")
+        site = {"site": f"{label}#{i}:{kname}@{num_docs}", "kernel": kname,
                 "num_docs": int(num_docs),
                 "max_pairs": int(args[2].shape[0]), "real_pairs": real,
                 "distinct_blocks": blocks, "bytes": nbytes, "ops": nops,
@@ -2201,6 +2276,332 @@ def model_phase(seed, dev, report):
     return sites, traces
 
 
+# tuning phase: the tuned-geometry path at the 1M tier
+
+
+def bitonic_work(kind, args, tile, q_real):
+    """(bytes, ops) a bitonic candidate call must move/do at least: the
+    candidate kernel's bytes (``kernel_work``: the routed blocks, the real
+    pairs' rows, norm/rank of visited tiles, the candidates written) and,
+    per posting lane, Q products + Q adds; per (query, doc) of a visited
+    tile, the 5-op scoring tail and one compare per stage of the
+    network."""
+    nbytes, _, real, blocks, tiles = kernel_work(kind, args, tile, q_real)
+    lg = tile.bit_length() - 1
+    stages = lg * (lg + 1) // 2
+    ops = blocks * 128 * 2 * q_real + q_real * tiles * tile * (5 + stages)
+    return nbytes, ops, real, blocks, tiles
+
+
+def same_answer(a, b):
+    """Two QueryResults equal in ids and score bits."""
+    import torch
+    return torch.equal(a.doc_ids, b.doc_ids) and torch.equal(
+        a.scores.view(torch.int32), b.scores.view(torch.int32))
+
+
+def tuning_sweep(host, cap, batches, dev):
+    """Step 10's sweep: the HOR and the packed index built afresh,
+    ``autotune_index`` over the first bulk batch on each (the tuned
+    path's main run: every counter from zero just before, read just
+    after), the winners in a fresh table that round-trips through a file
+    in a temporary directory.  Returns the tuning state the later checks
+    take."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.core import layouts, query
+    from repro_torch.kernels import autotune
+
+    if len(autotune.get_active()):
+        raise AssertionError("tuning: the active table is not empty")
+    builders = {"hor": layouts.build_blocked,
+                "packed": layouts.build_packed_csr}
+    state = {"table": autotune.TuningTable(), "layouts": {},
+             "memory_allocated_at_start": torch.cuda.memory_allocated(dev)}
+    for name, (kind, _) in KERNELS.items():
+        bname = name + "_bitonic"
+        t0 = time.perf_counter()
+        ix = builders[kind](host, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        qh0 = query.dedup_query_hashes(layouts.hash_tensor(batches[0], dev))
+        _, idf0 = query.lookup_query(ix, qh0)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        best, records = autotune.autotune_index(
+            ix, qh0, idf0, k=K, cap=cap, reps=TUNE_REPS,
+            table=state["table"])
+        sweep_s = time.perf_counter() - t0
+        launches = read_launches()
+        configs = [autotune.TuneConfig.from_dict(r["config"])
+                   for r in records]
+        n_bit = sum(c.reducer == "bitonic" for c in configs)
+        want = {name: (len(configs) - n_bit) * (1 + TUNE_REPS),
+                bname: n_bit * (1 + TUNE_REPS)}
+        if len(configs) != 8 or n_bit == 0 or any(
+                launches[n] != want.get(n, 0) for n in ALL_KERNELS):
+            raise AssertionError(f"tuning {kind}: the sweep of {len(configs)}"
+                                 f" configs launched {launches}")
+        state["layouts"][kind] = {
+            "index": ix, "name": name, "best": best, "records": records,
+            "configs": configs, "build_s": build_s, "sweep_s": sweep_s,
+            "size_class": autotune.size_class_of(int(ix.docs.num_docs)),
+            "sweep_launches": {n: launches[n] for n in (name, bname)}}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "tuned.json"
+        state["table"].save(str(path))
+        state["loaded"] = autotune.TuningTable.load(str(path))
+    if state["loaded"].to_dict() != state["table"].to_dict() or any(
+            state["loaded"].get(dev.type, lay["size_class"], kind)
+            != lay["best"] for kind, lay in state["layouts"].items()):
+        raise AssertionError("tuning: the table's round trip changed it")
+    return state
+
+
+def tuning_live(si, batches, state):
+    """Step 10 (e): on the live phase's index, one batch per mode with
+    every segment on the bitonic reducer, and one with each winner, give
+    the untuned answers, ids and score bits, with no routing overflow;
+    the bitonic candidate batch launches both bitonic kernels, and each
+    of its candidate kernel calls equals its plain version."""
+    from repro_torch.kernels import autotune, ops
+    from repro_torch.kernels import fused_decode_score as fds
+
+    view = si.view()
+    tunes = {"bitonic": autotune.TuneConfig(reducer="bitonic")}
+    for kind, lay in state["layouts"].items():
+        if lay["best"] not in tunes.values():
+            tunes[f"winner_{kind}"] = lay["best"]
+    live = {}
+    for label, cfg in tunes.items():
+        for mode in ("candidates", "dense"):
+            want = view.topk(batches[0], K, mode=mode)
+            reset_launches()
+            with recording(ops, on=label == "bitonic") as calls:
+                res, stats = view.topk(batches[0], K, mode=mode, tune=cfg,
+                                       return_stats=True)
+            got = read_launches()
+            # the dense calls were held to their plain versions in step 6
+            calls = [c for c in calls if c[0] in KERNELS]
+            if stats["pair_overflow"] or not same_answer(res, want):
+                raise AssertionError(f"tuning live {label} {mode}: answer "
+                                     "differs from the untuned one")
+            if label == "bitonic" and mode == "candidates" and not all(
+                    got[n] for n in BITONIC_KERNELS):
+                raise AssertionError(f"tuning live: bitonic launches {got}")
+            held = replay(calls, fds, f"tune-live-{mode}", timed=False,
+                          tag="tune live") if calls else []
+            live[f"{label}/{mode}"] = {
+                "launches": {n: v for n, v in got.items() if v},
+                "held_calls": len(held)}
+            del calls
+    print(f"tune live: {json.dumps(live)}")
+    return live
+
+
+def tuning_checks(host, batches, cap, dev, report, state):
+    """Step 10 (a)-(d) and (f) on the swept indexes, and each bitonic
+    config's site: held to its plain version on every bulk batch and
+    timed in turns.  Returns the bitonic sites and their traces."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import layouts, query, size_model
+    from repro_torch.kernels import autotune, ops
+    from repro_torch.kernels import fused_decode_score as fds
+
+    tuning = {"memory_allocated_at_start":
+              state["memory_allocated_at_start"]}
+    # (a) every config on every bulk batch gives the default config's
+    # answer, ids and score bits, with no routing overflow
+    answers = {}
+    for kind, lay in state["layouts"].items():
+        ix = lay["index"]
+        default = query.make_scorer(ix, k=K, cap=cap, engine="fused")
+        answers[kind] = [default(qb) for qb in batches]
+        rows = []
+        for cfg, rec in zip(lay["configs"], lay["records"]):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            scorer = query.make_scorer(ix, k=K, cap=cap, engine="fused",
+                                       return_stats=True, tune=cfg)
+            for i, (qb, want) in enumerate(zip(batches, answers[kind])):
+                res, stats = scorer(qb)
+                if stats["pair_overflow"] or not same_answer(res, want):
+                    raise AssertionError(
+                        f"tuning {kind} {cfg}: batch {i} differs from the "
+                        f"default config's (overflow "
+                        f"{stats['pair_overflow']})")
+            torch.cuda.synchronize()
+            rows.append({
+                "config": rec["config"], "median_ms": rec["median_s"] * 1e3,
+                "max_pairs": ops.padded_pairs_budget(ix, cfg.tile,
+                                                     cfg.pairs_per_step),
+                "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+                "candidate_bytes_per_query":
+                    rec["candidate_bytes_per_query"],
+                "is_default": rec["is_default"]})
+        lay["rows"] = rows
+
+    # (b) every bitonic call on every bulk batch equals its plain version
+    # to the bit, and the successive kernel's ids (and value bits but at
+    # signed zeros); each bitonic config's site timed over the last two
+    # batches in turns with the successive kernel and the plain version
+    sites, traces = [], {}
+    for kind, lay in state["layouts"].items():
+        ix, name = lay["index"], lay["name"]
+        bname = name + "_bitonic"
+        wrapper, plain = getattr(fds, name), getattr(fds, name + "_plain")
+        num_docs = int(ix.docs.num_docs)
+        for cfg in lay["configs"]:
+            if cfg.reducer != "bitonic":
+                continue
+            k_tile = cfg.resolve_k_tile(K)
+            calls, work = [], []
+            max_err, signed_zeros = 0.0, 0
+            for i, qb in enumerate(batches):
+                tids, idf_t = query.lookup_query(
+                    ix, layouts.hash_tensor(qb, dev))
+                _, _, args, kw, _ = ops.fused_topk_args(
+                    ix, tids, idf_t, cap, K, tile=cfg.tile, k_tile=k_tile,
+                    q_pad=cfg.q_pad, pairs_per_step=cfg.pairs_per_step)
+                bkw = dict(kw, reducer="bitonic")
+                got, want = wrapper(*args, **bkw), plain(*args, **bkw)
+                succ = wrapper(*args, **kw)
+                torch.cuda.synchronize()
+                eq, err = same_candidates(got, want)
+                max_err = max(max_err, err)
+                if not eq:
+                    raise AssertionError(f"{bname} {cfg}: kernel != plain "
+                                         f"version (max abs err {err})")
+                if not torch.equal(got[1], succ[1]):
+                    raise AssertionError(f"{bname} {cfg}: ids != the "
+                                         "successive kernel's")
+                differ = got[0].view(torch.int32) != succ[0].view(torch.int32)
+                zero = differ & (got[0] == 0) & (succ[0] == 0)
+                if bool((differ & ~zero).any()):
+                    raise AssertionError(f"{bname} {cfg}: values != the "
+                                         "successive kernel's")
+                signed_zeros += int(zero.sum())
+                work.append(bitonic_work(kind, args, cfg.tile, BATCH))
+                if i >= len(batches) - 2:
+                    calls.append(args)
+                del got, want, succ
+            b1 = event_ms(lambda *c: wrapper(*c, **bkw), calls, REPS)
+            s1 = event_ms(lambda *c: wrapper(*c, **kw), calls, REPS)
+            plain_ms = event_ms(lambda *c: plain(*c, **bkw), calls, 1)
+            b2 = event_ms(lambda *c: wrapper(*c, **bkw), calls, REPS)
+            s2 = event_ms(lambda *c: wrapper(*c, **kw), calls, REPS)
+            clocks = smi("clocks.sm,clocks.mem,power.draw,temperature.gpu")
+            # the library yardstick: one stable descending torch.sort of
+            # each tile of the dense kernel's final scores (the last
+            # batch's), as extract_tile_candidates takes them; it gives
+            # the kernel's candidate ids
+            got_ids = wrapper(*calls[-1], **bkw)[1][:BATCH]
+            tids, idf_t = query.lookup_query(
+                ix, layouts.hash_tensor(batches[-1], dev))
+            dk, _, dargs, dkw, _ = ops.fused_score_args(
+                ix, tids, idf_t, cap, tile=cfg.tile, q_pad=cfg.q_pad)
+            final = query.final_scores(dk(*dargs, **dkw)[:BATCH],
+                                       ix.docs.norm, ix.docs.rank,
+                                       query.query_norm(idf_t), 0.0)
+            del dargs
+            if not torch.equal(fds.extract_tile_candidates(
+                    final, cfg.tile, k_tile)[1], got_ids):
+                raise AssertionError(f"{bname} {cfg}: the sorted dense "
+                                     "scores give other candidates")
+            n_tiles = -(-num_docs // cfg.tile)
+            tiled = torch.nn.functional.pad(
+                final, (0, n_tiles * cfg.tile - num_docs),
+                value=float("-inf")).view(BATCH, n_tiles, cfg.tile)
+            library_ms = event_ms(lambda: torch.sort(
+                tiled, dim=-1, descending=True, stable=True), [()], REPS)
+            del final, tiled
+            label = "bitonic" if cfg.k_tile is None else f"k{k_tile}_bitonic"
+            nbytes = float(np.mean([w[0] for w in work]))
+            nops = float(np.mean([w[1] for w in work]))
+            site = {
+                "site": f"tune:{bname}@{num_docs}:{label}", "kernel": bname,
+                "config": cfg.to_dict(), "k_tile": k_tile,
+                "launches": 1 + TUNE_REPS, "max_abs_err": max_err,
+                "signed_zero_differences": signed_zeros,
+                "kernel_ms": (b1 + b2) / 2, "kernel_ms_turns": [b1, b2],
+                "successive_ms": (s1 + s2) / 2,
+                "successive_ms_turns": [s1, s2], "plain_ms": plain_ms,
+                "library_ms": library_ms, "bytes": nbytes, "ops": nops,
+                "t_bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                "t_ops_ms": nops / F32_OPS_PER_S * 1e3,
+                "clocks_sm_mem_power_temp": clocks,
+                **site_stats(name, calls[-1], num_docs, cfg.tile, "bitonic")}
+            sites.append(site)
+            print(f"tune kernel site: {json.dumps(site)}")
+            traces[site["site"]] = (bname, functools.partial(wrapper, **bkw),
+                                    [calls[-1]])
+            del calls
+            torch.cuda.empty_cache()
+
+    # (c) the table, as loaded, active: make_scorer gives the empty
+    # table's answers, through the winner's kernel
+    for kind, lay in state["layouts"].items():
+        ix, name, best = lay["index"], lay["name"], lay["best"]
+        autotune.set_active(state["loaded"])
+        try:
+            scorer = query.make_scorer(ix, k=K, cap=cap, engine="fused",
+                                       return_stats=True)
+            reset_launches()
+            for i, (qb, want) in enumerate(zip(batches, answers[kind])):
+                res, stats = scorer(qb)
+                if stats["pair_overflow"] or not same_answer(res, want):
+                    raise AssertionError(f"tuning {kind}: batch {i} with the "
+                                         "table active differs")
+            tabled = read_launches()
+        finally:
+            autotune.set_active(None)
+        ran = name + "_bitonic" if best.reducer == "bitonic" else name
+        if tabled[ran] != len(batches):
+            raise AssertionError(f"tuning {kind}: the table's winner ran "
+                                 f"{tabled}")
+        default_ms = [r["median_ms"] for r in lay["rows"]
+                      if r["is_default"]][0]
+        best_ms = [r["median_ms"] for r in lay["rows"]
+                   if r["config"] == best.to_dict()][0]
+        tuning[kind] = {
+            "index_build_s": lay["build_s"], "sweep_s": lay["sweep_s"],
+            "size_class": lay["size_class"], "configs": lay["rows"],
+            "winner": best.to_dict(),
+            "default_over_winner": default_ms / best_ms,
+            "sweep_launches": lay["sweep_launches"],
+            "tabled_launches": {n: tabled[n]
+                                for n in (name, name + "_bitonic")}}
+        print(f"tune {kind}: {json.dumps(tuning[kind])}")
+
+    # (d) the layout chooser reads both measured costs at the 1M class
+    cls_ = state["layouts"]["hor"]["size_class"]
+    autotune.set_active(state["loaded"])
+    try:
+        d = size_model.LayoutCostModel().choose(size_model.SegmentStats(
+            num_docs=host.num_docs, num_postings=host.num_postings,
+            num_terms=host.num_terms), size_class=cls_,
+            device_type=dev.type)
+    finally:
+        autotune.set_active(None)
+    if not d.reason.startswith(f"measured:{dev.type}@{cls_} "):
+        raise AssertionError(f"tuning: the chooser's reason {d.reason!r}")
+    tuning["layout_decision"] = dataclasses.asdict(d)
+    tuning["table"] = state["loaded"].to_dict()
+    print(f"tune table: {json.dumps(tuning['table'])}; layout decision "
+          f"{json.dumps(tuning['layout_decision'])}")
+    # (f) the empty table again before the trace
+    autotune.set_active(None)
+    if len(autotune.get_active()):
+        raise AssertionError("tuning: the active table is not empty")
+    report["tuning"] = tuning
+    return sites, traces
+
 def kernel_rows(sites):
     """One row per kernel for the ``kernels`` line: ``launches`` sums
     the counted runs of every path, and ``ms``, ``plain_ms`` and
@@ -2209,6 +2610,10 @@ def kernel_rows(sites):
     import numpy as np
     rows = []
     replaced = {n: r for n, (_, r) in {**KERNELS, **DENSE_KERNELS}.items()}
+    replaced.update({n: r for n, (_, r, _) in BITONIC_KERNELS.items()})
+    source = {n: n for n in (*FUSED_KERNELS, *PAPER_KERNELS, *MODEL_KERNELS)}
+    source.update({n: "query_weights" for n in WEIGHT_KERNELS})
+    source.update({n: base for n, (_, _, base) in BITONIC_KERNELS.items()})
     for name, replaces in {**replaced, **PAPER_KERNELS, **MODEL_KERNELS,
                            **WEIGHT_KERNELS}.items():
         mine = [x for x in sites if x["kernel"] == name]
@@ -2223,9 +2628,7 @@ def kernel_rows(sites):
         dev = [x.get("device_ms") for x in mine]
         rows.append({
             "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/"
-                      + ("query_weights" if name in WEIGHT_KERNELS
-                         else name) + ".cu",
+            "source": f"src/repro_torch/kernels/csrc/{source[name]}.cu",
             "replaces": replaces, "launches": int(sum(w)),
             "max_abs_err": max(x["max_abs_err"] for x in mine),
             "ms": mean("kernel_ms"), "plain_ms": mean("plain_ms"),

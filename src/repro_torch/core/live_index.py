@@ -360,7 +360,7 @@ class LiveView:
     def topk(self, query_hashes, k: int, *, cap: int | None = None,
              rank_blend: float = 0.0, engine: str = "fused",
              mode: str = "candidates", return_stats: bool = False,
-             trace=None):
+             tune=None, trace=None):
         """Batched top-k over this view's delta + sealed segments.
 
         query_hashes u32[B, T] (numpy, or an int32 bit-view tensor).
@@ -371,9 +371,12 @@ class LiveView:
         candidates could not merge).  ``engine="torch"`` is the gather
         oracle.  ``cap`` defaults to each segment's (quantized) full
         posting length.  Kernel geometry resolves per segment from the
-        tuning table; the delta scores at the default tile.  ``trace`` optionally takes an ``obs.trace.Trace``:
-        a ``segment`` child span of ``score`` per sealed segment, one for
-        the delta, one for the host merge; the results do not change."""
+        active tuning table (each segment's device type, size class and
+        layout), or from ``tune`` (a ``kernels.autotune.TuneConfig``) for
+        every segment; the delta scores at the default tile.  ``trace``
+        optionally takes an ``obs.trace.Trace``: a ``segment`` child span
+        of ``score`` per sealed segment, one for the delta, one for the
+        host merge; the results do not change."""
         if engine not in ("fused", "torch"):
             raise ValueError(f"unknown engine: {engine!r}")
         if mode not in ("candidates", "dense"):
@@ -386,8 +389,8 @@ class LiveView:
         vals, ids, overflows = [], [], []
         for seg in self.segments:
             ix = seg.index
-            cfg = autotune.lookup(ix.device.type, int(ix.docs.num_docs),
-                                  seg.layout)
+            cfg = (tune if tune is not None else autotune.lookup(
+                ix.device.type, int(ix.docs.num_docs), seg.layout))
             seg_kt = cfg.resolve_k_tile(k)
             if seg.layout == "banded":
                 mp_p, mp_h = ops.banded_pairs_budgets(ix, cfg.tile,
@@ -905,7 +908,7 @@ class SegmentedIndex:
             num_terms=n_terms_seg)
         layout, reason = size_model.resolve_layout(
             layout, self._layout_policy, run_stats, self._seal_layout,
-            size_class=d_pad)
+            size_class=d_pad, device_type=self._device.type)
         if layout not in LAYOUTS:
             raise ValueError(f"unknown seal layout: {layout!r}")
         # the routing cache is built at the tile width the tuning table
@@ -1042,7 +1045,8 @@ class SegmentedIndex:
             return None
         current = [s.layout for s in self._segments]
         wanted = [self._layout_policy.choose(
-            s.stats, size_class=s.size_class).layout
+            s.stats, size_class=s.size_class,
+            device_type=self._device.type).layout
             for s in self._segments]
         return compaction.pick_layout_rewrite(current, wanted)
 
@@ -1150,13 +1154,14 @@ class SegmentedIndex:
     def topk(self, query_hashes, k: int, *, cap: int | None = None,
              rank_blend: float = 0.0, engine: str = "fused",
              mode: str = "candidates", return_stats: bool = False,
-             trace=None):
+             tune=None, trace=None):
         """Batched top-k over delta + every sealed segment, evaluated
-        against the current epoch's view (see ``LiveView.topk``)."""
+        against the current epoch's view (see ``LiveView.topk``);
+        ``tune`` overrides the active tuning table for every segment."""
         return self.view().topk(query_hashes, k, cap=cap,
                                 rank_blend=rank_blend, engine=engine,
                                 mode=mode, return_stats=return_stats,
-                                trace=trace)
+                                tune=tune, trace=trace)
 
     def conjunctive(self, query_hashes, k: int, cap: int):
         """AND semantics over the whole live index for ONE query [T];

@@ -431,25 +431,28 @@ def make_scorer(index: Any, k: int, cap: int | None, rank_blend: float = 0.0,
     or ``"dense"`` — same ranked results, one pass over the routed
     posting blocks.  A ``SegmentedIndex`` goes to its own multi-segment
     path (``SegmentedIndex.topk``; ``cap=None`` reads each segment's
-    full lists).  The scorer takes u32 query hashes [B, T] (numpy, or an
-    int32 bit-view tensor) and returns a QueryResult, or (QueryResult,
-    stats) with ``return_stats=True``.
+    full lists).  ``tune`` (a ``kernels.autotune.TuneConfig``) fixes the
+    fused engine's geometry, for every segment of a ``SegmentedIndex``;
+    ``None`` looks up the active tuning table when the scorer is called.
+    The scorer takes u32 query hashes [B, T] (numpy, or an int32 bit-view
+    tensor) and returns a QueryResult, or (QueryResult, stats) with
+    ``return_stats=True``.
     """
     if engine not in ("torch", "fused"):
         raise ValueError(f"unknown engine: {engine!r}")
     _check_mode(mode)
     from repro_torch.core.live_index import SegmentedIndex
     if isinstance(index, SegmentedIndex):
-        if max_pairs is not None or tune is not None:
+        if max_pairs is not None:
             raise ValueError(
-                "max_pairs and tune are not configurable for a "
-                "SegmentedIndex: each sealed segment carries its own "
-                "size-class budget and tuned geometry")
+                "max_pairs is not configurable for a SegmentedIndex: each "
+                "sealed segment carries its own size-class budget")
 
         def live_scorer(query_hashes):
             return index.topk(query_hashes, k, cap=cap,
                               rank_blend=rank_blend, engine=engine,
-                              mode=mode, return_stats=return_stats)
+                              mode=mode, return_stats=return_stats,
+                              tune=tune)
         return live_scorer
     if engine == "fused":
         from repro_torch.core.layouts import BlockedIndex, PackedCsrIndex

@@ -11,9 +11,11 @@ total postings (sum over docs of distinct words), W distinct words, t
 the per-tuple DBMS overhead (40 bytes in PSQL), f the field size (4
 bytes for int4/float4).
 
-The chooser's measured rung (tuning-table costs of both layouts) waits
-for the H100 tuning sweep; until then every decision comes from the
-byte model, as the reference's does while its table is empty.
+The chooser prefers measured costs: when the active tuning table
+(``kernels.autotune``) holds the sweep's median seconds for every
+candidate layout at the run's (device type, size class), the fastest
+wins; otherwise the byte model decides, and a partial sweep says so in
+the reason.
 """
 from __future__ import annotations
 
@@ -288,12 +290,44 @@ class LayoutCostModel:
             return est_banded_posting_bytes(stats)
         return est_hor_posting_bytes(stats)
 
-    def choose(self, stats: SegmentStats,
-               size_class: int | None = None) -> LayoutDecision:
-        """Pick a layout for a run shaped like ``stats`` (reason strings
-        character-identical to the reference's analytic rung)."""
+    def measured_cost_s(self, device_type: str, size_class: int,
+                        layout: str) -> float | None:
+        """The fused engine's median seconds from the active tuning
+        table's sweep record at exactly this (device type, size_class,
+        layout), or None where the sweep has not timed it."""
+        from repro_torch.kernels import autotune
+        return autotune.get_active().cost(device_type, size_class, layout)
+
+    def choose(self, stats: SegmentStats, size_class: int | None = None,
+               device_type: str = "cuda") -> LayoutDecision:
+        """Pick a layout for a run shaped like ``stats``: by the measured
+        costs when the table has swept EVERY candidate at this
+        (device type, size_class), else by the byte model gated on
+        ``min_packed_docs``.  Reason strings are character-identical to
+        the reference's, with the device type where it names a
+        backend."""
         if size_class is None:
             size_class = tuning_size_class(stats.num_docs)
+        costs = {l: self.measured_cost_s(device_type, size_class, l)
+                 for l in self.candidates}
+        if all(c is not None for c in costs.values()):
+            best = min(self.candidates, key=lambda l: (costs[l], l))
+            return LayoutDecision(best, (
+                f"measured:{device_type}@{size_class} "
+                + " ".join(f"{l}={costs[l]:.2e}s" for l in self.candidates)))
+        d = self._analytic_choose(stats, size_class)
+        measured = [l for l in self.candidates if costs[l] is not None]
+        if measured:
+            # a partial sweep is not a measurement: the byte model decided
+            return LayoutDecision(d.layout, (
+                f"analytic:partial-measured({','.join(measured)}) "
+                + d.reason[len("analytic:"):]))
+        return d
+
+    def _analytic_choose(self, stats: SegmentStats,
+                         size_class: int) -> LayoutDecision:
+        """The byte-model rung: the best non-hor layout by predicted
+        bytes must beat hor by ``hbm_ratio_max`` or the run stays hor."""
         if stats.num_docs < self.min_packed_docs:
             return LayoutDecision("hor", (
                 f"analytic:small-segment {stats.num_docs}"
@@ -328,13 +362,15 @@ class LayoutCostModel:
 
 
 def resolve_layout(explicit: str | None, policy, stats: SegmentStats,
-                   default: str, size_class: int | None = None
-                   ) -> tuple[str, str]:
+                   default: str, size_class: int | None = None,
+                   device_type: str = "cuda") -> tuple[str, str]:
     """The override ladder every layout-taking layer funnels through:
-    ``explicit arg > policy > default``.  Returns ``(layout, reason)``."""
+    ``explicit arg > policy > default``; the policy reads measured costs
+    on ``device_type``.  Returns ``(layout, reason)``."""
     if explicit is not None:
         return str(explicit), "explicit"
     if policy is not None:
-        d = policy.choose(stats, size_class=size_class)
+        d = policy.choose(stats, size_class=size_class,
+                          device_type=device_type)
         return d.layout, d.reason
     return str(default), "default"

@@ -1,7 +1,8 @@
 // Fused decode-and-score, for sm_90a: one walk over a tile's routing
 // pairs, with two epilogues.
 //
-// Replaces the four Pallas kernels of repro/kernels/fused_decode_score.py:
+// Replaces the four Pallas kernels of repro/kernels/fused_decode_score.py
+// and the bitonic tile reducer of the candidate ones (_tile_topk_bitonic):
 // the dense ones (fused_score_blocked_pallas, body _fused_blocked_kernel;
 // fused_score_packed_pallas, body _fused_packed_kernel), which carry
 // mode="dense" and both bands of every banded segment, and the candidate
@@ -22,7 +23,11 @@
 //     lane is past num_docs) and keeps each query's k_tile best lanes
 //     (_tile_topk: value descending, lowest lane first, id -1 where the
 //     value is not finite), written tile-major into [Q, n_tiles * k_tile];
-//     an unvisited tile gives (-inf, -1) throughout.
+//     an unvisited tile gives (-inf, -1) throughout;
+//   - BitonicOut applies the same tail and sorts each query's tile lanes
+//     by (value descending, lowest lane first) with a bitonic network
+//     (_tile_topk_bitonic), then writes the first k_tile of them as
+//     TopkOut does.
 //
 // What bounds it: bytes.  Every routed pair reads one posting block (HOR
 // 1 KB; packed 4 * words_per_block B + 256 B); DenseOut writes the whole
@@ -71,6 +76,15 @@
 //      row's largest key, the lowest lane holding it (a ballot) emits it
 //      and rescans its positions.  Both keep _tile_topk's order: value
 //      descending, the lowest doc first on ties.
+//   7. BitonicOut: each owner writes its final scores (f32) into the
+//      accumulator, beside a u16 [Q, tile] array of lanes, and the CTA
+//      sorts every row with the reference's network, stage by stage: at
+//      each stage every position keeps itself or its partner
+//      (position ^ stride) by the reference's float comparisons, so
+//      +0.0 and -0.0 tie and go by lane, and values move without being
+//      recomputed.  Strides under 32 run in registers, one element per
+//      lane of a warp, by shuffles (several stages per load); longer ones
+//      in shared memory, one pair per thread and a barrier per stage.
 #pragma once
 
 #include <cstdint>
@@ -155,13 +169,15 @@ struct PackedBlocks {
 // Dynamic shared memory, every part on a 16-byte boundary: the [q, tile]
 // accumulator, two [kChunk, tile] lane maps (i8), kMetaBufs metadata
 // buffers (kMetaInts rows of kChunk ints, then kChunk qw rows of q
-// floats), kRingBufs block buffers of kChunk slots, and for packed blocks
-// the chunk's decoded tfs [kChunk, 128] f32.
+// floats), kRingBufs block buffers of kChunk slots, for packed blocks
+// the chunk's decoded tfs [kChunk, 128] f32, and for an epilogue that
+// sorts (`lanes`) a u16 [q, tile] lane array.
 template <class Blocks>
 struct Plan {
   int q, tile, slot;
-  __host__ __device__ Plan(const Blocks& bl, int q_, int tile_)
-      : q(q_), tile(tile_), slot(bl.slot_bytes()) {}
+  bool lanes;
+  __host__ __device__ Plan(const Blocks& bl, int q_, int tile_, bool lanes_)
+      : q(q_), tile(tile_), slot(bl.slot_bytes()), lanes(lanes_) {}
   __host__ __device__ int acc_bytes() const { return round16(q * tile * 4); }
   __host__ __device__ int map_bytes() const {     // one of the two maps
     return round16(kChunk * tile);
@@ -184,8 +200,12 @@ struct Plan {
   __host__ __device__ int tf_off() const {
     return ring_off() + kRingBufs * ring_bytes();
   }
+  __host__ __device__ int lane_off() const { return tf_off() + tf_bytes(); }
+  __host__ __device__ int lane_bytes() const {
+    return lanes ? round16(q * tile * 2) : 0;
+  }
   __host__ __device__ size_t total() const {
-    return (size_t)tf_off() + tf_bytes();
+    return (size_t)lane_off() + lane_bytes();
   }
 };
 
@@ -388,6 +408,7 @@ __device__ __forceinline__ void write_tile(const float* acc,
 
 // The dense epilogue: the tile's sums into out[q, num_docs].
 struct DenseOut {
+  static constexpr bool kLaneArray = false;
   float* out;
 
   template <int kQ>
@@ -404,8 +425,8 @@ struct DenseOut {
   // `sum`: the owner's Q sums (kQ > 0); else `acc` holds them
   template <int kQ>
   __device__ __forceinline__ void finish(float* acc, const float* sum, int t,
-                                         int num_docs, int q,
-                                         int tile) const {
+                                         int num_docs, int q, int tile,
+                                         unsigned char*) const {
     if constexpr (kQ > 0) {
       if (threadIdx.x < tile) {
 #pragma unroll
@@ -432,6 +453,7 @@ __device__ __forceinline__ float key_value(unsigned k) {
 // The candidate epilogue: the scoring tail and each query's k_tile best
 // lanes, into vals / ids [q, n_tiles * k_tile], tile-major.
 struct TopkOut {
+  static constexpr bool kLaneArray = false;
   const float* norm;     // [num_docs]
   const float* rank;     // [num_docs]
   const float* qnorm;    // [q]
@@ -475,8 +497,8 @@ struct TopkOut {
 
   template <int kQ>
   __device__ __forceinline__ void finish(float* acc, const float* sum, int t,
-                                         int num_docs, int q,
-                                         int tile) const {
+                                         int num_docs, int q, int tile,
+                                         unsigned char*) const {
     const int base = t * tile;
     const int width = min(tile, num_docs - base);
     unsigned* keys = reinterpret_cast<unsigned*>(acc);
@@ -729,13 +751,150 @@ struct TopkOut {
   }
 };
 
+// The bitonic candidate epilogue: TopkOut's scoring tail, then the
+// reference's _tile_topk_bitonic over each query row of the tile, into the
+// same tile-major vals / ids.  `scratch` is the plan's u16 [q, tile] lane
+// array.
+struct BitonicOut : TopkOut {
+  static constexpr bool kLaneArray = true;
+
+  explicit BitonicOut(const TopkOut& t) : TopkOut(t) {}
+
+  template <int kQ>
+  __device__ __forceinline__ void finish(float* acc, const float* sum, int t,
+                                         int num_docs, int q, int tile,
+                                         unsigned char* scratch) const {
+    const int base = t * tile;
+    const int width = min(tile, num_docs - base);
+    unsigned short* lanes = reinterpret_cast<unsigned short*>(scratch);
+    // the final scores, f32, in place of the sums (kQ > 0: of the staged
+    // norm and rank); lanes past num_docs are -inf (norm 0)
+    if constexpr (kQ > 0) {
+      const int loc = threadIdx.x;
+      const float nm = loc < width ? acc[loc] : 0.0f;
+      const float rk = loc < width ? acc[tile + loc] : 0.0f;
+      __syncthreads();
+      if (loc < tile) {
+#pragma unroll
+        for (int qi = 0; qi < kQ; ++qi)
+          acc[qi * tile + loc] = final_score(sum[qi], nm, rk, qi);
+      }
+    } else {
+      __syncthreads();
+      for (int loc = threadIdx.x; loc < tile; loc += kThreads) {
+        const float nm = loc < width ? norm[base + loc] : 0.0f;
+        const float rk = loc < width ? rank[base + loc] : 0.0f;
+        for (int qi = 0; qi < q; ++qi)
+          acc[qi * tile + loc] = final_score(acc[qi * tile + loc], nm, rk, qi);
+      }
+    }
+    const int n = q * tile;
+    for (int f = threadIdx.x; f < n; f += kThreads)
+      lanes[f] = (unsigned short)(f & (tile - 1));
+    __syncthreads();
+    sort_rows(acc, lanes, n, tile);
+    // each row's first k_tile, tile-major; id -1 where not finite
+    const size_t row_out = (size_t)n_tiles * k_tile;
+    for (int i = threadIdx.x; i < q * k_tile; i += kThreads) {
+      const int qi = i / k_tile, j = i - qi * k_tile;
+      const float v = acc[qi * tile + j];
+      const size_t o = qi * row_out + (size_t)t * k_tile + j;
+      vals[o] = v;
+      ids[o] = isfinite(v) ? base + lanes[qi * tile + j] : -1;
+    }
+  }
+
+  // Whether the element (v, l) at a position keeps itself rather than
+  // take its partner's (pv, pl): the reference's rule, `first` being
+  // "(v, l) comes first in (value descending, lane ascending)".
+  static __device__ __forceinline__ bool keeps(float v, int l, float pv,
+                                               int pl, bool lo, bool desc) {
+    const bool first = v > pv || (v == pv && l < pl);
+    return lo == desc ? first : !first;
+  }
+
+  // Every row's stages of block sizes size_lo..size_hi whose strides are
+  // below 32, one element per lane: warp w takes the 32-element chunks
+  // w, w + kWarps, ... of the [q, tile] rows (a row's positions are
+  // f & (tile - 1), tile a power of two, so a partner stays in its row).
+  static __device__ __forceinline__ void warp_pass(float* v,
+                                                   unsigned short* l, int n,
+                                                   int tile, int size_lo,
+                                                   int size_hi) {
+    const int wl = threadIdx.x % 32;
+    for (int c = threadIdx.x / 32; c * 32 < n; c += kWarps) {
+      const int f = c * 32 + wl;
+      const bool in = f < n;
+      float x = in ? v[f] : 0.0f;
+      int y = in ? l[f] : 0;
+      const int i = f & (tile - 1);
+      for (int size = size_lo; size <= size_hi; size *= 2) {
+        const bool desc = (i & size) == 0;
+        for (int s = min(size / 2, 16); s >= 1; s /= 2) {
+          const float px = __shfl_xor_sync(0xffffffffu, x, s);
+          const int py = __shfl_xor_sync(0xffffffffu, y, s);
+          if (!keeps(x, y, px, py, (i & s) == 0, desc)) {
+            x = px;
+            y = py;
+          }
+        }
+      }
+      if (in) {
+        v[f] = x;
+        l[f] = (unsigned short)y;
+      }
+    }
+  }
+
+  // One stage of stride >= 32 of block size `size` over every row in
+  // shared memory: thread p takes the pairs p, p + kThreads, ... (a pair's
+  // two positions read before either is written).
+  static __device__ __forceinline__ void smem_stage(float* v,
+                                                    unsigned short* l, int n,
+                                                    int tile, int size,
+                                                    int stride) {
+    const int sh = __ffs(stride) - 1;
+    for (int p = threadIdx.x; p < n / 2; p += kThreads) {
+      const int f = ((p >> sh) << (sh + 1)) | (p & (stride - 1));
+      const int g = f + stride;
+      const bool desc = ((f & (tile - 1)) & size) == 0;
+      const float va = v[f], vb = v[g];
+      const int la = l[f], lb = l[g];
+      const bool ka = keeps(va, la, vb, lb, true, desc);
+      const bool kb = keeps(vb, lb, va, la, false, desc);
+      v[f] = ka ? va : vb;
+      l[f] = (unsigned short)(ka ? la : lb);
+      v[g] = kb ? vb : va;
+      l[g] = (unsigned short)(kb ? lb : la);
+    }
+  }
+
+  // The whole network over the n = q * tile elements: block sizes up to 32
+  // in one register pass; then for each larger size its strides >= 32 in
+  // shared memory and its strides 16..1 in one register pass.
+  static __device__ __forceinline__ void sort_rows(float* v,
+                                                   unsigned short* l, int n,
+                                                   int tile) {
+    warp_pass(v, l, n, tile, 2, min(tile, 32));
+    __syncthreads();
+    for (int size = 64; size <= tile; size *= 2) {
+      for (int stride = size / 2; stride >= 32; stride /= 2) {
+        smem_stage(v, l, n, tile, size, stride);
+        __syncthreads();
+      }
+      warp_pass(v, l, n, tile, size, size);
+      __syncthreads();
+    }
+  }
+};
+
 // kQ > 0: compiled for q == kQ; kQ == 0: any q.
 template <class Epi, class Blocks, int kQ>
 __global__ void __launch_bounds__(kThreads, 3)
 score_kernel(Blocks bl, Pairs pr, Epi epi, int num_docs, int q, int tile) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int run[2];
-  const Plan<Blocks> plan(bl, q, tile);
+  const Plan<Blocks> plan(bl, q, tile, Epi::kLaneArray);
   const int t = blockIdx.x;
   const int2 bounds = run_walk::find_run(pr.tile, pr.n, t, run);
   if (bounds.x == bounds.y) {        // no pair visits this tile
@@ -799,7 +958,8 @@ score_kernel(Blocks bl, Pairs pr, Epi epi, int num_docs, int q, int tile) {
     add_chunk<Blocks, kQ>(bl, ring_of(k), meta_of(k), tf, len_of(k), q, tile,
                           map_of(k), acc, sum);
   }
-  epi.template finish<kQ>(acc, sum, t, num_docs, q, tile);
+  epi.template finish<kQ>(acc, sum, t, num_docs, q, tile,
+                          smem + plan.lane_off());
 }
 
 // Allow score_kernel<Epi, Blocks, kQ> `smem` bytes of dynamic shared
@@ -823,7 +983,7 @@ cudaError_t allow_smem(size_t smem) {
 template <class Epi, class Blocks, int kQ>
 int launch_q(const Blocks& bl, const Pairs& pr, const Epi& epi, int n_tiles,
              int num_docs, int q, int tile, void* stream) {
-  const size_t smem = Plan<Blocks>(bl, q, tile).total();
+  const size_t smem = Plan<Blocks>(bl, q, tile, Epi::kLaneArray).total();
   const cudaError_t e = allow_smem<Epi, Blocks, kQ>(smem);
   if (e != cudaSuccess) return (int)e;
   score_kernel<Epi, Blocks, kQ>
@@ -850,7 +1010,7 @@ int launch(const Blocks& bl, const Pairs& pr, const Epi& epi, int n_tiles,
 
 template <class Epi, class Blocks, int kQ>
 int occupancy_q(const Blocks& bl, int q, int tile, int* smem) {
-  const size_t bytes = Plan<Blocks>(bl, q, tile).total();
+  const size_t bytes = Plan<Blocks>(bl, q, tile, Epi::kLaneArray).total();
   *smem = (int)bytes;
   cudaError_t e = allow_smem<Epi, Blocks, kQ>(bytes);
   int ctas = 0;

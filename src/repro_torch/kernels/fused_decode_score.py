@@ -15,12 +15,21 @@ kernels (``fused_score_{blocked,packed}``) stop at the accumulator and
 return f32 [Q, num_docs] scores, 0.0 in tiles no pair visits (the
 reference's ``_finish``).
 
+A candidate kernel reduces each tile by one of the reference's two
+reducers (``REDUCERS``): ``"successive"`` (``_tile_topk``: k_tile
+successive maxima) or ``"bitonic"`` (``_tile_topk_bitonic``: a bitonic
+sort of the whole tile, then its first k_tile columns).  Both give the
+same ids; their value bits differ only at signed zeros, where successive
+maxima write the row's maximum (+0.0 above -0.0, as XLA's max orders
+them) and the sort moves each lane's own bits.  So each reducer is held
+to its own reference counterpart.
+
 Two implementations of each kernel live here:
 
 * the CUDA C++ kernel (``csrc/fused_{topk,score}_{blocked,packed}.cu``,
-  four entry points over one walk, ``csrc/fused_score.cuh``, with a
-  dense or a candidate epilogue), which a CUDA tensor always goes to —
-  there is no fallback;
+  six entry points over one walk, ``csrc/fused_score.cuh``, with a
+  dense epilogue or one of two candidate epilogues, one per reducer),
+  which a CUDA tensor always goes to — there is no fallback;
 * its plain PyTorch version (``fused_{topk,score}_{blocked,packed}
   _plain``), the path for CPU tensors and the kernel's yardstick on the
   card.  It adds the pairs in the kernel's order without colliding
@@ -29,7 +38,9 @@ Two implementations of each kernel live here:
   docs and a block's doc ids are unique), with the same fused
   multiply-adds (``core.query.fma_f32``), so both agree to the bit.
 
-Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+Each wrapper counts its kernel launches in ``<wrapper>.launches``; a
+candidate wrapper counts its bitonic launches apart, in
+``<wrapper>.launches_bitonic``.
 """
 from __future__ import annotations
 
@@ -70,17 +81,14 @@ def _check_k_tile(k_tile: int, tile: int) -> None:
         raise ValueError(f"k_tile must be >= 1, got {k_tile}")
 
 
-def _check_reducer(reducer: str, cuda: bool) -> None:
-    """Both reducers define the same strict order (value descending,
-    lowest lane first), so the plain path computes either; the CUDA
-    kernels give that order by their own reduction and take only
-    ``reducer="successive"``."""
+def _check_reducer(reducer: str, tile: int) -> None:
+    """Reject a reducer the candidate kernels do not have, and the
+    bitonic reducer at a tile that is not a power of two."""
     if reducer not in REDUCERS:
         raise ValueError(f"unknown reducer {reducer!r}; expected {REDUCERS}")
-    if cuda and reducer != "successive":
-        raise NotImplementedError(
-            f"reducer={reducer!r} has no CUDA kernel yet (ROADMAP queue 2 "
-            "A: the bitonic tile reducer); use reducer='successive'")
+    if reducer == "bitonic" and (tile < 1 or tile & (tile - 1)):
+        raise ValueError(f"bitonic reducer needs a power-of-two tile, "
+                         f"got {tile}")
 
 
 def _doc_tiles(norm: Tensor, rank: Tensor, n_tiles: int, tile: int):
@@ -92,23 +100,85 @@ def _doc_tiles(norm: Tensor, rank: Tensor, n_tiles: int, tile: int):
     return nt.view(n_tiles + 1, tile), rt.view(n_tiles + 1, tile)
 
 
+def _row_max(work: Tensor) -> Tensor:
+    """Each row's maximum, +0.0 where the row's largest values are zeros
+    of both signs: XLA's max orders -0.0 below +0.0, torch's takes
+    either."""
+    m = work.max(dim=-1).values
+    pos_zero = ((work == 0) & ~torch.signbit(work)).any(dim=-1)
+    return torch.where((m == 0) & pos_zero, torch.zeros_like(m), m)
+
+
 def _tile_topk(final: Tensor, base: Tensor, k_tile: int, tile: int):
     """``k_tile`` successive maxima of each ``tile``-wide row of
     ``final`` [..., tile]; ``base`` [...] is the global id of lane 0.
 
     Tie-break: lowest lane first (the ``jax.lax.top_k`` order the
-    candidate merge relies on).  Non-finite maxima get id -1.  Returns
-    (values, ids) [..., k_tile]."""
+    candidate merge relies on); +0.0 and -0.0 tie, and the value
+    written is the row's maximum (``_row_max``).  Non-finite maxima get
+    id -1.  Returns (values, ids) [..., k_tile]."""
     work = final.clone()
     lane = torch.arange(tile, device=final.device, dtype=torch.int32)
     vals, ids = [], []
     for _ in range(k_tile):
-        m = work.max(dim=-1).values
+        m = _row_max(work)
         am = torch.where(work == m[..., None], lane, tile).min(dim=-1).values
         ids.append(torch.where(torch.isfinite(m), base + am, -1))
         vals.append(m)
         work.scatter_(-1, am[..., None].long().clamp_max(tile - 1), NEG_INF)
     return torch.stack(vals, -1), torch.stack(ids, -1).to(torch.int32)
+
+
+def _swap_stride(x: Tensor, j: int) -> Tensor:
+    """Each lane's partner ``lane ^ j`` along the last axis (``j`` a
+    power of two dividing the width): the pair axis of a reshape,
+    reversed."""
+    shape = x.shape
+    y = x.reshape(*shape[:-1], shape[-1] // (2 * j), 2, j)
+    return y.flip(-2).reshape(shape)
+
+
+def _tile_topk_bitonic(final: Tensor, base: Tensor, k_tile: int, tile: int):
+    """Bitonic sort of each ``tile``-wide row of ``final`` [..., tile]
+    by (value descending, lane ascending), then its first ``k_tile``
+    columns: the reference's ``_tile_topk_bitonic``, stage by stage.
+
+    Each stage keeps, at every lane, itself or its partner ``lane ^
+    stride`` by float comparisons (so +0.0 and -0.0 tie and go by lane),
+    and only moves values, never recomputes them.  Non-finite survivors
+    get id -1.  ``base`` [...] is the global id of lane 0.  Returns
+    (values, ids) [..., k_tile]."""
+    _check_reducer("bitonic", tile)
+    lane = torch.arange(tile, device=final.device, dtype=torch.int32)
+    v, l = final, lane.expand(final.shape)
+    size = 2
+    while size <= tile:
+        stride = size // 2
+        while stride >= 1:
+            pv, pl = _swap_stride(v, stride), _swap_stride(l, stride)
+            lo = (lane & stride) == 0          # low element of its pair
+            desc = (lane & size) == 0          # block direction this stage
+            # self precedes partner in (value desc, lane asc) order
+            first = (v > pv) | ((v == pv) & (l < pl))
+            keep = torch.where(lo == desc, first, ~first)
+            v = torch.where(keep, v, pv)
+            l = torch.where(keep, l, pl)
+            stride //= 2
+        size *= 2
+    vals = v[..., :k_tile]
+    ids = torch.where(torch.isfinite(vals), base[..., None] + l[..., :k_tile],
+                      -1)
+    return vals, ids.to(torch.int32)
+
+
+def _tile_reduce(final: Tensor, base: Tensor, k_tile: int, tile: int,
+                 reducer: str):
+    """The reducer dispatch of the candidate kernels' plain versions."""
+    if reducer == "bitonic":
+        return _tile_topk_bitonic(final, base, k_tile, tile)
+    if reducer == "successive":
+        return _tile_topk(final, base, k_tile, tile)
+    raise ValueError(f"unknown reducer {reducer!r}; expected {REDUCERS}")
 
 
 def _finish_candidates(vals: Tensor, ids: Tensor, pair_tile: Tensor,
@@ -188,8 +258,9 @@ def _accumulate_pairs(docs: Tensor, tfs: Tensor, pair_tile: Tensor,
 
 def _candidates_from_acc(acc: Tensor, pair_tile: Tensor, norm: Tensor,
                          rank: Tensor, qnorm: Tensor, n_tiles: int,
-                         tile: int, k_tile: int, rank_blend: float):
-    """Scoring tail + successive-maxima reduction of every tile."""
+                         tile: int, k_tile: int, rank_blend: float,
+                         reducer: str = "successive"):
+    """Scoring tail + ``reducer``'s reduction of every tile."""
     q = acc.shape[1]
     norm_t, rank_t = _doc_tiles(norm, rank, n_tiles, tile)
     dense = acc.permute(1, 0, 2).reshape(q, (n_tiles + 1) * tile)
@@ -197,7 +268,8 @@ def _candidates_from_acc(acc: Tensor, pair_tile: Tensor, norm: Tensor,
                          qnorm, rank_blend).view(q, n_tiles + 1, tile)
     base = (torch.arange(n_tiles + 1, device=acc.device,
                          dtype=torch.int32) * tile)[None, :]
-    vals, ids = _tile_topk(final, base.expand(q, -1), k_tile, tile)
+    vals, ids = _tile_reduce(final, base.expand(q, -1), k_tile, tile,
+                             reducer)
     return _finish_candidates(vals.permute(1, 0, 2), ids.permute(1, 0, 2),
                               pair_tile, n_tiles, k_tile)
 
@@ -237,27 +309,33 @@ def _n_tiles(num_docs: int, tile: int) -> int:
 def fused_topk_blocked_plain(block_docs, block_tfs, pair_block, pair_tile,
                              pair_qw, pair_cap, norm, rank, qnorm,
                              num_docs: int, k_tile: int,
-                             rank_blend: float = 0.0, tile: int = TILE):
+                             rank_blend: float = 0.0, tile: int = TILE,
+                             reducer: str = "successive"):
     """Plain PyTorch version of the HOR candidate kernel."""
+    _check_k_tile(k_tile, tile)
+    _check_reducer(reducer, tile)
     n_tiles = _n_tiles(num_docs, tile)
     acc = _blocked_acc(block_docs, block_tfs, pair_block, pair_tile,
                        pair_qw, pair_cap, n_tiles, tile)
     return _candidates_from_acc(acc, pair_tile, norm, rank, qnorm, n_tiles,
-                                tile, k_tile, rank_blend)
+                                tile, k_tile, rank_blend, reducer)
 
 
 def fused_topk_packed_plain(packed, block_tfs, pair_block, pair_tile,
                             pair_qw, pair_cap, pair_bits, pair_base,
                             pair_count, norm, rank, qnorm, num_docs: int,
                             block: int, k_tile: int,
-                            rank_blend: float = 0.0, tile: int = TILE):
+                            rank_blend: float = 0.0, tile: int = TILE,
+                            reducer: str = "successive"):
     """Plain PyTorch version of the packed candidate kernel."""
+    _check_k_tile(k_tile, tile)
+    _check_reducer(reducer, tile)
     n_tiles = _n_tiles(num_docs, tile)
     acc = _packed_acc(packed, block_tfs, pair_block, pair_tile, pair_qw,
                       pair_cap, pair_bits, pair_base, pair_count, block,
                       n_tiles, tile)
     return _candidates_from_acc(acc, pair_tile, norm, rank, qnorm, n_tiles,
-                                tile, k_tile, rank_blend)
+                                tile, k_tile, rank_blend, reducer)
 
 
 def fused_score_blocked_plain(block_docs, block_tfs, pair_block, pair_tile,
@@ -302,34 +380,75 @@ _ARGTYPES = {
 }
 
 
-def check_smem(name: str, q: int, tile: int) -> None:
-    if q * tile * 4 > 227 * 1024:
-        raise ValueError(f"{name}: Q={q} x tile={tile} f32 accumulator "
-                         "exceeds a CTA's 227 KB of shared memory")
+SMEM_LIMIT = 227 * 1024     # a CTA's shared memory on sm_90
+_CHUNK = 16                 # fused_score.cuh: kChunk, pairs per stage
 
 
-def _checked_device(name, specs, tile) -> int:
+def _round16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def fused_smem_bytes(name: str, q: int, tile: int, wpb: int = 0,
+                     reducer: str = "successive") -> int:
+    """Dynamic shared memory of fused kernel ``name`` per CTA, as
+    ``fused_score.cuh``'s ``Plan`` lays it out: the f32 [q, tile]
+    accumulator, two lane maps, three metadata buffers, two block rings,
+    the packed blocks' decoded tfs, and for the bitonic epilogue the
+    u16 [q, tile] lane array."""
+    packed = name.endswith("_packed")
+    slot = _round16(wpb * 4) + BLOCK * 2 if packed else BLOCK * 8
+    meta_ints = 5 if packed else 2
+    return (_round16(q * tile * 4) + 2 * _round16(_CHUNK * tile)
+            + 3 * _round16(_CHUNK * (meta_ints + q) * 4) + 2 * _CHUNK * slot
+            + (_CHUNK * BLOCK * 4 if packed else 0)
+            + (_round16(q * tile * 2) if reducer == "bitonic" else 0))
+
+
+def check_smem(name: str, q: int, tile: int, wpb: int | None = None,
+               reducer: str = "successive") -> None:
+    """Refuse a geometry whose CTA does not fit in shared memory, by
+    name: the f32 [q, tile] accumulator alone (``wpb=None``, the posting
+    scorer), or a fused kernel's whole plan (``fused_smem_bytes``)."""
+    if wpb is None:
+        if q * tile * 4 > SMEM_LIMIT:
+            raise ValueError(f"{name}: Q={q} x tile={tile} f32 accumulator "
+                             "exceeds a CTA's 227 KB of shared memory")
+        return
+    need = fused_smem_bytes(name, q, tile, wpb, reducer)
+    if need > SMEM_LIMIT:
+        raise ValueError(
+            f"{name}: Q={q} x tile={tile} (reducer={reducer!r}"
+            + (f", {wpb} words per block" if name.endswith("_packed")
+               else "")
+            + f") needs {need} B of shared memory per CTA, more than "
+            "the 227 KB a CTA has")
+
+
+def _checked_device(name, specs, tile, wpb=0, reducer="successive") -> int:
     """Kernel ``name``'s tensors checked in one pass (``specs``, by name:
-    contiguous, dtype, shape, one CUDA device); their device index.  On a
-    failure ``check_tensors`` names the tensor at fault."""
+    contiguous, dtype, shape, one CUDA device), and its geometry against
+    shared memory; their device index.  On a failure ``check_tensors``
+    names the tensor at fault."""
     dev = specs["pair_qw"][0].get_device()
     if not tensors_ok(dev, specs.values()):
         check_tensors(name, **specs)
         raise ValueError(f"{name}: tensors on different devices")
-    check_smem(name, specs["pair_qw"][0].shape[1], tile)
+    check_smem(name, specs["pair_qw"][0].shape[1], tile, wpb, reducer)
     return dev
 
 
-def _launch(name, dev, blocks, pairs, outs, num_docs, tile, extra=()):
-    """Call kernel ``name``'s entry point on PyTorch's raw stream: one
-    device launch.  ``blocks`` are its layout's pointers and ints,
-    ``pairs`` its pair arrays, ``outs`` the tensors after ``n_pairs`` (a
-    candidate kernel's doc metadata, then the outputs), ``extra`` the
-    numbers after ``tile``.  The entry point is called directly, not
-    through ``cuda_build.launch``'s loop over its arguments: a call's host
-    time is most of a small launch's."""
+def _launch(name, dev, blocks, pairs, outs, num_docs, tile, extra=(),
+            symbol=None):
+    """Call kernel ``name``'s entry point (``symbol``, by default
+    ``<name>_launch``) on PyTorch's raw stream: one device launch.
+    ``blocks`` are its layout's pointers and ints, ``pairs`` its pair
+    arrays, ``outs`` the tensors after ``n_pairs`` (a candidate kernel's
+    doc metadata, then the outputs), ``extra`` the numbers after
+    ``tile``.  The entry point is called directly, not through
+    ``cuda_build.launch``'s loop over its arguments: a call's host time
+    is most of a small launch's."""
     np_, q = pairs[3].shape
-    err = entry(name, _ARGTYPES[name])(
+    err = entry(name, _ARGTYPES[name], symbol)(
         *blocks, *(t.data_ptr() for t in pairs), np_,
         *(t.data_ptr() for t in outs), _n_tiles(num_docs, tile), num_docs, q,
         tile, *extra, torch._C._cuda_getCurrentRawStream(dev))
@@ -375,27 +494,30 @@ def _packed_specs(packed, block_tfs, pair_block, pair_tile, pair_qw,
 
 
 def _launch_topk(name, specs, blocks, pairs, norm, rank, qnorm, num_docs,
-                 k_tile, rank_blend, tile):
-    """A candidate kernel's launch: the doc metadata checked with the
-    rest, then the tile-major candidate lists allocated (every element
-    is written, (-inf, -1) in unvisited tiles)."""
+                 k_tile, rank_blend, tile, reducer, wpb=0):
+    """A candidate kernel's launch, by ``reducer``'s epilogue (the
+    bitonic one has entry points of its own, ``<name>_bitonic_launch``):
+    the doc metadata checked with the rest, then the tile-major
+    candidate lists allocated (every element is written, (-inf, -1) in
+    unvisited tiles)."""
     f32 = torch.float32
     q = _pair_specs(specs["pair_qw"][0])[1]
     dev = _checked_device(name, dict(
         specs, norm=(norm, f32, (num_docs,)), rank=(rank, f32, (num_docs,)),
-        qnorm=(qnorm, f32, (q,))), tile)
+        qnorm=(qnorm, f32, (q,))), tile, wpb, reducer)
     n = _n_tiles(num_docs, tile) * k_tile
     vals = torch.empty((q, n), dtype=f32, device=norm.device)
     ids = torch.empty((q, n), dtype=torch.int32, device=norm.device)
     _launch(name, dev, blocks, pairs, (norm, rank, qnorm, vals, ids),
-            num_docs, tile, (k_tile, rank_blend))
+            num_docs, tile, (k_tile, rank_blend),
+            f"{name}_bitonic_launch" if reducer == "bitonic" else None)
     return vals, ids
 
 
-def _launch_dense(name, specs, blocks, pairs, num_docs, tile):
+def _launch_dense(name, specs, blocks, pairs, num_docs, tile, wpb=0):
     """A dense kernel's launch into a new f32[Q, num_docs] (every element
     is written, zeros in unvisited tiles)."""
-    dev = _checked_device(name, specs, tile)
+    dev = _checked_device(name, specs, tile, wpb)
     pair_qw = specs["pair_qw"][0]
     out = torch.empty((pair_qw.shape[1], num_docs), dtype=torch.float32,
                       device=pair_qw.device)
@@ -409,26 +531,28 @@ def _wpb(packed) -> int:
 
 def _launch_blocked_cuda(block_docs, block_tfs, pair_block, pair_tile,
                          pair_qw, pair_cap, norm, rank, qnorm, num_docs,
-                         k_tile, rank_blend, tile):
+                         k_tile, rank_blend, tile, reducer="successive"):
     return _launch_topk(
         "fused_topk_blocked",
         _blocked_specs(block_docs, block_tfs, pair_block, pair_tile, pair_qw,
                        pair_cap),
         (block_docs.data_ptr(), block_tfs.data_ptr()),
         (pair_block, pair_tile, pair_cap, pair_qw), norm, rank, qnorm,
-        num_docs, k_tile, rank_blend, tile)
+        num_docs, k_tile, rank_blend, tile, reducer)
 
 
 def _launch_packed_cuda(packed, block_tfs, pair_block, pair_tile, pair_qw,
                         pair_cap, pair_bits, pair_base, pair_count, norm,
-                        rank, qnorm, num_docs, k_tile, rank_blend, tile):
+                        rank, qnorm, num_docs, k_tile, rank_blend, tile,
+                        reducer="successive"):
     return _launch_topk(
         "fused_topk_packed",
         _packed_specs(packed, block_tfs, pair_block, pair_tile, pair_qw,
                       pair_cap, pair_bits, pair_base, pair_count),
         (packed.data_ptr(), block_tfs.data_ptr(), _wpb(packed)),
         (pair_block, pair_tile, pair_cap, pair_qw, pair_bits, pair_base,
-         pair_count), norm, rank, qnorm, num_docs, k_tile, rank_blend, tile)
+         pair_count), norm, rank, qnorm, num_docs, k_tile, rank_blend, tile,
+        reducer, _wpb(packed))
 
 
 def _launch_score_blocked_cuda(block_docs, block_tfs, pair_block, pair_tile,
@@ -450,19 +574,24 @@ def _launch_score_packed_cuda(packed, block_tfs, pair_block, pair_tile,
                       pair_cap, pair_bits, pair_base, pair_count),
         (packed.data_ptr(), block_tfs.data_ptr(), _wpb(packed)),
         (pair_block, pair_tile, pair_cap, pair_qw, pair_bits, pair_base,
-         pair_count), num_docs, tile)
+         pair_count), num_docs, tile, _wpb(packed))
 
 
-def occupancy(name: str, q: int, tile: int = TILE,
-              wpb: int = 0) -> tuple[int, int]:
+def occupancy(name: str, q: int, tile: int = TILE, wpb: int = 0,
+              reducer: str = "successive") -> tuple[int, int]:
     """(CTAs per SM, dynamic shared memory bytes per CTA) of fused kernel
-    ``name`` at Q = ``q`` (and, packed, ``wpb`` words per block), as the
-    CUDA runtime computes them on the current card."""
+    ``name`` at Q = ``q`` (and, packed, ``wpb`` words per block; a
+    candidate kernel by ``reducer``'s epilogue), as the CUDA runtime
+    computes them on the current card.  A geometry that does not fit
+    raises ``check_smem``'s ``ValueError``."""
+    check_smem(name, q, tile, wpb, reducer)
     smem = ctypes.c_int(0)
     args = ((wpb,) if name.endswith("_packed") else ()) + (
         q, tile, ctypes.byref(smem))
+    tag = "_bitonic" if reducer == "bitonic" else ""
     ctas = entry(name, [_I] * (len(args) - 1)
-                 + [ctypes.POINTER(ctypes.c_int)], f"{name}_occupancy")(*args)
+                 + [ctypes.POINTER(ctypes.c_int)],
+                 f"{name}{tag}_occupancy")(*args)
     if ctas < 0:
         raise RuntimeError(f"{name}: occupancy query failed (error "
                            f"{-ctas})")
@@ -485,20 +614,25 @@ def fused_topk_blocked(block_docs, block_tfs, pair_block, pair_tile,
     rows (Q padded to a multiple of 8), pair_cap i32[NP] per-pair valid
     lane count; norm/rank f32[num_docs]; qnorm f32[Q] (padding queries
     carry 1.0).  Returns (values f32[Q, n_tiles*k_tile], ids i32[same])
-    tile-major candidate lists of FINAL scores.  CUDA tensors launch the
-    kernel; CPU tensors take the plain version.  Run-aligned pair arrays
+    tile-major candidate lists of FINAL scores, each tile reduced by
+    ``reducer`` ("successive" or "bitonic", whose launches count in
+    ``launches_bitonic``).  CUDA tensors launch the kernel; CPU tensors
+    take the plain version.  Run-aligned pair arrays
     (``build_batched_pairs(..., pairs_per_step=n)``) need no flag: both
     walk each tile's run whole, and the padding pairs add nothing."""
     _check_k_tile(k_tile, tile)
-    _check_reducer(reducer, block_docs.is_cuda)
+    _check_reducer(reducer, tile)
     if not block_docs.is_cuda:
         return fused_topk_blocked_plain(
             block_docs, block_tfs, pair_block, pair_tile, pair_qw, pair_cap,
-            norm, rank, qnorm, num_docs, k_tile, rank_blend, tile)
+            norm, rank, qnorm, num_docs, k_tile, rank_blend, tile, reducer)
     out = _launch_blocked_cuda(block_docs, block_tfs, pair_block, pair_tile,
                                pair_qw, pair_cap, norm, rank, qnorm,
-                               num_docs, k_tile, rank_blend, tile)
-    fused_topk_blocked.launches += 1
+                               num_docs, k_tile, rank_blend, tile, reducer)
+    if reducer == "bitonic":
+        fused_topk_blocked.launches_bitonic += 1
+    else:
+        fused_topk_blocked.launches += 1
     return out
 
 
@@ -512,20 +646,23 @@ def fused_topk_packed(packed, block_tfs, pair_block, pair_tile, pair_qw,
     are decoded per routed pair; per-pair (bits, base, count) decode
     scalars.  Otherwise as ``fused_topk_blocked``."""
     _check_k_tile(k_tile, tile)
-    _check_reducer(reducer, packed.is_cuda)
+    _check_reducer(reducer, tile)
     if not packed.is_cuda:
         return fused_topk_packed_plain(
             packed, block_tfs, pair_block, pair_tile, pair_qw, pair_cap,
             pair_bits, pair_base, pair_count, norm, rank, qnorm, num_docs,
-            block, k_tile, rank_blend, tile)
+            block, k_tile, rank_blend, tile, reducer)
     if block != BLOCK:
         raise ValueError(f"fused_topk_packed: block={block}, the CUDA "
                          f"kernel decodes {BLOCK}-lane blocks")
     out = _launch_packed_cuda(packed, block_tfs, pair_block, pair_tile,
                               pair_qw, pair_cap, pair_bits, pair_base,
                               pair_count, norm, rank, qnorm, num_docs,
-                              k_tile, rank_blend, tile)
-    fused_topk_packed.launches += 1
+                              k_tile, rank_blend, tile, reducer)
+    if reducer == "bitonic":
+        fused_topk_packed.launches_bitonic += 1
+    else:
+        fused_topk_packed.launches += 1
     return out
 
 
@@ -572,6 +709,8 @@ def fused_score_packed(packed, block_tfs, pair_block, pair_tile, pair_qw,
 
 fused_topk_blocked.launches = 0
 fused_topk_packed.launches = 0
+fused_topk_blocked.launches_bitonic = 0
+fused_topk_packed.launches_bitonic = 0
 fused_score_blocked.launches = 0
 fused_score_packed.launches = 0
 
@@ -599,7 +738,11 @@ def build_batched_pairs(cand_block: Tensor, cand_valid: Tensor,
     tensor) counts pairs dropped because ``max_pairs`` was too small.
 
     ``pairs_per_step > 1`` run-aligns the pairs: each tile's run is
-    padded with no-op pairs (qw 0, cap 0) to a multiple of it.
+    padded with no-op pairs (qw 0, cap 0) to a multiple of it.  The
+    arrays then end with the last run (NP its aligned end, at most
+    max_pairs, at least pairs_per_step): the reference fills the slots
+    past it with no-op pairs of the last run's tile, which a kernel
+    would walk as that tile's run.
 
     On CUDA the index scatters are deterministic: every real slot is
     written once, and duplicate writes land only in a dropped trash slot.
@@ -669,29 +812,34 @@ def build_batched_pairs(cand_block: Tensor, cand_valid: Tensor,
     # Re-scatter each real pair to its run-aligned slot: runs of equal
     # tile get padded to a multiple of pps, consecutive runs stay
     # contiguous, so every run start lands on a step boundary.
-    real_s = pair_tile < n_tiles
-    start = torch.searchsorted(pair_tile, pair_tile).to(i32)
-    end = torch.searchsorted(pair_tile, pair_tile, right=True).to(i32)
-    rnk = p - start
+    # only the real prefix moves: the other pairs would all land in the
+    # dropped slot, one address written max_pairs - n_real times
+    pt_r = pair_tile[:n_real]
+    start = torch.searchsorted(pt_r, pt_r).to(i32)
+    end = torch.searchsorted(pt_r, pt_r, right=True).to(i32)
+    rnk = p[:n_real] - start
     runlen = end - start
     extra = (-(-runlen // pps)) * pps - runlen      # pad of my run
-    cum = torch.cumsum(torch.where((rnk == 0) & real_s, extra, 0), 0,
-                       dtype=i32)
-    pad_before = cum - torch.where(real_s, extra, 0)  # pads of EARLIER runs
-    new_pos = torch.where(real_s, start + pad_before + rnk, max_pairs)
-    overflow = overflow + (real_s & (new_pos >= max_pairs)).sum().to(i32)
-    slot = new_pos.clamp_max(max_pairs).long()      # max_pairs: dropped
+    cum = torch.cumsum(torch.where(rnk == 0, extra, 0), 0, dtype=i32)
+    pad_before = cum - extra                        # pads of EARLIER runs
+    new_pos = start + pad_before + rnk              # ascending
+    overflow = overflow + (new_pos >= max_pairs).sum().to(i32)
+    # the runs end at the last real pair's slot, aligned up
+    n_end = int(new_pos[-1]) + 1 if n_real else 0
+    n_end = min(-(-n_end // pps) * pps, max_pairs)
+    size = max(n_end, pps)
+    slot = new_pos.clamp_max(size).long()           # size: dropped
 
     def place(x, fill):
-        out = torch.full((max_pairs + 1,) + x.shape[1:], fill,
-                         dtype=x.dtype, device=dev)
-        out[slot] = x
-        return out[:max_pairs]
+        out = torch.full((size + 1,) + x.shape[1:], fill, dtype=x.dtype,
+                         device=dev)
+        out[slot] = x[:n_real]
+        return out[:size]
 
     nt = place(pair_tile, -1)
-    # Padding slots inherit their run's tile (forward fill keeps the
-    # sequence sorted); a fully empty prefix falls through to the trash
-    # tile.
+    # Padding slots inherit their run's tile (a forward fill keeps the
+    # sequence sorted); with no real pair, the slots fall through to the
+    # trash tile.
     nt = torch.cummax(nt, 0).values
     nt = torch.where(nt < 0, n_tiles, nt).to(i32)
     return (place(pair_block, 0), nt, place(pair_qw, 0.0),

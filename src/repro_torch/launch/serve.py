@@ -10,7 +10,7 @@ as the reference launcher's default engine).  Reports the corpus, the
 index size, and the per-query latency percentiles: the q_word / q_occ /
 q_doc pipeline of paper section 3.7 end to end.  ``--shards`` (the
 reference's document-sharded engine) is refused: the distributed
-engines are not ported (ROADMAP queue 1 item 3).
+engines are not ported (ROADMAP queue 1 item 1).
 """
 from __future__ import annotations
 
@@ -38,7 +38,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.shards > 0:
         ap.error("--shards: the document-sharded engine is not ported "
-                 "(ROADMAP queue 1 item 3)")
+                 "(ROADMAP queue 1 item 1)")
 
     import torch
 

@@ -15,7 +15,7 @@
 The reference's distributed tier (``MeshServer``, ``MeshConfig``,
 ``ShardReplica`` in ``serve/mesh.py``) is not ported: it needs the
 distributed engines of ``distributed/retrieval.py`` (ROADMAP queue 1
-item 3).
+item 1).
 
 Observability primitives (spans, the metrics registry, the maintenance
 event log) live in ``repro_torch.obs`` and are re-exported here.

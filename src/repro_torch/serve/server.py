@@ -53,8 +53,13 @@ class ServerConfig:
     ``engine`` is ``"fused"`` (the hand-written kernels on a CUDA index,
     their plain versions on a CPU one) or ``"torch"`` (the gather
     oracle); ``mode`` is the fused engine's ``"candidates"`` or
-    ``"dense"``.  There is no ``backend`` (the index's device decides)
-    and no ``tune`` (the port's tuning table returns the defaults).
+    ``"dense"``.  There is no ``backend``: the index's device decides.
+
+    ``tune`` optionally pins a ``kernels.autotune.TuneConfig`` for every
+    segment the server scores; ``None`` (the default) resolves each
+    segment's geometry from the ACTIVE tuning table per batch, so
+    segments sealed after ``autotune.set_active`` serve with their tuned
+    geometry.
 
     ``layout_policy`` optionally installs a ``size_model.LayoutCostModel``
     on the index at construction, so maintenance-driven seals and
@@ -80,6 +85,7 @@ class ServerConfig:
     engine: str = "fused"
     mode: str = "candidates"
     cache_capacity: int = 4096
+    tune: object | None = None
     layout_policy: object | None = None
     trace_sample: int = 0
     event_capacity: int | None = None
@@ -357,7 +363,8 @@ class QueryServer:
                           mode=cfg.mode, segments=view.num_segments)
                  if btr is not None else None)
         result = view.topk(qb, cfg.k, cap=cfg.cap, rank_blend=cfg.rank_blend,
-                           engine=cfg.engine, mode=cfg.mode, trace=btr)
+                           engine=cfg.engine, mode=cfg.mode, tune=cfg.tune,
+                           trace=btr)
         # the view returns tensors on the index's device: one copy to the
         # host per micro-batch, which also waits for the device's work,
         # so latency_us (and the score span) include it
@@ -406,7 +413,7 @@ class QueryServer:
         cfg = self.config
         qb = np.zeros((cfg.batch_size, cfg.n_terms_budget), np.uint32)
         view.topk(qb, cfg.k, cap=cfg.cap, rank_blend=cfg.rank_blend,
-                  engine=cfg.engine, mode=cfg.mode)
+                  engine=cfg.engine, mode=cfg.mode, tune=cfg.tune)
 
     # -- worker thread ---------------------------------------------------
 

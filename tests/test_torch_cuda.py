@@ -129,14 +129,26 @@ def test_engine_matches_oracle_on_card(gpu, host, layout):
                                atol=0)
 
 
-def test_bitonic_reducer_is_refused_on_card(gpu, host):
+def test_bitonic_reducer_launches_on_card(gpu, host):
+    """``reducer="bitonic"`` on CUDA tensors launches the bitonic
+    epilogue's kernel, counted apart from the successive one, with the
+    successive kernel's answer (ids and, without signed zeros, bits)."""
     ix = layouts.build_blocked(host, device=gpu)
     qh = layouts.hash_tensor(corpus.sample_query_terms(
         host.df, host.term_hashes, 8, 3, num_docs=host.num_docs), gpu)
     term_ids, idf_t = query.lookup_query(ix, qh)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.fused_batched_topk(ix, term_ids, idf_t, host.max_posting_len,
-                               10, reducer="bitonic")
+    before = (fds.fused_topk_blocked.launches,
+              fds.fused_topk_blocked.launches_bitonic)
+    out = {r: ops.fused_batched_topk(ix, term_ids, idf_t,
+                                     host.max_posting_len, 10, reducer=r)
+           for r in ("successive", "bitonic")}
+    torch.cuda.synchronize()
+    assert (fds.fused_topk_blocked.launches,
+            fds.fused_topk_blocked.launches_bitonic) == (before[0] + 1,
+                                                         before[1] + 1)
+    (sv, si, _), (bv, bi, _) = out["successive"], out["bitonic"]
+    assert torch.equal(si, bi)
+    assert torch.equal(sv.view(torch.int32), bv.view(torch.int32))
 
 
 @pytest.mark.parametrize("layout", ["hor", "packed"])
@@ -302,23 +314,37 @@ def test_dense_kernel_no_real_pairs_at_1m_docs(gpu, host, layout):
     assert not bool(got.view(torch.int32).any())
 
 
-def _device_kernels(calls):
+SPIN = "spin_kernel"      # torch.cuda._sleep's kernel, a trace's marker
+OPENING_SPINS = 16        # markers before the calls
+
+
+def _device_kernels(calls, attempts=3):
     """The device kernels, in order, of one profiler trace of
-    ``kernel(*args, **kw)`` over ``calls``.  The trace opens on a spin
-    kernel of torch's (left out of the list), so that the first call's
-    kernel is not the trace's first activity."""
+    ``kernel(*args, **kw)`` over ``calls``.  The profiler can drop the
+    first events a trace records (2-4 of every trace late in a long
+    ``-m cuda`` run; rarely in a fresh process, see
+    ``scripts/probe_profiler_drops.py``), so the calls run between
+    ``OPENING_SPINS`` short spin kernels of torch's and a closing one.
+    A trace is taken as whole only when it opens and closes on a spin,
+    else it is taken again, ``attempts`` times at most; its other
+    kernels are the calls' kernels, each one that ran."""
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(10_000)
-        for kernel, args, kw in calls:
-            kernel(*args, **kw)
+    for _ in range(attempts):
         torch.cuda.synchronize()
-    return [e.name for e in sorted(
-        (e for e in prof.events()
-         if e.device_type == torch.autograd.DeviceType.CUDA
-         and "spin_kernel" not in e.name),
-        key=lambda e: e.time_range.start)]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(OPENING_SPINS):
+                torch.cuda._sleep(10_000)
+            for kernel, args, kw in calls:
+                kernel(*args, **kw)
+            torch.cuda._sleep(10_000)
+            torch.cuda.synchronize()
+        names = [e.name for e in sorted(
+            (e for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA),
+            key=lambda e: e.time_range.start)]
+        if len(names) >= 2 and SPIN in names[0] and SPIN in names[-1]:
+            return [n for n in names if SPIN not in n]
+    raise AssertionError(f"no whole trace in {attempts} attempts: {names}")
 
 
 def _layout_calls(host, gpu, make_args):
@@ -427,6 +453,207 @@ def test_topk_kernel_q_tiles_and_k_tile(gpu, layout, queries, tile, k_tile):
     assert bool(gv.isfinite().any())
     if k_tile == tile:
         assert not bool(gv.isfinite().all()) and bool((gi == -1).any())
+
+
+def _assert_bitonic_equals_plain(kernel, plain, args, kw):
+    """One bitonic launch (counted in ``launches_bitonic`` only) equal to
+    the plain bitonic reducer, ids and value bits."""
+    before = kernel.launches, kernel.launches_bitonic
+    gv, gi = kernel(*args, **kw, reducer="bitonic")
+    wv, wi = plain(*args, **kw, reducer="bitonic")
+    torch.cuda.synchronize()
+    assert (kernel.launches, kernel.launches_bitonic) == (before[0],
+                                                          before[1] + 1)
+    assert torch.equal(gi, wi)
+    assert torch.equal(gv.view(torch.int32), wv.view(torch.int32))
+    return gv, gi
+
+
+@pytest.mark.parametrize("layout", ["hor", "packed"])
+@pytest.mark.parametrize("queries", [8, 16])
+@pytest.mark.parametrize("tile", [256, 512, 1024])
+@pytest.mark.parametrize("k_tile", [8, 16, 32, 64, "tile"])
+def test_bitonic_kernel_q_tiles_and_k_tile(gpu, layout, queries, tile,
+                                           k_tile):
+    """The bitonic epilogue bit-equal to the plain bitonic reducer at
+    every geometry of the reference's sweep grid: tiles 256, 512 and
+    1,024, Q = 8 and 16 (the kernels for their Q up to 512-doc tiles, the
+    generic one at 1,024), k_tile from 8 to the whole tile, over deleted
+    docs, a rank blend and runs of 100+ pairs; its ids equal the
+    successive kernel's on the same pairs."""
+    k_tile = tile if k_tile == "tile" else k_tile
+    h = _dense_terms_host(3001, 40, queries + tile)
+    ix = BUILDERS[layout](h, device=gpu)
+    norm = ix.docs.norm.clone()
+    norm[::5] = 0.0
+    ix = dataclasses.replace(ix, docs=DocTable(norm=norm, rank=ix.docs.rank))
+    rng = np.random.default_rng(tile + k_tile)
+    qh = np.stack([rng.choice(h.term_hashes, 4, replace=False)
+                   for _ in range(queries)]).astype(np.uint32)
+    tids, idf_t = query.lookup_query(ix, layouts.hash_tensor(qh, gpu))
+    kernel, plain, args, kw, _ = ops.fused_topk_args(
+        ix, tids, idf_t, h.max_posting_len, k_tile, rank_blend=0.3,
+        tile=tile, k_tile=k_tile)
+    assert args[4].shape[1] == queries and args[-1] == k_tile
+    gv, gi = _assert_bitonic_equals_plain(kernel, plain, args, kw)
+    sv, si = kernel(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(gi, si)
+    assert torch.equal(gv.view(torch.int32), sv.view(torch.int32))
+    assert bool(gv.isfinite().any())
+    if k_tile == tile:
+        assert bool((gi == -1).any())
+
+
+@pytest.mark.parametrize("layout", ["hor", "packed"])
+@pytest.mark.parametrize("tile", [256, 1024])
+def test_bitonic_kernel_ties_and_empty_tiles(gpu, layout, tile):
+    """Exact ties over every doc (one term at tf 1, equal norms): the
+    bitonic kernel keeps the lowest doc ids, in order; a visited tile
+    whose docs are all deleted and the tiles no pair visits give
+    (-inf, -1) throughout, as the plain version does."""
+    n = 3 * tile + 17
+    h = PostingsHost(
+        term_hashes=np.array([111], np.uint32), df=np.array([n], np.int32),
+        offsets=np.array([0, n], np.int64),
+        doc_ids=np.arange(n, dtype=np.int32), tfs=np.ones(n, np.float32),
+        num_docs=n + 5 * tile, norm=np.ones(n + 5 * tile, np.float32),
+        rank=np.zeros(n + 5 * tile, np.float32))
+    ix = BUILDERS[layout](h, device=gpu)
+    norm = ix.docs.norm.clone()
+    norm[tile:2 * tile] = 0.0
+    ix = dataclasses.replace(ix, docs=DocTable(norm=norm, rank=ix.docs.rank))
+    qh = np.zeros((8, 2), np.uint32)
+    qh[:, 0] = 111
+    tids, idf_t = query.lookup_query(ix, layouts.hash_tensor(qh, gpu))
+    kernel, plain, args, kw, _ = ops.fused_topk_args(
+        ix, tids, idf_t, n, 10, tile=tile)
+    k_tile = args[-1]
+    gv, gi = _assert_bitonic_equals_plain(kernel, plain, args, kw)
+    assert torch.equal(gi[:, :k_tile].cpu(),
+                       torch.arange(k_tile, dtype=torch.int32).expand(8, -1))
+    for t in (1, 4, 7):                        # deleted, unvisited tiles
+        assert bool((gi[:, t * k_tile:(t + 1) * k_tile] == -1).all())
+        assert bool((gv[:, t * k_tile:(t + 1) * k_tile]
+                     == float("-inf")).all())
+
+
+@pytest.mark.parametrize("layout", ["hor", "packed"])
+@pytest.mark.parametrize("tile", [512, 1024])
+def test_bitonic_kernel_signed_zeros(gpu, layout, tile):
+    """Final scores of +0.0 and -0.0 written by the kernel's own scoring
+    tail (norm 3e38 times qnorm 1e30 overflows the denominator, so the
+    cosine is +0.0; rank_blend 0.5 times a rank of plus or minus the
+    least subnormal rounds to a zero of that sign): the bitonic kernel
+    ties them and goes by lane, moving each lane's own bits, as the plain
+    version does."""
+    h = _dense_terms_host(3001, 40, tile)
+    ix = BUILDERS[layout](h, device=gpu)
+    tiny = float(np.float32(np.finfo(np.float32).smallest_subnormal))
+    n = ix.docs.norm.shape[0]
+    rank = torch.full((n,), tiny, device=gpu)
+    rank[::2] = -tiny
+    ix = dataclasses.replace(ix, docs=DocTable(
+        norm=torch.full((n,), 3e38, device=gpu), rank=rank))
+    qh = h.term_hashes[:24].reshape(8, 3)
+    tids, idf_t = query.lookup_query(ix, layouts.hash_tensor(qh, gpu))
+    kernel, plain, args, kw, _ = ops.fused_topk_args(
+        ix, tids, idf_t, h.max_posting_len, 64, rank_blend=0.5, tile=tile,
+        k_tile=64, qnorm=torch.full((8,), 1e30, device=gpu))
+    gv, gi = _assert_bitonic_equals_plain(kernel, plain, args, kw)
+    fin = gv.isfinite()
+    assert bool((gv[fin] == 0).all())
+    neg = torch.signbit(gv) & fin
+    assert bool(neg.any()) and bool((fin & ~neg).any())
+
+
+def test_bitonic_kernel_is_one_device_launch(gpu, host):
+    """A bitonic call is one kernel on the card, the walk with the
+    bitonic epilogue: one profiler trace of an HOR call then a packed
+    call shows exactly their two kernels."""
+    def make_args(ix, tids, idf_t, cap):
+        kernel, plain, args, kw, ovf = ops.fused_topk_args(ix, tids, idf_t,
+                                                           cap, 10)
+        return kernel, plain, args, dict(kw, reducer="bitonic"), ovf
+    names = _device_kernels(_layout_calls(host, gpu, make_args))
+    assert len(names) == 2, names
+    assert "score_kernel<fused_score::BitonicOut, fused_score::HorBlocks" \
+        in names[0], names
+    assert "score_kernel<fused_score::BitonicOut, fused_score::PackedBlocks" \
+        in names[1], names
+
+
+@pytest.mark.parametrize("layout", ["hor", "packed"])
+def test_bitonic_geometry_past_shared_memory_is_refused(gpu, layout):
+    """Q = 32 at 1,024-doc tiles: the bitonic epilogue's lane array does
+    not fit beside the walk's buffers, so the launcher and the occupancy
+    query refuse it by name, before any launch; the successive epilogue
+    runs it."""
+    h = _dense_terms_host(3001, 40, 32)
+    ix = BUILDERS[layout](h, device=gpu)
+    qh = np.stack([h.term_hashes[i:i + 4] for i in range(32)])
+    tids, idf_t = query.lookup_query(ix, layouts.hash_tensor(qh, gpu))
+    kernel, plain, args, kw, _ = ops.fused_topk_args(
+        ix, tids, idf_t, h.max_posting_len, 10, tile=1024)
+    before = kernel.launches_bitonic
+    with pytest.raises(ValueError, match=r"Q=32 x tile=1024 \(reducer="
+                                         r"'bitonic'.*shared memory"):
+        kernel(*args, **kw, reducer="bitonic")
+    wpb = args[0].shape[1] if layout == "packed" else 0
+    with pytest.raises(ValueError, match="shared memory"):
+        fds.occupancy(kernel.__name__, 32, 1024, wpb, "bitonic")
+    assert kernel.launches_bitonic == before
+    _assert_topk_equals_plain(kernel, plain, args, kw)
+
+
+@pytest.mark.parametrize("name,wpb", [("fused_topk_blocked", 0),
+                                      ("fused_topk_packed", 9),
+                                      ("fused_score_blocked", 0),
+                                      ("fused_score_packed", 33)])
+def test_smem_plan_mirror_equals_kernel(gpu, name, wpb):
+    """``fused_smem_bytes``, which ``check_smem`` refuses geometries by,
+    gives the shared memory the kernels' own plan asks for (their
+    occupancy entry points), at every Q, tile and epilogue that fits."""
+    reducers = ("successive", "bitonic") if "topk" in name else \
+        ("successive",)
+    for q in (8, 16, 24):
+        for tile in (256, 512, 1024):
+            for reducer in reducers:
+                want = fds.fused_smem_bytes(name, q, tile, wpb, reducer)
+                if want > fds.SMEM_LIMIT:
+                    continue
+                ctas, smem = fds.occupancy(name, q, tile, wpb, reducer)
+                assert smem == want and ctas >= 1, (q, tile, reducer)
+
+
+@pytest.mark.parametrize("layout", ["hor", "packed"])
+def test_bitonic_table_entry_launches_bitonic_kernel(gpu, host, layout):
+    """A bitonic entry of the active tuning table, keyed by the CUDA
+    device type, reaches the bitonic kernel through ``make_scorer`` (no
+    downgrade), with the empty table's answer to the bit."""
+    from repro_torch.kernels import autotune
+    ix = BUILDERS[layout](host, device=gpu)
+    qh = corpus.sample_query_terms(host.df, host.term_hashes, 8, 3,
+                                   num_docs=host.num_docs, seed=6)
+    cap = host.max_posting_len
+    kernel = getattr(fds, "fused_topk_blocked" if layout == "hor"
+                     else "fused_topk_packed")
+    base = query.make_scorer(ix, k=10, cap=cap, engine="fused")(qh)
+    table = autotune.TuningTable()
+    table.put("cuda", autotune.size_class_of(int(ix.docs.num_docs)), layout,
+              autotune.TuneConfig(reducer="bitonic"))
+    prev = autotune.set_active(table)
+    try:
+        before = kernel.launches, kernel.launches_bitonic
+        got = query.make_scorer(ix, k=10, cap=cap, engine="fused")(qh)
+        torch.cuda.synchronize()
+        assert (kernel.launches, kernel.launches_bitonic) == (
+            before[0], before[1] + 1)
+    finally:
+        autotune.set_active(prev)
+    assert torch.equal(got.doc_ids, base.doc_ids)
+    assert torch.equal(got.scores.view(torch.int32),
+                       base.scores.view(torch.int32))
 
 
 @pytest.mark.parametrize("layout", ["hor", "packed"])
@@ -621,8 +848,7 @@ def test_posting_score_kernel_edge_runs(gpu, case):
 def test_posting_score_is_one_device_launch(gpu):
     """A call of the scorer is one kernel on the card and nothing else
     (no run search, copy or fill of its own), counted by the
-    profiler (a trace that opens on a spin kernel: see
-    ``_device_kernels``)."""
+    profiler (a whole trace: see ``_device_kernels``)."""
     docs, tfs, rng = _synthetic_blocks(gpu, 64, 128, 20_000, 0)
     n_tiles = -(-20_000 // ps.TILE)
     pt = torch.from_numpy(np.sort(rng.integers(0, n_tiles + 1, 500))
@@ -673,25 +899,14 @@ def test_query_norm_kernel_equals_plain(gpu, rows):
 def test_query_weights_are_one_device_launch_each(gpu):
     """``idf`` and ``query_norm`` on the card are one kernel each and
     nothing else: no copy to the host, no elementwise op of their own.
-    The trace opens on a spin kernel of torch's, so that the weights'
-    ~1 us kernels are not the first activity it records; two rounds
-    then show exactly idf, norm, idf, norm."""
-    from torch.profiler import ProfilerActivity, profile
+    Two rounds, in one whole trace (``_device_kernels``), show exactly
+    idf, norm, idf, norm."""
     df = torch.randint(0, 1000, (8, 3), dtype=torch.int32, device=gpu)
     query.query_norm(query.idf(df, 1000))          # built and loaded
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(10_000)
-        for _ in range(2):
-            query.query_norm(query.idf(df, 1000))
-        torch.cuda.synchronize()
-    names = [e.name for e in sorted(
-        (e for e in prof.events()
-         if e.device_type == torch.autograd.DeviceType.CUDA),
-        key=lambda e: e.time_range.start)]
-    ours = [n for n in names if "spin_kernel" not in n]
-    assert len(ours) == 4, names
-    for name, want in zip(ours, ("idf_kernel", "norm_kernel") * 2):
+    names = _device_kernels([(lambda: query.query_norm(query.idf(df, 1000)),
+                              (), {})] * 2)
+    assert len(names) == 4, names
+    for name, want in zip(names, ("idf_kernel", "norm_kernel") * 2):
         assert want in name, names
 
 

@@ -221,8 +221,11 @@ def test_fused_engine_equals_reference_pallas_engine():
                                   np.asarray(want.doc_ids))
     with pytest.raises(ValueError):
         tquery.make_scorer(port, k=K, cap=None, max_pairs=8)
-    with pytest.raises(ValueError):
-        tquery.make_scorer(port, k=K, cap=None, tune=tautotune.DEFAULT_CONFIG)
+    # tune passes through to every segment, as in the reference
+    got = tquery.make_scorer(port, k=K, cap=None, engine="fused",
+                             mode="dense", tune=tautotune.DEFAULT_CONFIG)(qh)
+    np.testing.assert_array_equal(got.doc_ids.numpy(),
+                                  np.asarray(want.doc_ids))
     with pytest.raises(ValueError):
         port.topk(qh, k=K, engine="pallas")
     with pytest.raises(ValueError):

@@ -4,8 +4,10 @@ kernels), which no CPU can run: each CTA's run search against the run
 starts a ``searchsorted`` of the pair tiles gives, the chunked
 ``cp.async`` pipeline's schedule, which must hand every pair of a run to
 the accumulate once, in order, from buffers no later copy has
-overwritten, and the candidate kernels' per-row reduction against the
-plain version's successive maxima.
+overwritten, the candidate kernels' per-row reduction against the
+plain version's successive maxima, and the bitonic epilogue's network
+(register and shared-memory stages over every row of a tile) against the
+plain bitonic reducer.
 """
 import numpy as np
 import pytest
@@ -400,3 +402,97 @@ def test_candidate_reduction_in_a_short_tile(width, k_tile):
     np.testing.assert_array_equal(got_i, want_i[0].numpy())
     np.testing.assert_array_equal(got_v.view(np.int32),
                                   want_v[0].numpy().view(np.int32))
+
+
+def _keeps(v, l, pv, pl, lo, desc):
+    """``BitonicOut::keeps``: whether each position keeps its own element
+    rather than take its partner's, by the reference's rule."""
+    first = (v > pv) | ((v == pv) & (l < pl))
+    return np.where(lo == desc, first, ~first)
+
+
+def _bitonic_warp_pass(v, l, n, tile, size_lo, size_hi):
+    """``BitonicOut::warp_pass``: the flat [q * tile] elements in chunks
+    of 32, one per lane; the stages of sizes size_lo..size_hi whose
+    strides are below 32 exchange lane with lane ^ stride in a chunk."""
+    m = -(-n // 32) * 32
+    f = np.arange(m)
+    live = f < n
+    x = np.zeros(m, np.float32)
+    y = np.zeros(m, np.int64)
+    x[live], y[live] = v, l
+    i = f & (tile - 1)
+    size = size_lo
+    while size <= size_hi:
+        desc = (i & size) == 0
+        s = min(size // 2, 16)
+        while s >= 1:
+            px, py = x[f ^ s], y[f ^ s]
+            keep = _keeps(x, y, px, py, (i & s) == 0, desc)
+            x, y = np.where(keep, x, px), np.where(keep, y, py)
+            s //= 2
+        size *= 2
+    return x[live], y[live]
+
+
+def _bitonic_smem_stage(v, l, n, tile, size, stride):
+    """``BitonicOut::smem_stage``: pair p joins positions f and f +
+    stride, f = ((p >> sh) << (sh + 1)) | (p & (stride - 1)); both read
+    before either is written."""
+    sh = stride.bit_length() - 1
+    p = np.arange(n // 2)
+    f = ((p >> sh) << (sh + 1)) | (p & (stride - 1))
+    g = f + stride
+    desc = ((f & (tile - 1)) & size) == 0
+    va, vb, la, lb = v[f], v[g], l[f], l[g]
+    ka = _keeps(va, la, vb, lb, True, desc)
+    kb = _keeps(vb, lb, va, la, False, desc)
+    v, l = v.copy(), l.copy()
+    v[f], l[f] = np.where(ka, va, vb), np.where(ka, la, lb)
+    v[g], l[g] = np.where(kb, vb, va), np.where(kb, lb, la)
+    return v, l
+
+
+def _bitonic_sort_rows(rows, tile):
+    """``BitonicOut::sort_rows`` over [q, tile] rows: block sizes up to 32
+    in one register pass, then per larger size its strides >= 32 in
+    shared memory and its strides 16..1 in a register pass.  Returns the
+    sorted values and lanes [q, tile]."""
+    q = rows.shape[0]
+    n = q * tile
+    v = rows.reshape(-1).copy()
+    l = np.arange(n) & (tile - 1)
+    v, l = _bitonic_warp_pass(v, l, n, tile, 2, min(tile, 32))
+    size = 64
+    while size <= tile:
+        stride = size // 2
+        while stride >= 32:
+            v, l = _bitonic_smem_stage(v, l, n, tile, size, stride)
+            stride //= 2
+        v, l = _bitonic_warp_pass(v, l, n, tile, size, size)
+        size *= 2
+    return v.reshape(q, tile), l.reshape(q, tile)
+
+
+@pytest.mark.parametrize("q", [1, 3, 8, 16])
+@pytest.mark.parametrize("tile", [1, 2, 8, 32, 64, 256, 512, 1024])
+def test_bitonic_epilogue_network_equals_plain(q, tile):
+    """The bitonic epilogue's network as the CTA runs it (register passes
+    for strides under 32, shared-memory stages above, every row of the
+    [q, tile] block at once, chunks that cross rows at tiles under 32)
+    equals the plain ``_tile_topk_bitonic`` over the whole tile, values
+    to the bit and lanes: over distinct values, ties, -inf lanes and
+    zeros of both signs."""
+    from repro_torch.kernels import fused_decode_score as tfds
+    rng = np.random.default_rng(q * 4096 + tile)
+    rows = rng.choice(np.float32([0.5, 0.25, 1.5, 0.0, -0.0, -np.inf]),
+                      (q, tile)).astype(np.float32)
+    rows[0] = rng.standard_normal(tile).astype(np.float32)
+    v, l = _bitonic_sort_rows(rows, tile)
+    want_v, want_i = tfds._tile_topk_bitonic(
+        torch.from_numpy(rows), torch.zeros(q, dtype=torch.int32), tile,
+        tile)
+    np.testing.assert_array_equal(v.view(np.int32),
+                                  want_v.numpy().view(np.int32))
+    np.testing.assert_array_equal(np.where(np.isfinite(v), l, -1),
+                                  want_i.numpy())
