@@ -172,8 +172,15 @@
    equals its plain version (``reducer="bitonic"``) to the bit, and the
    successive kernel's ids (and value bits, but at signed zeros, whose
    count is printed), and the ids of a stable ``torch.sort`` of the dense
-   kernel's tiled final scores; (c) with the loaded table active,
-   ``make_scorer(engine="fused")`` gives the empty table's answers
+   kernel's tiled final scores; on each layout's last bulk batch
+   (``edge_calls``, a ``tune edge calls <layout>:`` line) the bitonic
+   kernel at k_tile 64, both candidate kernels with a NaN rank on 16
+   docs (those tiles' CTAs run the network; the successive kernel writes
+   (NaN, -1) through each row holding one) and the successive kernel on
+   final scores of signed zeros, each equal to its plain version to the
+   bit (NaN slots NaN to NaN), the zero and -0.0 slots counted; (c) with
+   the loaded table active, ``make_scorer(engine="fused")`` gives the
+   empty table's answers
    through the winner's kernel; (d) ``LayoutCostModel().choose`` at the
    1M class gives a ``measured:cuda@...`` reason; (f) the empty table
    is active again.  Prints a ``tune <layout>:`` line per layout (each
@@ -2280,17 +2287,97 @@ def model_phase(seed, dev, report):
 
 
 def bitonic_work(kind, args, tile, q_real):
-    """(bytes, ops) a bitonic candidate call must move/do at least: the
-    candidate kernel's bytes (``kernel_work``: the routed blocks, the real
-    pairs' rows, norm/rank of visited tiles, the candidates written) and,
-    per posting lane, Q products + Q adds; per (query, doc) of a visited
-    tile, the 5-op scoring tail and one compare per stage of the
-    network."""
+    """(bytes, ops) a bitonic candidate call must move/do at least,
+    whatever implements it: the candidate kernel's bytes (``kernel_work``:
+    the routed blocks, the real pairs' rows, norm/rank of visited tiles,
+    the candidates written) and, per posting lane, Q products + Q adds;
+    per (query, doc) of a visited tile, the 5-op scoring tail and one
+    compare (a selection of the first k_tile looks at each doc once)."""
     nbytes, _, real, blocks, tiles = kernel_work(kind, args, tile, q_real)
-    lg = tile.bit_length() - 1
-    stages = lg * (lg + 1) // 2
-    ops = blocks * 128 * 2 * q_real + q_real * tiles * tile * (5 + stages)
+    ops = blocks * 128 * 2 * q_real + q_real * tiles * tile * (5 + 1)
     return nbytes, ops, real, blocks, tiles
+
+
+def signed_zero_docs(n, tile, dev):
+    """A doc table whose final scores, at qnorm 1e30 and rank_blend 0.5,
+    hold zeros of both signs (``tests/test_torch_cuda.py``'s "mixed"
+    table): per 64 docs one positive (norm 1.0: a cosine near 1e-30), four
+    zeros (norm 3e38 overflows the denominator; half a rank of plus or
+    minus the least subnormal rounds to a zero of that sign), the rest
+    deleted; +0.0 in each tile's first half and every third 16 docs after
+    it but the last four, -0.0 elsewhere."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.layouts import DocTable
+    tiny = float(np.float32(np.finfo(np.float32).smallest_subnormal))
+    d = torch.arange(n, device=dev)
+    pos = d % tile
+    plus = ((pos < tile // 2) | ((pos // 16) % 3 == 0)) & (pos < tile - 64)
+    return DocTable(norm=torch.where(d % 64 == 1, 1.0,
+                                     torch.where(d % 16 == 0, 3e38, 0.0)),
+                    rank=torch.where(plus, tiny, -tiny))
+
+
+def edge_calls(ix, name, batch, cap, dev):
+    """Step 10 (b)'s edge calls on one layout's last bulk batch, each held
+    to its plain version to the bit (a NaN slot to a NaN slot, whatever
+    the payloads): the bitonic epilogue at k_tile 64;
+    both epilogues with a NaN rank on 16 docs of 16 tiles (those CTAs take
+    the network, the others the selection; the successive epilogue writes
+    (NaN, -1) through every row holding one); the successive epilogue over
+    ``signed_zero_docs`` at k_tile 64.  Returns the counts it prints."""
+    import torch
+
+    from repro_torch.core import layouts, query
+    from repro_torch.core.layouts import DocTable
+    from repro_torch.kernels import fused_decode_score as fds
+    from repro_torch.kernels import ops
+
+    wrapper, plain = getattr(fds, name), getattr(fds, name + "_plain")
+    qh = layouts.hash_tensor(batch, dev)
+
+    def held(index, label, reducer, **kw):
+        tids, idf_t = query.lookup_query(index, qh)
+        _, _, args, akw, _ = ops.fused_topk_args(index, tids, idf_t, cap, K,
+                                                 **kw)
+        akw = dict(akw, reducer=reducer)
+        got, want = wrapper(*args, **akw), plain(*args, **akw)
+        torch.cuda.synchronize()
+        # a NaN equals a NaN in the same slot, whatever its payload: the
+        # card's tail makes 0x7fffffff, the plain version's f64 FMA another
+        nan = got[0].isnan()
+        if not (torch.equal(got[1], want[1])
+                and torch.equal(nan, want[0].isnan())
+                and torch.equal(got[0].view(torch.int32)[~nan],
+                                want[0].view(torch.int32)[~nan])):
+            raise AssertionError(f"{name} {label}: kernel != plain version")
+        return got[0]
+
+    out = {}
+    v = held(ix, "bitonic k_tile 64", "bitonic", k_tile=64)
+    out["bitonic_k64_finite_slots"] = int(v.isfinite().sum())
+    n = int(ix.docs.num_docs)
+    rank = ix.docs.rank.clone()
+    nan_docs = torch.arange(16, device=dev) * (n // 16) + 5
+    rank[nan_docs] = float("nan")
+    nan_ix = dataclasses.replace(ix, docs=DocTable(norm=ix.docs.norm,
+                                                   rank=rank))
+    for reducer in ("bitonic", "successive"):
+        v = held(nan_ix, f"{reducer} NaN ranks", reducer, rank_blend=0.3)
+        out[f"{reducer}_nan_slots"] = int(v.isnan().sum())
+    if out["successive_nan_slots"] == 0:
+        raise AssertionError(f"{name}: the NaN ranks gave no NaN row")
+    zx = dataclasses.replace(ix, docs=signed_zero_docs(n, fds.TILE, dev))
+    v = held(zx, "successive signed zeros", "successive", k_tile=64,
+             rank_blend=0.5, qnorm=torch.full((BATCH,), 1e30, device=dev))
+    zero = v == 0
+    out["successive_zero_slots"] = int(zero.sum())
+    out["successive_minus_zero_slots"] = int((zero & v.signbit()).sum())
+    if not out["successive_minus_zero_slots"] or \
+            out["successive_zero_slots"] == out["successive_minus_zero_slots"]:
+        raise AssertionError(f"{name}: the signed-zero call gave {out}")
+    return out
 
 
 def same_answer(a, b):
@@ -2543,6 +2630,10 @@ def tuning_checks(host, batches, cap, dev, report, state):
                                     [calls[-1]])
             del calls
             torch.cuda.empty_cache()
+        edges = edge_calls(ix, name, batches[-1], cap, dev)
+        tuning[f"edge_calls_{kind}"] = edges
+        print(f"tune edge calls {kind}: {json.dumps(edges)}")
+        torch.cuda.empty_cache()
 
     # (c) the table, as loaded, active: make_scorer gives the empty
     # table's answers, through the winner's kernel

@@ -21,21 +21,25 @@
 //     sum / (max(norm, 1e-12) * qnorm), then rank_blend * rank added as
 //     one fused multiply-add; -inf where norm == 0, the sum is 0 or the
 //     lane is past num_docs) and keeps each query's k_tile best lanes
-//     (_tile_topk: value descending, lowest lane first, id -1 where the
-//     value is not finite), written tile-major into [Q, n_tiles * k_tile];
-//     an unvisited tile gives (-inf, -1) throughout;
-//   - BitonicOut applies the same tail and sorts each query's tile lanes
-//     by (value descending, lowest lane first) with a bitonic network
-//     (_tile_topk_bitonic), then writes the first k_tile of them as
-//     TopkOut does.
+//     (_tile_topk: value descending, +0.0 and -0.0 tied, lowest lane
+//     first, id -1 where the value is not finite; a zero slot writes the
+//     row's maximum, +0.0 while one is left; a row holding a NaN gives
+//     (NaN, -1) throughout), written tile-major into [Q, n_tiles *
+//     k_tile]; an unvisited tile gives (-inf, -1) throughout;
+//   - BitonicOut applies the same tail and gives _tile_topk_bitonic's
+//     first k_tile columns of each row sorted by (value descending,
+//     lowest lane first) with the reference's network: the same ids, each
+//     slot with its lane's own bits.
 //
 // What bounds it: bytes.  Every routed pair reads one posting block (HOR
 // 1 KB; packed 4 * words_per_block B + 256 B); DenseOut writes the whole
-// f32 [Q, num_docs] array (32 MB for 8 queries at 1M docs), TopkOut only
-// Q * k_tile candidates per tile.  A handful of flops per byte, far below
-// the card's ops:byte ridge.  A tile's pairs are few (~34 at the 1M tier's
-// packed band), so the latency of a CTA's walk over its run, not the
-// bytes, sets the time unless the walk is taken off a serial chain.
+// f32 [Q, num_docs] array (32 MB for 8 queries at 1M docs), the candidate
+// epilogues only Q * k_tile candidates per tile.  A handful of flops per
+// byte, far below the card's ops:byte ridge.  A tile's pairs are few (~34
+// at the 1M tier's packed band), so the latency of a CTA's walk over its
+// run, not the bytes, sets the time unless the walk is taken off a serial
+// chain; after the walk, a candidate CTA's time is one warp's selection
+// per row (a few dozen dependent shuffles and shared-memory loads).
 //
 // Design: one launch per call, one CTA of 512 threads per doc tile.
 //   1. The CTA finds its run [p0, p1) of pairs itself (run_walk.cuh).
@@ -63,28 +67,51 @@
 //   5. DenseOut: the sums go to the accumulator, and the tile's Q rows are
 //      written with 16-byte stores, coalesced along the docs, clipped at
 //      num_docs.  An unvisited tile writes its zeros the same way.
-//   6. TopkOut: each owner turns its sums into final scores in registers
-//      (__fdiv_rn, __fmul_rn, __fmaf_rn: the reference's op sequence) and
-//      stores them into the accumulator as order-preserving u32 keys.  One
-//      warp per query row then keeps the row's k_tile best; lane l holds
-//      the positions [l * per, (l + 1) * per) of the tile's docs below
-//      num_docs.  The k_tile-th largest of the lanes' bests (or of their
-//      two largest) bounds the answer from below; when at most 64 keys
-//      pass it, they are gathered and sorted by one warp-wide bitonic
-//      sort (select_few).  Otherwise (ties, k_tile > 32, tiles > 512) the warp
-//      takes successive maxima: each step one __reduce_max_sync finds the
-//      row's largest key, the lowest lane holding it (a ballot) emits it
-//      and rescans its positions.  Both keep _tile_topk's order: value
-//      descending, the lowest doc first on ties.
-//   7. BitonicOut: each owner writes its final scores (f32) into the
-//      accumulator, beside a u16 [Q, tile] array of lanes, and the CTA
-//      sorts every row with the reference's network, stage by stage: at
-//      each stage every position keeps itself or its partner
-//      (position ^ stride) by the reference's float comparisons, so
-//      +0.0 and -0.0 tie and go by lane, and values move without being
-//      recomputed.  Strides under 32 run in registers, one element per
-//      lane of a warp, by shuffles (several stages per load); longer ones
-//      in shared memory, one pair per thread and a barrier per stage.
+//   6. The candidate epilogues: each owner turns its sums into final
+//      scores in registers (__fdiv_rn, __fmul_rn, __fmaf_rn: the
+//      reference's op sequence) and stores them into the accumulator as
+//      order-preserving u32 keys, one pass, in which -0.0 takes +0.0's
+//      key (select_key): the two zeros tie and go by lane, as the
+//      reference's float comparisons order them.  What the shared key
+//      loses the owner notes aside, rarely (a zero's final score needs a
+//      tail that underflows or a blend that cancels): TopkOut each row's
+//      last +0.0, BitonicOut a bit per -0.0, in shared memory the walk
+//      no longer uses.  The barrier that ends the pass votes whether any
+//      score is a zero or a NaN.  One warp per query row then keeps the
+//      row's k_tile best; lane l holds the positions [l * per, (l + 1) *
+//      per) of the tile's docs below num_docs.  The k_tile-th largest of
+//      the lanes' bests (or of their two largest) bounds the answer from
+//      below; when at most 64 keys pass it, they are gathered and sorted
+//      by one warp-wide bitonic sort (select_few).  Otherwise (ties,
+//      k_tile > 32, tiles > 512) the warp takes successive maxima: each
+//      step one __reduce_max_sync finds the row's largest key, the lowest
+//      lane holding it (a ballot) emits it and rescans its positions.
+//      Both keep _tile_topk's order: value descending, the lowest doc
+//      first on ties.  Only a CTA that voted pays for the rest: its slots
+//      that selected a zero take their value by the epilogue's rule
+//      (fix_zeros): TopkOut's, the row's maximum (+0.0 if the row's last
+//      +0.0 lies at or after the slot's lane: zeros are taken in lane
+//      order, so those are the zeros left), BitonicOut's, the lane's own
+//      bits; and TopkOut's warps first look for a NaN in their row and,
+//      finding one, write (NaN, -1) throughout, as successive maxima
+//      whose maximum is NaN do.
+//   7. BitonicOut: for rows without NaN, the reference's network is a
+//      sort by a strict total order on (value, lane), values never
+//      recomputed, so its first k_tile columns are the selection's, each
+//      with its lane's own bits: a CTA without NaN selects, up to k_tile
+//      kBitonicSelectUpTo (past it the selection's successive maxima, one
+//      dependent step a slot, take longer than the network's 55 fixed
+//      stages at tile 512: scripts/profile_bitonic.py).  A CTA holding a
+//      NaN (a second vote, where the first found one), where the
+//      network's output depends on positions, and one above that k_tile,
+//      turns its keys back into f32 scores, each zero with its sign,
+//      beside a u16 [Q, tile] array of lanes and sorts every row with the
+//      network, stage by stage: at each stage every position keeps itself
+//      or its partner (position ^ stride) by the reference's float
+//      comparisons, values moved, not recomputed.  Strides under 32 run
+//      in registers, one element per lane of a warp, by shuffles (several
+//      stages per load); longer ones in shared memory, one pair per thread
+//      and a barrier per stage.
 #pragma once
 
 #include <cstdint>
@@ -426,6 +453,7 @@ struct DenseOut {
   template <int kQ>
   __device__ __forceinline__ void finish(float* acc, const float* sum, int t,
                                          int num_docs, int q, int tile,
+                                         unsigned char*,
                                          unsigned char*) const {
     if constexpr (kQ > 0) {
       if (threadIdx.x < tile) {
@@ -450,8 +478,27 @@ __device__ __forceinline__ float key_value(unsigned k) {
   return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
 }
 
+constexpr unsigned kNegInfKey = 0x007fffffu;      // order_key(-inf)
+constexpr unsigned kPosInfKey = 0xff800000u;      // order_key(+inf)
+constexpr unsigned kZeroKey = 0x80000000u;        // order_key(+0.0f)
+
+// The key the candidate epilogues select by: order_key, but -0.0 takes
+// +0.0's key, so that the two zeros tie and go by lane, as the
+// reference's float comparisons order them.  What the shared key loses,
+// a zero's sign, the owners note aside (note_zero).
+__device__ __forceinline__ unsigned select_key(float v) {
+  return v == 0.0f ? kZeroKey : order_key(v);
+}
+
+// The bitonic epilogue selects each row's first k_tile, as the candidate
+// epilogue does, up to this k_tile; above it the CTA runs the network.
+constexpr int kBitonicSelectUpTo = 64;
+
 // The candidate epilogue: the scoring tail and each query's k_tile best
-// lanes, into vals / ids [q, n_tiles * k_tile], tile-major.
+// lanes, into vals / ids [q, n_tiles * k_tile], tile-major.  A slot
+// holding a zero writes the row's maximum (_tile_topk): +0.0 while a
+// +0.0 is left in the row.  A row holding a NaN writes (NaN, -1) in
+// every slot.
 struct TopkOut {
   static constexpr bool kLaneArray = false;
   const float* norm;     // [num_docs]
@@ -495,39 +542,120 @@ struct TopkOut {
     return (nm > 0.0f && s > 0.0f) ? fin : -CUDART_INF_F;
   }
 
+  // `spare`: a metadata buffer the walk no longer uses, which holds
+  // each row's last +0.0 (zero_words)
   template <int kQ>
   __device__ __forceinline__ void finish(float* acc, const float* sum, int t,
                                          int num_docs, int q, int tile,
-                                         unsigned char*) const {
+                                         unsigned char*,
+                                         unsigned char* spare) const {
+    int* zeros = reinterpret_cast<int*>(spare);
+    const bool rare = write_keys<kQ, false>(acc, sum, t, num_docs, q, tile,
+                                            zeros) != 0;
+    select_rows<false>(reinterpret_cast<unsigned*>(acc), t, num_docs, q,
+                       tile, rare, zeros);
+  }
+
+  // Where a row's zeros keep what their shared key loses, `words` ints a
+  // row: with the row's maximum (kOwn false) the position of its last
+  // +0.0 (-1 if none), with own bits (kOwn) one bit a lane set at -0.0.
+  template <bool kOwn>
+  static __device__ __forceinline__ int zero_words(int tile) {
+    return kOwn ? (tile + 31) / 32 : 1;
+  }
+
+  template <bool kOwn>
+  static __device__ __forceinline__ void note_zero(int* zeros, int qi,
+                                                   int loc, int tile,
+                                                   float f) {
+    if (kOwn) {
+      if (signbit(f))
+        atomicOr(reinterpret_cast<unsigned*>(zeros) +
+                     qi * zero_words<true>(tile) + loc / 32,
+                 1u << (loc % 32));
+    } else if (!signbit(f)) {
+      atomicMax(zeros + qi, loc);
+    }
+  }
+
+  // The value a slot that selected a zero at position p of row qi writes.
+  template <bool kOwn>
+  static __device__ __forceinline__ float zero_value(const int* zeros,
+                                                     int qi, int p,
+                                                     int tile) {
+    if (kOwn) {
+      const unsigned bits = reinterpret_cast<const unsigned*>(
+          zeros)[qi * zero_words<true>(tile) + p / 32];
+      return (bits >> (p % 32)) & 1u ? -0.0f : 0.0f;
+    }
+    // zeros are taken in lane order, so the zeros left are p and after
+    return p <= zeros[qi] ? 0.0f : -0.0f;
+  }
+
+  // The owners turn their sums into final scores in registers and store
+  // their selection keys in place of the sums (kQ > 0: of the staged norm
+  // and rank), one pass; a zero is noted in `zeros`, cleared before the
+  // pass.  Returns the CTA's vote, on the barrier that ends the pass:
+  // bit 0 a zero or a NaN anywhere, bit 1 a NaN in this thread's scores.
+  template <int kQ, bool kOwn>
+  __device__ __forceinline__ int write_keys(float* acc, const float* sum,
+                                            int t, int num_docs, int q,
+                                            int tile, int* zeros) const {
     const int base = t * tile;
     const int width = min(tile, num_docs - base);
     unsigned* keys = reinterpret_cast<unsigned*>(acc);
+    for (int i = threadIdx.x; i < q * zero_words<kOwn>(tile); i += kThreads)
+      zeros[i] = kOwn ? 0 : -1;
+    bool nan = false, zero = false;
     if constexpr (kQ > 0) {
-      // the owner's sums become keys in registers, then in place of the
-      // staged norm and rank
       const int loc = threadIdx.x;
       const float nm = loc < width ? acc[loc] : 0.0f;
       const float rk = loc < width ? acc[tile + loc] : 0.0f;
       __syncthreads();
       if (loc < tile) {
 #pragma unroll
-        for (int qi = 0; qi < kQ; ++qi)
-          keys[qi * tile + loc] = order_key(final_score(sum[qi], nm, rk, qi));
+        for (int qi = 0; qi < kQ; ++qi) {
+          const float f = final_score(sum[qi], nm, rk, qi);
+          nan |= isnan(f);
+          if (f == 0.0f) {
+            zero = true;
+            note_zero<kOwn>(zeros, qi, loc, tile, f);
+          }
+          keys[qi * tile + loc] = select_key(f);
+        }
       }
     } else {
       __syncthreads();
       for (int loc = threadIdx.x; loc < tile; loc += kThreads) {
         const float nm = loc < width ? norm[base + loc] : 0.0f;
         const float rk = loc < width ? rank[base + loc] : 0.0f;
-        for (int qi = 0; qi < q; ++qi)
-          keys[qi * tile + loc] =
-              order_key(final_score(acc[qi * tile + loc], nm, rk, qi));
+        for (int qi = 0; qi < q; ++qi) {
+          const float f = final_score(acc[qi * tile + loc], nm, rk, qi);
+          nan |= isnan(f);
+          if (f == 0.0f) {
+            zero = true;
+            note_zero<kOwn>(zeros, qi, loc, tile, f);
+          }
+          keys[qi * tile + loc] = select_key(f);
+        }
       }
     }
-    __syncthreads();
-    // each row's k_tile best, one warp per row, over the tile's `width`
-    // docs (every lane past num_docs is -inf: any of them, or none, gives
-    // the (-inf, -1) that fills a row with fewer finite keys)
+    return (__syncthreads_or(nan || zero) ? 1 : 0) | (nan ? 2 : 0);
+  }
+
+  // Each row's k_tile best, one warp per row, over the tile's `width`
+  // docs (every lane past num_docs is -inf: any of them, or none, gives
+  // the (-inf, -1) that fills a row with fewer finite keys).  `rare`: the
+  // CTA voted a zero or a NaN: a TopkOut row holding a NaN writes (NaN,
+  // -1) throughout, and slots that selected a zero are given its value
+  // by the rule (fix_zeros).
+  template <bool kOwn>
+  __device__ __forceinline__ void select_rows(unsigned* keys, int t,
+                                              int num_docs, int q, int tile,
+                                              bool rare,
+                                              const int* zeros) const {
+    const int base = t * tile;
+    const int width = min(tile, num_docs - base);
     const int wl = threadIdx.x % 32;
     const int per = (width + 31) / 32;
     const int lo = min(wl * per, width), hi = min(lo + per, width);
@@ -537,25 +665,72 @@ struct TopkOut {
     for (int qi = threadIdx.x / 32; qi < q; qi += kWarps) {
       unsigned* row = keys + qi * tile;
       const size_t o = qi * row_out + (size_t)t * k_tile;
-      if (few && select_few(row, lo, hi, wide, base, tile, vals + o, ids + o))
+      if (!kOwn && rare && fill_nan(row, lo, hi, vals + o, ids + o))
         continue;
-      // k_tile successive maxima (0 once the row's keys are spent)
-      int at = lo;
-      unsigned best = lane_best(row, lo, hi, wide, at);
-      for (int j = 0; j < k_tile; ++j) {
-        const unsigned m = __reduce_max_sync(0xffffffffu, best);
-        const unsigned holders = __ballot_sync(0xffffffffu, best == m);
-        if (wl == __ffs(holders) - 1) {
-          const float v = m ? key_value(m) : -CUDART_INF_F;
-          vals[o + j] = v;
-          ids[o + j] = isfinite(v) ? base + at : -1;
-          if (m) {
-            row[at] = 0u;
-            best = lane_best(row, lo, hi, wide, at);
-          }
+      if (!(few && select_few(row, lo, hi, wide, base, tile, vals + o,
+                              ids + o)))
+        maxima(row, lo, hi, wide, base, vals + o, ids + o);
+      if (rare) fix_zeros<kOwn>(zeros, qi, base, tile, vals + o, ids + o);
+    }
+  }
+
+  // k_tile successive maxima (0 once the row's keys are spent): each step
+  // one __reduce_max_sync finds the row's largest key, the lowest lane
+  // holding it (a ballot) emits it and rescans its positions.
+  __device__ __forceinline__ void maxima(unsigned* row, int lo, int hi,
+                                         bool wide, int base, float* ov,
+                                         int* oi) const {
+    const int wl = threadIdx.x % 32;
+    int at = lo;
+    unsigned best = lane_best(row, lo, hi, wide, at);
+    for (int j = 0; j < k_tile; ++j) {
+      const unsigned m = __reduce_max_sync(0xffffffffu, best);
+      const unsigned holders = __ballot_sync(0xffffffffu, best == m);
+      if (wl == __ffs(holders) - 1) {
+        const float v = m ? key_value(m) : -CUDART_INF_F;
+        ov[j] = v;
+        oi[j] = isfinite(v) ? base + at : -1;
+        if (m) {
+          row[at] = 0u;
+          best = lane_best(row, lo, hi, wide, at);
         }
       }
     }
+  }
+
+  // The row's slots that selected a zero (written +0.0, its shared key's
+  // value) get the value of the rule.
+  template <bool kOwn>
+  __device__ __forceinline__ void fix_zeros(const int* zeros, int qi,
+                                            int base, int tile, float* ov,
+                                            const int* oi) const {
+    __syncwarp();                      // every lane's slots are written
+    for (int j = threadIdx.x % 32; j < k_tile; j += 32)
+      if (ov[j] == 0.0f) ov[j] = zero_value<kOwn>(zeros, qi, oi[j] - base,
+                                                  tile);
+  }
+
+  // If the row holds a NaN's key, writes (NaN, -1) through its k_tile
+  // slots, the NaN the first of them, and returns true.  Scalar loads:
+  // it runs only in a CTA that voted.
+  __device__ __forceinline__ bool fill_nan(const unsigned* row, int lo,
+                                           int hi, float* ov,
+                                           int* oi) const {
+    unsigned first = 0u;
+    int p = lo;
+    for (; p < hi; ++p) {
+      first = row[p];
+      if (first < kNegInfKey || first > kPosInfKey) break;
+    }
+    const unsigned holders = __ballot_sync(0xffffffffu, p < hi);
+    if (!holders) return false;
+    const float v =
+        key_value(__shfl_sync(0xffffffffu, first, __ffs(holders) - 1));
+    for (int j = threadIdx.x % 32; j < k_tile; j += 32) {
+      ov[j] = v;
+      oi[j] = -1;
+    }
+    return true;
   }
 
   // A row's k_tile best when k_tile <= 32 and a lane holds <= 16 keys.
@@ -752,9 +927,14 @@ struct TopkOut {
 };
 
 // The bitonic candidate epilogue: TopkOut's scoring tail, then the
-// reference's _tile_topk_bitonic over each query row of the tile, into the
-// same tile-major vals / ids.  `scratch` is the plan's u16 [q, tile] lane
-// array.
+// reference's _tile_topk_bitonic over each query row of the tile, into
+// the same tile-major vals / ids.  A CTA whose final scores hold no NaN,
+// at k_tile <= kBitonicSelectUpTo, takes TopkOut's selection, each slot
+// writing its lane's own bits: the network's first k_tile columns.  A
+// CTA holding a NaN, whose network output depends on positions, or
+// above that k_tile, sorts its rows with the network.  `scratch` is the
+// plan's u16 [q, tile] lane array; before the network it holds the
+// -0.0 bits of the rows' zeros.
 struct BitonicOut : TopkOut {
   static constexpr bool kLaneArray = true;
 
@@ -763,32 +943,30 @@ struct BitonicOut : TopkOut {
   template <int kQ>
   __device__ __forceinline__ void finish(float* acc, const float* sum, int t,
                                          int num_docs, int q, int tile,
-                                         unsigned char* scratch) const {
-    const int base = t * tile;
-    const int width = min(tile, num_docs - base);
-    unsigned short* lanes = reinterpret_cast<unsigned short*>(scratch);
-    // the final scores, f32, in place of the sums (kQ > 0: of the staged
-    // norm and rank); lanes past num_docs are -inf (norm 0)
-    if constexpr (kQ > 0) {
-      const int loc = threadIdx.x;
-      const float nm = loc < width ? acc[loc] : 0.0f;
-      const float rk = loc < width ? acc[tile + loc] : 0.0f;
-      __syncthreads();
-      if (loc < tile) {
-#pragma unroll
-        for (int qi = 0; qi < kQ; ++qi)
-          acc[qi * tile + loc] = final_score(sum[qi], nm, rk, qi);
-      }
-    } else {
-      __syncthreads();
-      for (int loc = threadIdx.x; loc < tile; loc += kThreads) {
-        const float nm = loc < width ? norm[base + loc] : 0.0f;
-        const float rk = loc < width ? rank[base + loc] : 0.0f;
-        for (int qi = 0; qi < q; ++qi)
-          acc[qi * tile + loc] = final_score(acc[qi * tile + loc], nm, rk, qi);
-      }
+                                         unsigned char* scratch,
+                                         unsigned char*) const {
+    int* zeros = reinterpret_cast<int*>(scratch);
+    unsigned* keys = reinterpret_cast<unsigned*>(acc);
+    const int vote = write_keys<kQ, true>(acc, sum, t, num_docs, q, tile,
+                                          zeros);
+    // a NaN anywhere: a second vote, only where the first found one
+    const bool nan = (vote & 1) && __syncthreads_or(vote & 2);
+    if (!nan && k_tile <= kBitonicSelectUpTo) {
+      select_rows<true>(keys, t, num_docs, q, tile, vote & 1, zeros);
+      return;
     }
+    // the network: the keys back to their f32 scores in place, each zero
+    // with its sign (lanes past num_docs are -inf), then their lanes
+    const int base = t * tile;
+    unsigned short* lanes = reinterpret_cast<unsigned short*>(scratch);
     const int n = q * tile;
+    for (int f = threadIdx.x; f < n; f += kThreads) {
+      const unsigned k = keys[f];
+      acc[f] = k == kZeroKey ? zero_value<true>(zeros, f / tile, f % tile,
+                                                tile)
+                             : key_value(k);
+    }
+    __syncthreads();                   // every zero's bit is read
     for (int f = threadIdx.x; f < n; f += kThreads)
       lanes[f] = (unsigned short)(f & (tile - 1));
     __syncthreads();
@@ -958,8 +1136,10 @@ score_kernel(Blocks bl, Pairs pr, Epi epi, int num_docs, int q, int tile) {
     add_chunk<Blocks, kQ>(bl, ring_of(k), meta_of(k), tf, len_of(k), q, tile,
                           map_of(k), acc, sum);
   }
+  // the epilogue's lane array, and the metadata buffer of the chunk past
+  // the last, which no copy fills and no add reads
   epi.template finish<kQ>(acc, sum, t, num_docs, q, tile,
-                          smem + plan.lane_off());
+                          smem + plan.lane_off(), meta_of(n_chunks));
 }
 
 // Allow score_kernel<Epi, Blocks, kQ> `smem` bytes of dynamic shared

@@ -18,11 +18,17 @@ reference's ``_finish``).
 A candidate kernel reduces each tile by one of the reference's two
 reducers (``REDUCERS``): ``"successive"`` (``_tile_topk``: k_tile
 successive maxima) or ``"bitonic"`` (``_tile_topk_bitonic``: a bitonic
-sort of the whole tile, then its first k_tile columns).  Both give the
-same ids; their value bits differ only at signed zeros, where successive
-maxima write the row's maximum (+0.0 above -0.0, as XLA's max orders
-them) and the sort moves each lane's own bits.  So each reducer is held
-to its own reference counterpart.
+sort of the whole tile, then its first k_tile columns).  Both tie +0.0
+and -0.0 and go by lane, and give the same ids; their value bits differ
+only at signed zeros, where successive maxima write the row's maximum
+(+0.0 above -0.0, as XLA's max orders them) and the sort moves each
+lane's own bits.  At a row holding a NaN they part: successive maxima
+find the maximum NaN every step and write (NaN, -1) in every slot, the
+network's output depends on where the NaN sits.  So each reducer is
+held to its own reference counterpart.  On the card both epilogues
+select each row's best by the same keys (``csrc/fused_score.cuh``) and
+write by their own value rule; a bitonic CTA holding a NaN runs the
+network.
 
 Two implementations of each kernel live here:
 
@@ -116,7 +122,9 @@ def _tile_topk(final: Tensor, base: Tensor, k_tile: int, tile: int):
     Tie-break: lowest lane first (the ``jax.lax.top_k`` order the
     candidate merge relies on); +0.0 and -0.0 tie, and the value
     written is the row's maximum (``_row_max``).  Non-finite maxima get
-    id -1.  Returns (values, ids) [..., k_tile]."""
+    id -1.  A row holding a NaN has the maximum NaN, which no lane
+    equals, so no lane is spent: (NaN, -1) in every slot.  Returns
+    (values, ids) [..., k_tile]."""
     work = final.clone()
     lane = torch.arange(tile, device=final.device, dtype=torch.int32)
     vals, ids = [], []
@@ -125,7 +133,9 @@ def _tile_topk(final: Tensor, base: Tensor, k_tile: int, tile: int):
         am = torch.where(work == m[..., None], lane, tile).min(dim=-1).values
         ids.append(torch.where(torch.isfinite(m), base + am, -1))
         vals.append(m)
-        work.scatter_(-1, am[..., None].long().clamp_max(tile - 1), NEG_INF)
+        at = am[..., None].long().clamp_max(tile - 1)
+        work.scatter_(-1, at, torch.where(am[..., None] < tile, NEG_INF,
+                                          work.gather(-1, at)))
     return torch.stack(vals, -1), torch.stack(ids, -1).to(torch.int32)
 
 

@@ -93,8 +93,20 @@ def _signed_zero_rows():
     return final, 0, 5, 8
 
 
+def _nan_rows():
+    """NaN final scores: a row whose only NaN is its last lane, a NaN
+    among zeros of both signs, a negative NaN, and a row with none."""
+    final = np.tile(np.float32([0.5, 2.0, -0.0, 0.0, 1.0, -np.inf, 3.0,
+                                0.25]), (4, 1))
+    final[0, 7] = np.nan
+    final[1, 3] = np.nan
+    final[2, 0] = -np.float32(np.nan)
+    return final, 16, 4, 8
+
+
 CASES = {
     "engineered_ties": _engineered_ties,
+    "nan_rows": _nan_rows,
     "all_neg_inf": lambda: (np.full((3, 128), -np.inf, np.float32), 0, 8,
                             128),
     "signed_zeros": _signed_zero_rows,

@@ -390,14 +390,25 @@ def test_topk_kernel_is_one_device_launch(gpu, host):
         in names[1], names
 
 
-def _assert_topk_equals_plain(kernel, plain, args, kw):
-    before = kernel.launches
-    gv, gi = kernel(*args, **kw)
-    wv, wi = plain(*args, **kw)
+def _assert_topk_equals_plain(kernel, plain, args, kw,
+                              reducer="successive"):
+    """One launch of ``reducer``'s epilogue (counted in ``launches``, or
+    in ``launches_bitonic`` for the bitonic one, and nowhere else) equal
+    to the plain version with the same reducer, ids and value bits; a NaN
+    equals a NaN in the same slot whatever its payload (the kernel's
+    tail makes the card's NaN, 0x7fffffff; the plain version's f64 FMA
+    emulation another)."""
+    before = kernel.launches, kernel.launches_bitonic
+    gv, gi = kernel(*args, **kw, reducer=reducer)
+    wv, wi = plain(*args, **kw, reducer=reducer)
     torch.cuda.synchronize()
-    assert kernel.launches == before + 1
+    bitonic = reducer == "bitonic"
+    assert (kernel.launches, kernel.launches_bitonic) == (
+        before[0] + (not bitonic), before[1] + bitonic)
     assert torch.equal(gi, wi)
-    assert torch.equal(gv.view(torch.int32), wv.view(torch.int32))
+    nan = gv.isnan()
+    assert torch.equal(nan, wv.isnan())
+    assert torch.equal(gv.view(torch.int32)[~nan], wv.view(torch.int32)[~nan])
     return gv, gi
 
 
@@ -455,20 +466,6 @@ def test_topk_kernel_q_tiles_and_k_tile(gpu, layout, queries, tile, k_tile):
         assert not bool(gv.isfinite().all()) and bool((gi == -1).any())
 
 
-def _assert_bitonic_equals_plain(kernel, plain, args, kw):
-    """One bitonic launch (counted in ``launches_bitonic`` only) equal to
-    the plain bitonic reducer, ids and value bits."""
-    before = kernel.launches, kernel.launches_bitonic
-    gv, gi = kernel(*args, **kw, reducer="bitonic")
-    wv, wi = plain(*args, **kw, reducer="bitonic")
-    torch.cuda.synchronize()
-    assert (kernel.launches, kernel.launches_bitonic) == (before[0],
-                                                          before[1] + 1)
-    assert torch.equal(gi, wi)
-    assert torch.equal(gv.view(torch.int32), wv.view(torch.int32))
-    return gv, gi
-
-
 @pytest.mark.parametrize("layout", ["hor", "packed"])
 @pytest.mark.parametrize("queries", [8, 16])
 @pytest.mark.parametrize("tile", [256, 512, 1024])
@@ -478,9 +475,10 @@ def test_bitonic_kernel_q_tiles_and_k_tile(gpu, layout, queries, tile,
     """The bitonic epilogue bit-equal to the plain bitonic reducer at
     every geometry of the reference's sweep grid: tiles 256, 512 and
     1,024, Q = 8 and 16 (the kernels for their Q up to 512-doc tiles, the
-    generic one at 1,024), k_tile from 8 to the whole tile, over deleted
-    docs, a rank blend and runs of 100+ pairs; its ids equal the
-    successive kernel's on the same pairs."""
+    generic one at 1,024), k_tile from 8 to the whole tile (the
+    selection up to 64, the network above), over deleted docs, a rank
+    blend and runs of 100+ pairs; its ids and value bits equal the
+    successive kernel's on the same pairs (no zero among them)."""
     k_tile = tile if k_tile == "tile" else k_tile
     h = _dense_terms_host(3001, 40, queries + tile)
     ix = BUILDERS[layout](h, device=gpu)
@@ -495,7 +493,8 @@ def test_bitonic_kernel_q_tiles_and_k_tile(gpu, layout, queries, tile,
         ix, tids, idf_t, h.max_posting_len, k_tile, rank_blend=0.3,
         tile=tile, k_tile=k_tile)
     assert args[4].shape[1] == queries and args[-1] == k_tile
-    gv, gi = _assert_bitonic_equals_plain(kernel, plain, args, kw)
+    gv, gi = _assert_topk_equals_plain(kernel, plain, args, kw,
+                                       "bitonic")
     sv, si = kernel(*args, **kw)
     torch.cuda.synchronize()
     assert torch.equal(gi, si)
@@ -529,7 +528,8 @@ def test_bitonic_kernel_ties_and_empty_tiles(gpu, layout, tile):
     kernel, plain, args, kw, _ = ops.fused_topk_args(
         ix, tids, idf_t, n, 10, tile=tile)
     k_tile = args[-1]
-    gv, gi = _assert_bitonic_equals_plain(kernel, plain, args, kw)
+    gv, gi = _assert_topk_equals_plain(kernel, plain, args, kw,
+                                       "bitonic")
     assert torch.equal(gi[:, :k_tile].cpu(),
                        torch.arange(k_tile, dtype=torch.int32).expand(8, -1))
     for t in (1, 4, 7):                        # deleted, unvisited tiles
@@ -538,33 +538,130 @@ def test_bitonic_kernel_ties_and_empty_tiles(gpu, layout, tile):
                      == float("-inf")).all())
 
 
-@pytest.mark.parametrize("layout", ["hor", "packed"])
-@pytest.mark.parametrize("tile", [512, 1024])
-def test_bitonic_kernel_signed_zeros(gpu, layout, tile):
-    """Final scores of +0.0 and -0.0 written by the kernel's own scoring
-    tail (norm 3e38 times qnorm 1e30 overflows the denominator, so the
-    cosine is +0.0; rank_blend 0.5 times a rank of plus or minus the
-    least subnormal rounds to a zero of that sign): the bitonic kernel
-    ties them and goes by lane, moving each lane's own bits, as the plain
-    version does."""
-    h = _dense_terms_host(3001, 40, tile)
-    ix = BUILDERS[layout](h, device=gpu)
+def _signed_zero_docs(n, tile, gpu):
+    """Two doc tables whose final scores hold zeros of both signs, made
+    by the kernels' own scoring tail at qnorm 1e30 and rank_blend 0.5
+    (norm 3e38 overflows the denominator, so the cosine is +0.0; half a
+    rank of plus or minus the least subnormal rounds to a zero of that
+    sign; norm 1.0 leaves a positive cosine near 1e-30, which the blend
+    does not move).  "all": every doc a zero, the sign alternating by
+    doc.  "mixed": per 64 docs one positive, four zeros, the rest deleted
+    (norm 0); the zeros +0.0 in each tile's first half and in every third
+    group of 16 docs after it but the last four, -0.0 elsewhere, so that
+    a tile's zeros reach past the threshold of its 32 best and past its
+    last +0.0."""
     tiny = float(np.float32(np.finfo(np.float32).smallest_subnormal))
-    n = ix.docs.norm.shape[0]
+    d = torch.arange(n, device=gpu)
+    pos = d % tile
+    plus = ((pos < tile // 2) | ((pos // 16) % 3 == 0)) & (pos < tile - 64)
+    mixed = DocTable(
+        norm=torch.where(d % 64 == 1, 1.0,
+                         torch.where(d % 16 == 0, 3e38, 0.0)),
+        rank=torch.where(plus, tiny, -tiny))
     rank = torch.full((n,), tiny, device=gpu)
     rank[::2] = -tiny
-    ix = dataclasses.replace(ix, docs=DocTable(
-        norm=torch.full((n,), 3e38, device=gpu), rank=rank))
+    return {"all": DocTable(norm=torch.full((n,), 3e38, device=gpu),
+                            rank=rank),
+            "mixed": mixed}
+
+
+@pytest.mark.parametrize("reducer", fds.REDUCERS)
+@pytest.mark.parametrize("layout", ["hor", "packed"])
+@pytest.mark.parametrize("tile", [512, 1024])
+def test_bitonic_kernel_signed_zeros(gpu, layout, tile, reducer):
+    """Final scores of +0.0 and -0.0 written by the kernel's own scoring
+    tail (``_signed_zero_docs``), at k_tile 32 (at 512-doc tiles the
+    gathered sort of the row's best) and 128 (every zero of a row
+    emitted): each epilogue equals its plain reducer, ids and value bits.
+    Both tie the two zeros and go by lane; the bitonic one moves each
+    lane's own bits, the successive one writes the row's maximum, +0.0
+    while one is left.  Both signs come out."""
+    h = _dense_terms_host(3001, 40, tile)
+    ix = BUILDERS[layout](h, device=gpu)
     qh = h.term_hashes[:24].reshape(8, 3)
+    signs = set()
+    for case, docs in _signed_zero_docs(ix.docs.norm.shape[0], tile,
+                                        gpu).items():
+        zx = dataclasses.replace(ix, docs=docs)
+        tids, idf_t = query.lookup_query(zx, layouts.hash_tensor(qh, gpu))
+        for k_tile in (32, 128):
+            kernel, plain, args, kw, _ = ops.fused_topk_args(
+                zx, tids, idf_t, h.max_posting_len, k_tile, rank_blend=0.5,
+                tile=tile, k_tile=k_tile,
+                qnorm=torch.full((8,), 1e30, device=gpu))
+            gv, gi = _assert_topk_equals_plain(kernel, plain, args, kw,
+                                               reducer)
+            zero = gv == 0
+            signs.update(torch.signbit(gv[zero]).unique().tolist())
+            if case == "all":
+                fin = gv.isfinite()
+                assert bool(zero[fin].all())
+                if reducer == "bitonic":        # each lane's own sign
+                    assert torch.signbit(gv[zero]).unique().numel() == 2
+    assert signs == {False, True}
+
+
+def _nan_docs(ix, tile, gpu):
+    """The index's docs with a NaN rank on four docs of tile 1, its last
+    doc among them: their final scores are NaN wherever a query hits
+    them (the blend multiplies the rank)."""
+    rank = ix.docs.rank.clone()
+    rank[torch.tensor([tile + 3, tile + 77, tile + 300, 2 * tile - 1],
+                      device=gpu)] = float("nan")
+    return dataclasses.replace(ix, docs=DocTable(norm=ix.docs.norm,
+                                                 rank=rank))
+
+
+def _nan_args(ix, h, tile, gpu, nan_query):
+    """A 3,001-doc batch of 8 queries over ``ix`` at ``tile``, k_tile 16,
+    rank_blend 0.3; with ``nan_query`` query 3 carries a NaN qnorm, so
+    its rows are NaN in every tile it hits."""
+    rng = np.random.default_rng(tile)
+    qh = np.stack([rng.choice(h.term_hashes, 3, replace=False)
+                   for _ in range(8)]).astype(np.uint32)
     tids, idf_t = query.lookup_query(ix, layouts.hash_tensor(qh, gpu))
-    kernel, plain, args, kw, _ = ops.fused_topk_args(
-        ix, tids, idf_t, h.max_posting_len, 64, rank_blend=0.5, tile=tile,
-        k_tile=64, qnorm=torch.full((8,), 1e30, device=gpu))
-    gv, gi = _assert_bitonic_equals_plain(kernel, plain, args, kw)
-    fin = gv.isfinite()
-    assert bool((gv[fin] == 0).all())
-    neg = torch.signbit(gv) & fin
-    assert bool(neg.any()) and bool((fin & ~neg).any())
+    qnorm = query.query_norm(idf_t)
+    if nan_query:
+        qnorm[3] = float("nan")
+    return ops.fused_topk_args(ix, tids, idf_t, h.max_posting_len, 16,
+                               rank_blend=0.3, tile=tile, qnorm=qnorm)
+
+
+@pytest.mark.parametrize("layout", ["hor", "packed"])
+@pytest.mark.parametrize("tile", [512, 1024])
+def test_successive_kernel_nan_rows(gpu, layout, tile):
+    """NaN final scores (a NaN rank on four docs of tile 1, a NaN qnorm
+    on query 3): a row holding one gives (NaN, -1) in every slot, as
+    successive maxima do, and every other row of the same tiles its
+    best; the kernel equals the plain version, ids and value bits."""
+    h = _dense_terms_host(3001, 40, tile + 1)
+    ix = _nan_docs(BUILDERS[layout](h, device=gpu), tile, gpu)
+    kernel, plain, args, kw, _ = _nan_args(ix, h, tile, gpu, True)
+    gv, gi = _assert_topk_equals_plain(kernel, plain, args, kw)
+    k_tile = args[-1]
+    rows = gv.isnan().view(8, -1, k_tile)
+    assert bool((rows.any(-1) == rows.all(-1)).all())   # NaN rows whole
+    assert bool(rows[3].all(-1).any()) and bool(rows[:, 1].all(-1).any())
+    assert bool((gi[gv.isnan()] == -1).all())
+    assert bool(gv[0, :k_tile].isfinite().all())
+
+
+@pytest.mark.parametrize("layout", ["hor", "packed"])
+@pytest.mark.parametrize("tile", [512, 1024])
+def test_bitonic_kernel_nan_rows(gpu, layout, tile):
+    """NaN final scores through the bitonic epilogue: a CTA whose tile
+    holds one sorts with the reference's network, whose output at a NaN
+    depends on positions.  One launch with NaN ranks in tile 1 only (the
+    network there, the selection in the NaN-free tiles beside it), one
+    with query 3's qnorm NaN too (the network in every visited tile);
+    each equals the plain bitonic reducer, ids and value bits."""
+    h = _dense_terms_host(3001, 40, tile + 2)
+    ix = _nan_docs(BUILDERS[layout](h, device=gpu), tile, gpu)
+    for nan_query in (False, True):
+        kernel, plain, args, kw, _ = _nan_args(ix, h, tile, gpu, nan_query)
+        gv, gi = _assert_topk_equals_plain(kernel, plain, args, kw,
+                                           "bitonic")
+        assert bool(gv[0, :args[-1]].isfinite().all())
 
 
 def test_bitonic_kernel_is_one_device_launch(gpu, host):

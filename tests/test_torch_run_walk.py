@@ -4,10 +4,12 @@ kernels), which no CPU can run: each CTA's run search against the run
 starts a ``searchsorted`` of the pair tiles gives, the chunked
 ``cp.async`` pipeline's schedule, which must hand every pair of a run to
 the accumulate once, in order, from buffers no later copy has
-overwritten, the candidate kernels' per-row reduction against the
-plain version's successive maxima, and the bitonic epilogue's network
-(register and shared-memory stages over every row of a tile) against the
-plain bitonic reducer.
+overwritten, the candidate epilogues' per-row reduction under both value
+rules (the row's maximum at zeros and (NaN, -1) through a NaN row,
+against the plain successive maxima; each lane's own bits, against the
+plain bitonic reducer), and the bitonic epilogue's network (register and
+shared-memory stages over every row of a tile) against the plain bitonic
+reducer.
 """
 import numpy as np
 import pytest
@@ -196,10 +198,23 @@ def test_copy_rows_copies_every_unit_once(n, bytes_, wide):
     assert sorted(got) == want
 
 
+# fused_score.cuh's key constants, and the k_tile up to which the bitonic
+# epilogue selects (kBitonicSelectUpTo)
+NEG_INF_KEY, ZERO_KEY = 0x007FFFFF, 0x80000000
+BITONIC_SELECT_UP_TO = 64
+
+
 def _order_key(v):
     """``fused_score::order_key``: f32 -> u32 whose order is the floats'."""
     u = np.asarray(v, np.float32).view(np.uint32)
     return np.where(u >> 31, ~u, u | np.uint32(1 << 31)).astype(np.uint32)
+
+
+def _select_key(v):
+    """``fused_score::select_key``: ``order_key``, -0.0 given +0.0's key
+    (the two zeros tie and go by lane)."""
+    v = np.asarray(v, np.float32)
+    return np.where(v == 0, np.uint32(ZERO_KEY), _order_key(v))
 
 
 def _key_value(k):
@@ -257,16 +272,15 @@ def _select_few(row, bounds, k_tile, base, tile):
     the first); the row's finite keys >= T gathered in lane order and
     sorted by the warp, 32 or 64 at once; None where more than 64 still
     pass."""
-    neg_inf = int(_order_key(-np.inf))
     tops = []
     for lo, hi in bounds:
         ks = sorted((int(row[p]) for p in range(lo, hi)
-                     if row[p] > neg_inf), reverse=True) + [0, 0]
+                     if row[p] > NEG_INF_KEY), reverse=True) + [0, 0]
         tops.append(ks[:2])
 
     def passing(thr):
         return [(int(row[p]), p) for lo, hi in bounds for p in range(lo, hi)
-                if neg_inf < row[p] and row[p] >= thr]
+                if NEG_INF_KEY < row[p] and row[p] >= thr]
     got = passing(sorted((t[0] for t in tops), reverse=True)[k_tile - 1])
     if len(got) > 64:
         got = passing(sorted((x for t in tops for x in t),
@@ -284,52 +298,139 @@ def _select_few(row, bounds, k_tile, base, tile):
     return np.array(vals, np.float32), np.array(ids, np.int32), f"sort{n}"
 
 
-def _warp_topk(final, k_tile, base, width=None):
-    """``TopkOut::finish``'s reduction of one row: lane l holds positions
+def _fix_zeros(vals, ids, final, width, base, rule):
+    """``TopkOut::fix_zeros`` (in a CTA whose vote found a zero): a slot
+    that selected a zero, written +0.0 by its shared key, takes the
+    rule's value: "max", +0.0 if the row's last +0.0 (noted by the
+    owners) lies at its lane or after it; "own", its lane's sign."""
+    plus = np.flatnonzero((final[:width] == 0) & ~np.signbit(final[:width]))
+    last = plus[-1] if len(plus) else -1
+    for j in np.flatnonzero(vals == 0):
+        p = ids[j] - base
+        neg = p > last if rule == "max" else np.signbit(final[p])
+        vals[j] = np.float32(-0.0) if neg else np.float32(0.0)
+    return vals
+
+
+def _warp_topk(final, k_tile, base, width=None, rule="max"):
+    """The candidate epilogues' reduction of one row, by value rule:
+    "max" (``TopkOut``: the row's maximum at zeros, (NaN, -1) throughout
+    in a row holding a NaN) or "own" (``BitonicOut``: each lane's own
+    bits; a NaN or a k_tile past ``BITONIC_SELECT_UP_TO`` sends the CTA to
+    the network, ``_bitonic_sort_rows``).  Lane l holds positions
     [l * per, (l + 1) * per) of the first ``width`` (the docs below
-    num_docs; the rest of the row is -inf).  ``select_few`` where it applies; else each
-    step takes the warp's largest key (``__reduce_max_sync``) from the
-    lowest lane holding it (a ballot), which emits it, zeroes it and
-    rescans.  Returns (vals, ids, the path: "sort32", "sort64" or
+    num_docs; the rest of the row is -inf).  ``select_few`` where it
+    applies; else each step takes the warp's largest key
+    (``__reduce_max_sync``) from the lowest lane holding it (a ballot),
+    which emits it, zeroes it and rescans; then ``_fix_zeros``.  Returns
+    (vals, ids, the path: "nan", "network", "sort32", "sort64" or
     "maxima")."""
     tile = len(final)
     width = tile if width is None else width     # docs below num_docs
-    row = _order_key(final).copy()
+    nan = np.isnan(final[:width])
+    if rule == "own" and (nan.any() or k_tile > BITONIC_SELECT_UP_TO):
+        v, l = _bitonic_sort_rows(np.asarray(final, np.float32)[None], tile)
+        v, l = v[0, :k_tile], l[0, :k_tile]
+        return v, np.where(np.isfinite(v), base + l, -1).astype(np.int32), \
+            "network"
+    if nan.any():
+        first = final[:width][nan][0]
+        return np.full(k_tile, first, np.float32), \
+            np.full(k_tile, -1, np.int32), "nan"
+    row = _select_key(final).copy()
     per = -(-width // 32)
     bounds = [(min(l * per, width), min(min(l * per, width) + per, width))
               for l in range(32)]
+    few = None
     if k_tile <= 32 and per <= 16 and tile >= 128:
         few = _select_few(row, bounds, k_tile, base, tile)
-        if few is not None:
-            return few
-    lanes = [_lane_best(row, lo, hi) for lo, hi in bounds]
-    vals, ids = [], []
-    for _ in range(k_tile):
-        m = max(b for b, _ in lanes)
-        w = min(l for l in range(32) if lanes[l][0] == m)
-        at = lanes[w][1]
-        v = _key_value(m) if m else np.float32(-np.inf)
-        vals.append(v)
-        ids.append(base + at if np.isfinite(v) else -1)
-        if m:
-            row[at] = 0
-            lanes[w] = _lane_best(row, *bounds[w])
-    return np.array(vals, np.float32), np.array(ids, np.int32), "maxima"
+    if few is None:
+        lanes = [_lane_best(row, lo, hi) for lo, hi in bounds]
+        vals, ids = [], []
+        for _ in range(k_tile):
+            m = max(b for b, _ in lanes)
+            w = min(l for l in range(32) if lanes[l][0] == m)
+            at = lanes[w][1]
+            v = _key_value(m) if m else np.float32(-np.inf)
+            vals.append(v)
+            ids.append(base + at if np.isfinite(v) else -1)
+            if m:
+                row[at] = 0
+                lanes[w] = _lane_best(row, *bounds[w])
+        few = np.array(vals, np.float32), np.array(ids, np.int32), "maxima"
+    vals, ids, path = few
+    return _fix_zeros(vals, ids, final, width, base, rule), ids, path
 
 
-@pytest.mark.parametrize("tile,k_tile", [(512, 16), (512, 1), (512, 32),
-                                         (512, 512), (256, 16), (1024, 32),
-                                         (128, 16), (100, 100), (97, 10)])
-def test_candidate_reduction_equals_successive_maxima(tile, k_tile):
-    """The candidate kernels' per-row reduction, mirrored: the order of
-    ``_tile_topk`` (value descending, lowest lane first, id -1 where not
-    finite) from both of its paths, over rows of distinct values (the
-    gather-and-sort path), a row of one value (successive maxima), rows
-    of few values with many ties, -inf lanes (deleted docs, zero sums),
-    a row with one finite value, a row whose large values crowd into a
-    quarter of the lanes, tiles that are not a multiple of 32 or 4, and
-    k_tile up to the whole tile."""
+def _plain_reducer(rule):
+    """The plain reducer each value rule is held to."""
     from repro_torch.kernels import fused_decode_score as tfds
+    return tfds._tile_topk if rule == "max" else tfds._tile_topk_bitonic
+
+
+def _assert_rows_equal_plain(rows, k_tile, base, rule, widths=None):
+    """Each row's mirrored reduction by ``rule`` equals the plain
+    reducer's, ids and value bits; returns the paths taken."""
+    want_v, want_i = _plain_reducer(rule)(
+        torch.from_numpy(rows), torch.full((len(rows),), base,
+                                           dtype=torch.int32),
+        k_tile, rows.shape[1])
+    paths = []
+    for r in range(len(rows)):
+        got_v, got_i, path = _warp_topk(
+            rows[r], k_tile, base, None if widths is None else widths[r],
+            rule)
+        paths.append(path)
+        np.testing.assert_array_equal(got_i, want_i[r].numpy())
+        np.testing.assert_array_equal(got_v.view(np.int32),
+                                      want_v[r].numpy().view(np.int32))
+    return paths
+
+
+def _zero_rows(rng, tile):
+    """Rows of signed zeros: at the top of a row, behind one positive
+    value, across the threshold of the k_tile best (zeros below many
+    positives), across two lanes' ranges (a run of zeros over a lane
+    boundary, signs alternating), with +inf and -inf beside them, and a
+    row of zeros only, both signs."""
+    z = np.float32([0.0, -0.0])
+    rows = np.full((6, tile), -np.inf, np.float32)
+    rows[0, ::3] = rng.choice(z, len(rows[0, ::3]))
+    rows[1] = rng.choice(z, tile)
+    rows[1, tile // 3] = 2.0
+    rows[2, :] = rng.choice(z, tile)
+    rows[2, rng.choice(tile, min(tile, 24), replace=False)] = \
+        rng.random(min(tile, 24)).astype(np.float32) + 1.0
+    lo = max(tile // 32 - 3, 0)
+    rows[3, lo:lo + 7] = np.resize(z, 7)
+    rows[3, tile - 1] = -0.0
+    rows[4] = rng.choice(np.float32([0.0, -0.0, np.inf, -np.inf, 1.0]),
+                         tile)
+    rows[5] = rng.choice(z, tile)
+    return rows
+
+
+RULE_CASES = [(tile, k_tile) for tile, k_tile in [
+    (512, 16), (512, 1), (512, 32), (512, 512), (256, 16), (1024, 32),
+    (128, 16), (100, 100), (97, 10)]]
+
+
+@pytest.mark.parametrize("tile,k_tile,rule", [
+    pytest.param(t, k, r, id=f"{t}-{k}" + ("" if r == "max" else "-own"))
+    for t, k in RULE_CASES for r in ("max", "own")
+    if r == "max" or t & (t - 1) == 0])
+def test_candidate_reduction_equals_successive_maxima(tile, k_tile, rule):
+    """The candidate epilogues' per-row reduction, mirrored, by each
+    value rule: the order of ``_tile_topk`` (value descending, +0.0 and
+    -0.0 tied, lowest lane first, id -1 where not finite) from both of
+    its paths, the "max" rule's values held to ``_tile_topk`` and the
+    "own" rule's to ``_tile_topk_bitonic`` (power-of-two tiles), over
+    rows of distinct values (the gather-and-sort path), a row of one
+    value (successive maxima), rows of few values with many ties, -inf
+    lanes (deleted docs, zero sums), a row with one finite value, a row
+    whose large values crowd into a quarter of the lanes, rows of signed
+    zeros and infinities (``_zero_rows``), tiles that are not a multiple
+    of 32 or 4, and k_tile up to the whole tile."""
     rng = np.random.default_rng(tile + k_tile)
     rows = rng.choice(np.float32([0.5, 0.25, 1.5, 3.0, 1e-30, 7e20]),
                       (5, tile))
@@ -341,30 +442,23 @@ def test_candidate_reduction_equals_successive_maxima(tile, k_tile):
     rows[3] = rng.random(tile).astype(np.float32)
     rows[4] = rng.random(tile).astype(np.float32)
     rows[4, :tile // 4] += 1.0          # the largest in the first lanes
-    base = 7 * tile
-    want_v, want_i = tfds._tile_topk(torch.from_numpy(rows),
-                                     torch.full((5,), base, dtype=torch.int32),
-                                     k_tile, tile)
-    paths = set()
-    for r in range(5):
-        got_v, got_i, few = _warp_topk(rows[r], k_tile, base)
-        paths.add(few)
-        np.testing.assert_array_equal(got_i, want_i[r].numpy())
-        np.testing.assert_array_equal(got_v.view(np.int32),
-                                      want_v[r].numpy().view(np.int32))
+    rows = np.concatenate([rows, _zero_rows(rng, tile)])
+    paths = set(_assert_rows_equal_plain(rows, k_tile, 7 * tile, rule))
     if k_tile <= 32 and tile in (128, 256, 512):
         assert "maxima" in paths and "sort32" in paths   # both paths ran
 
 
-def test_candidate_reduction_sorts_64_keys():
+@pytest.mark.parametrize("rule", ["max", "own"])
+def test_candidate_reduction_sorts_64_keys(rule):
     """Between 33 and 64 keys pass the threshold (half the lanes hold
     three large keys each): the gathered keys take the 64-element sort,
     in ``_tile_topk``'s order; in a tile clipped to 242 docs the lanes
     share those docs; and where the finite keys sit in the first 242 of
     512 positions (padding docs of norm 0), T from the lanes' two largest
-    keys lets 64 or fewer through."""
-    from repro_torch.kernels import fused_decode_score as tfds
-    tile, k_tile, base = 512, 16, 1024
+    keys lets 64 or fewer through.  At k_tile 32, 50 keys pass where the
+    threshold is a zero: 20 positive lanes, 30 zeros of both signs over
+    the other lanes' ranges, 12 of them emitted."""
+    tile, base = 512, 1024
     rng = np.random.default_rng(3)
     rows = rng.random((2, tile)).astype(np.float32)
     for lane in range(16):
@@ -372,36 +466,97 @@ def test_candidate_reduction_sorts_64_keys():
             np.float32([300, 300.5, 300.25]) + lane
     rows[1, 242:] = -np.inf                        # docs past num_docs
     rows = np.concatenate([rows, rows[1:]])        # ... or padding docs
-    want_v, want_i = tfds._tile_topk(torch.from_numpy(rows),
-                                     torch.full((3,), base, dtype=torch.int32),
-                                     k_tile, tile)
-    for r, width in ((0, tile), (1, 242), (2, tile)):
-        got_v, got_i, got_path = _warp_topk(rows[r], k_tile, base, width)
-        assert got_path == ("sort64" if r == 0 else "sort32")
-        np.testing.assert_array_equal(got_i, want_i[r].numpy())
-        np.testing.assert_array_equal(got_v.view(np.int32),
-                                      want_v[r].numpy().view(np.int32))
+    paths = _assert_rows_equal_plain(rows, 16, base, rule, [tile, 242, tile])
+    assert paths == ["sort64", "sort32", "sort32"]
+    zeros = np.full((1, tile), -np.inf, np.float32)
+    zeros[0, 16 * np.arange(20) + 3] = 5.0 + np.arange(20)
+    at = np.concatenate([16 * np.arange(10, 32), 16 * np.arange(24, 32) + 9])
+    zeros[0, at] = np.resize(np.float32([-0.0, 0.0, -0.0]), len(at))
+    assert _assert_rows_equal_plain(zeros, 32, base, rule) == ["sort64"]
 
 
-@pytest.mark.parametrize("width,k_tile", [(20, 40), (5, 16), (1, 1)])
-def test_candidate_reduction_in_a_short_tile(width, k_tile):
+@pytest.mark.parametrize("width,k_tile,rule", [
+    pytest.param(w, k, r, id=f"{w}-{k}" + ("" if r == "max" else "-own"))
+    for w, k in [(20, 40), (5, 16), (1, 1), (33, 5)] for r in ("max", "own")])
+def test_candidate_reduction_in_a_short_tile(width, k_tile, rule):
     """A tile clipped to fewer docs than k_tile: the reduction walks only
     the docs below num_docs, and the rest of the k_tile slots are
     (-inf, -1), as successive maxima over the whole -inf-padded row give
-    them."""
-    from repro_torch.kernels import fused_decode_score as tfds
+    them; zeros of both signs among its docs."""
     tile, base = 512, 4096
     rng = np.random.default_rng(width)
     row = np.full(tile, -np.inf, np.float32)
-    row[:width] = rng.choice(np.float32([0.5, 2.0, 3.0]), width)
+    row[:width] = rng.choice(np.float32([0.5, 2.0, 3.0, 0.0, -0.0]), width)
     row[: width // 3] = -np.inf                    # deleted docs
-    want_v, want_i = tfds._tile_topk(torch.from_numpy(row[None]),
-                                     torch.full((1,), base, dtype=torch.int32),
-                                     k_tile, tile)
-    got_v, got_i, _ = _warp_topk(row, k_tile, base, width)
-    np.testing.assert_array_equal(got_i, want_i[0].numpy())
-    np.testing.assert_array_equal(got_v.view(np.int32),
-                                  want_v[0].numpy().view(np.int32))
+    _assert_rows_equal_plain(row[None], k_tile, base, rule, [width])
+
+
+@pytest.mark.parametrize("k_tile", [1, 5, 32])
+def test_candidate_reduction_all_zero_rows(k_tile):
+    """Rows of zeros only, of mixed signs (one +0.0 first, last, in the
+    middle, or none): successive maxima write +0.0 up to the row's last
+    +0.0 and -0.0 after it, the sort each lane's own bits; ids in lane
+    order either way."""
+    tile = 256
+    rows = np.full((5, tile), -0.0, np.float32)
+    rows[0, 0] = 0.0
+    rows[1, tile - 1] = 0.0
+    rows[2, 2] = 0.0
+    rows[3, ::2] = 0.0
+    for rule in ("max", "own"):
+        _assert_rows_equal_plain(rows, k_tile, 0, rule)
+
+
+def test_candidate_reduction_nan_rows():
+    """A row holding a NaN (positive or negative, alone, among zeros or
+    as its last lane): the "max" rule writes (NaN, -1) in every slot, as
+    ``_tile_topk``, whose maximum is then NaN, does; the "own" rule sends
+    the CTA to the network, whose output at a NaN depends on positions,
+    and the network as the CTA runs it equals ``_tile_topk_bitonic``."""
+    tile = 256
+    rng = np.random.default_rng(5)
+    rows = rng.choice(np.float32([0.5, 2.0, 0.0, -0.0, -np.inf]),
+                      (4, tile)).astype(np.float32)
+    rows[0, 17] = np.nan
+    rows[1, tile - 1] = np.nan
+    rows[2, rng.choice(tile, 9, replace=False)] = -np.float32(np.nan)
+    rows[3, :] = np.nan
+    for k_tile in (1, 16, 64):
+        for rule, path in (("max", "nan"), ("own", "network")):
+            assert set(_assert_rows_equal_plain(rows, k_tile, 512, rule)) \
+                == {path}
+
+
+try:
+    from hypothesis import given, settings, strategies as st
+except ImportError:          # pragma: no cover - optional dependency
+    st = None
+
+if st is not None:
+
+    @st.composite
+    def zero_tiles(draw):
+        tile = draw(st.sampled_from([128, 256, 512, 1024]))
+        k_tile = draw(st.integers(1, 32))
+        width = draw(st.integers(1, tile))
+        pool = np.float32([0.0, -0.0, np.inf, -np.inf]
+                          + draw(st.lists(st.sampled_from(
+                              [0.5, 1.0, 2.0, 1e-30, 3e20]), min_size=1,
+                              max_size=3)))
+        rng = np.random.default_rng(draw(st.integers(0, 2**16)))
+        row = np.full(tile, -np.inf, np.float32)
+        row[:width] = rng.choice(pool, width)
+        return row, k_tile, width
+
+    @settings(max_examples=25, deadline=None)
+    @given(case=zero_tiles(), rule=st.sampled_from(["max", "own"]))
+    def test_candidate_reduction_property(case, rule):
+        """PROPERTY: rows of 128-1,024 lanes drawn from signed zeros,
+        infinities and a few repeated finite values, clipped to a random
+        width, at k_tile 1-32: each value rule equals its plain reducer,
+        ids and value bits."""
+        row, k_tile, width = case
+        _assert_rows_equal_plain(row[None], k_tile, 0, rule, [width])
 
 
 def _keeps(v, l, pv, pl, lo, desc):
