@@ -189,6 +189,49 @@
    line per bitonic config: its ms by events over the last two bulk
    batches, in turns with the successive kernel on the same pairs and
    with the plain version, its bound and the ``torch.sort`` yardstick.
+11. The distributed phase, after step 10 (the live index kept for it):
+   the distributed engines as ``DIST_SHARDS`` = 4 shards of one mesh
+   (``distributed.shmap.make_mesh(4, device=cuda)``), run in turn on
+   this one card; nothing here is a multi-GPU measurement.  (a) On the
+   1M host, ``build_doc_sharded_fused`` in HOR and in packed and the
+   gather oracle ``build_doc_sharded``; (b) the term-sharded fused
+   engine in HOR, packed and banded.  Each serves the first bulk
+   batch's 8 queries one per call; ids equal the single-node fused
+   engine's (``make_scorer(engine="fused")`` with k + 1, the live
+   phase's near-tie rule), scores within rtol 1e-5; HOR and packed
+   bit-equal to each other in both shardings.  (c) The live index
+   sealed and pinned, ``stack_segment_shards(view, 4)`` and
+   ``make_doc_sharded_segment_scorer`` over the same 8 rows: ids equal
+   ``view.topk``'s, scores within rtol 1e-5; a ``distributed stack
+   group:`` line per group (its slots, bytes and the pairs its budget
+   routes a row on all shards, inert slots included).  (d)
+   ``MeshServer(topology="doc_stack", n_shards=4, n_replicas=2)`` over
+   the live index: ``MESH_QUERIES`` distinct 3-term queries at e0 (a
+   closed backlog), ``MESH_REPEATS`` of them again (cache hits, bit-equal,
+   no launch), a write step (2,048 docs, every 64th deleted, a
+   handoff), the queries at e1; each fresh response's ids equal the
+   single-host ``QueryServer`` path over the same pin (``view.topk`` on
+   the padded batch of 8), scores within rtol 1e-5 (the count of scores
+   that are not bit-equal printed); the replicas' digests agree.  (e)
+   The same with ``topology="term_fused"`` on a 50,000-doc index (the
+   1m tier's churn batch, ``seed+1``; cut from 1M because this topology
+   bulk-builds the live corpus at every handoff).  For every sub-step,
+   with every launch counter reset just before and read just after: the
+   launches equal what its structure implies (per shard and slot, inert
+   ones included) and no routing pair overflows; then its last query is
+   scored once more with each kernel call held to its plain version, to
+   the bit, as it returns (``distributed kernel site:`` lines).  No
+   kernel is timed here: the kernel rows keep the single-node sites'
+   times.  Prints a ``distributed <engine>:`` or ``distributed mesh
+   <topology>:`` line each (ms a row by the host clock with
+   ``synchronize``, launches, peak memory; for a mesh its epochs' p50 /
+   p99, QPS, the ``shard_fanout`` / ``shard_sync`` spans, the handoff
+   pause) and writes them under ``distributed`` in the JSON.  Each
+   also scores its last query once more under torch's sync debug mode
+   (``sync_probe``): the spans of that call, the synchronising calls
+   torch reports in it by line, and the caching allocator's device
+   allocations, frees and retries in it, which say where the host
+   waited for the card.
 9. Last, after every event timing (a trace slows the launches timed
    after it): one ``torch.profiler`` trace of each live call site of
    the four fused kernels, of the last bulk batch's candidate call per
@@ -680,6 +723,13 @@ def main() -> int:
                                        rtol=1e-5, atol=0)
             ids_all.append(ids)
         ids_by_layout[kind] = np.stack(ids_all)
+        if kind == "hor":
+            # the single-node fused engine's answers to the first batch,
+            # with one more rank for the near-tie rule (step 11)
+            one = query.make_scorer(ix, k=K + 1, cap=cap,
+                                    engine="fused")(batches[0])
+            single_node = (one.doc_ids.cpu().numpy(),
+                           one.scores.cpu().numpy())
 
         # kernel vs plain on the very same routing pairs
         calls, work, pairs_ms = [], [], []
@@ -809,7 +859,6 @@ def main() -> int:
     t_phase = time.perf_counter()
     state = tuning_sweep(host, cap, batches, dev)
     tune_live = tuning_live(si, batches, state)
-    del si
     torch.cuda.empty_cache()
     tune_sites, tune_traces = tuning_checks(host, batches, cap, dev, report,
                                             state)
@@ -820,6 +869,14 @@ def main() -> int:
     traces.update(tune_traces)
     phase_s["tuning"] = time.perf_counter() - t_phase
     print(f"phase tuning: {phase_s['tuning']:.1f} s")
+
+    t_phase = time.perf_counter()
+    distributed_phase(host, batches, si, single_node, a.seed, dev, report,
+                      card)
+    del si
+    torch.cuda.empty_cache()
+    phase_s["distributed"] = time.perf_counter() - t_phase
+    print(f"phase distributed: {phase_s['distributed']:.1f} s")
 
     # last, after every event timing: the traced sites' device time
     t_phase = time.perf_counter()
@@ -901,51 +958,87 @@ def site_stats(name, args, num_docs, tile, reducer="successive"):
     return stats
 
 
+def held_site(name, args, kw, got, label, i, q_real=BATCH):
+    """A fused kernel call's output ``got`` held to its plain version on
+    the same arguments, to the bit (raises if not), with the call's
+    work, runs and occupancy: the site dict ``replay`` prints."""
+    import torch
+
+    from repro_torch.kernels import fused_decode_score as fds
+    want = getattr(fds, name + "_plain")(*args, **kw)
+    torch.cuda.synchronize()
+    if name in DENSE_KERNELS:
+        err = float((got - want).abs().max())
+        eq = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        nbytes, nops, real, blocks = dense_work(
+            DENSE_KERNELS[name][0], args, kw["tile"], q_real)
+        num_docs = args[-1 if name == "fused_score_blocked" else -2]
+    else:
+        eq, err = same_candidates(got, want)
+        nbytes, nops, real, blocks, _ = kernel_work(
+            KERNELS[name][0], args, kw["tile"], q_real)
+        num_docs = args[-2 if name == "fused_topk_blocked" else -3]
+    reducer = kw.get("reducer", "successive")
+    extra = site_stats(name, args, num_docs, kw["tile"], reducer)
+    kname = name + ("_bitonic" if reducer == "bitonic" else "")
+    site = {"site": f"{label}#{i}:{kname}@{num_docs}", "kernel": kname,
+            "num_docs": int(num_docs),
+            "max_pairs": int(args[2].shape[0]), "real_pairs": real,
+            "distinct_blocks": blocks, "bytes": nbytes, "ops": nops,
+            "t_bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "t_ops_ms": nops / F32_OPS_PER_S * 1e3,
+            "max_abs_err": err, **extra}
+    if not eq:
+        raise AssertionError(f"{site['site']}: kernel != plain version "
+                             f"(max abs err {err})")
+    return site
+
+
 def replay(calls, fds, label, timed=True, tag="live"):
     """Holds each recorded kernel call against its plain version on the
     same arguments, to the bit, and (``timed``) times both in turns.
     Returns one dict per call (a call site of the path), each printed
     on a ``<tag> kernel site:`` line."""
-    import torch
     sites = []
     for i, (name, args, kw) in enumerate(calls):
         wrapper, plain = getattr(fds, name), getattr(fds, name + "_plain")
-        pkw = kw
-        got, want = wrapper(*args, **kw), plain(*args, **pkw)
-        torch.cuda.synchronize()
-        if name in DENSE_KERNELS:
-            err = float((got - want).abs().max())
-            eq = torch.equal(got.view(torch.int32), want.view(torch.int32))
-            nbytes, nops, real, blocks = dense_work(
-                DENSE_KERNELS[name][0], args, kw["tile"], BATCH)
-            num_docs = args[-1 if name == "fused_score_blocked" else -2]
-        else:
-            eq, err = same_candidates(got, want)
-            nbytes, nops, real, blocks, _ = kernel_work(
-                KERNELS[name][0], args, kw["tile"], BATCH)
-            num_docs = args[-2 if name == "fused_topk_blocked" else -3]
-        reducer = kw.get("reducer", "successive")
-        extra = site_stats(name, args, num_docs, kw["tile"], reducer)
-        kname = name + ("_bitonic" if reducer == "bitonic" else "")
-        site = {"site": f"{label}#{i}:{kname}@{num_docs}", "kernel": kname,
-                "num_docs": int(num_docs),
-                "max_pairs": int(args[2].shape[0]), "real_pairs": real,
-                "distinct_blocks": blocks, "bytes": nbytes, "ops": nops,
-                "t_bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                "t_ops_ms": nops / F32_OPS_PER_S * 1e3,
-                "max_abs_err": err, **extra}
-        if not eq:
-            raise AssertionError(f"{site['site']}: kernel != plain version "
-                                 f"(max abs err {err})")
+        site = held_site(name, args, kw, wrapper(*args, **kw), label, i)
         if timed:
             ms, turns, plain_ms, clocks = time_in_turns(
-                lambda *c: wrapper(*c, **kw), lambda *c: plain(*c, **pkw),
+                lambda *c: wrapper(*c, **kw), lambda *c: plain(*c, **kw),
                 [args])
             site.update(kernel_ms=ms, kernel_ms_turns=turns,
                         plain_ms=plain_ms, clocks_sm_mem_power_temp=clocks)
         sites.append(site)
         print(f"{tag} kernel site: {json.dumps(site)}")
     return sites
+
+
+@contextlib.contextmanager
+def holding(ops, label, q_real=1):
+    """As ``recording``, but each kernel call the path makes through
+    ``ops`` is held to its plain version as soon as it returns (to the
+    bit, ``held_site``), and only its site dict is kept, printed on a
+    ``distributed kernel site:`` line: a sharded call's routing buffers
+    are not held beyond its own check."""
+    sites = []
+    saved = {n: getattr(ops, n) for n in FUSED_KERNELS}
+
+    def hold(name, fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            site = held_site(name, args, kw, out, label, len(sites), q_real)
+            print(f"distributed kernel site: {json.dumps(site)}")
+            sites.append(site)
+            return out
+        return call
+    for n, fn in saved.items():
+        setattr(ops, n, hold(n, fn))
+    try:
+        yield sites
+    finally:
+        for n, fn in saved.items():
+            setattr(ops, n, fn)
 
 
 def adaptive_budget(ix, cap, batches, static, static_ms, kind):
@@ -2692,6 +2785,455 @@ def tuning_checks(host, batches, cap, dev, report, state):
         raise AssertionError("tuning: the active table is not empty")
     report["tuning"] = tuning
     return sites, traces
+
+# distributed phase (step 11): S shards of one mesh, run in turn on one card
+DIST_SHARDS = 4
+MESH_QUERIES = 32             # distinct queries per epoch of each mesh
+MESH_REPEATS = 8              # of them again at the first epoch: cache hits
+MESH_NEW_DOCS = 2_048         # ingested between a mesh's two epochs
+TERM_MESH_DOCS = NEW_DOCS     # the term topology's index: the 1m tier's
+#                               churn batch (it rebuilds at every handoff)
+
+
+def stack_row_launches(metas, n_shards):
+    """Launches one row of the segment-stack scorer implies: ``idf`` and
+    ``query_norm`` once per shard, and per shard and slot (inert ones
+    too) one candidate launch for an HOR or packed group, one dense
+    launch per band for a banded group (the active table's reducer)."""
+    from repro_torch.kernels import autotune
+    per = {"idf": n_shards, "query_norm": n_shards}
+    for m in metas:
+        n = n_shards * m.n_slots
+        if m.layout == "banded":
+            names = ("fused_score_packed", "fused_score_blocked")
+        else:
+            name = ("fused_topk_packed" if m.layout == "packed"
+                    else "fused_topk_blocked")
+            if autotune.lookup("cuda", m.d_pad, m.layout).reducer == \
+                    "bitonic":
+                name += "_bitonic"
+            names = (name,)
+        for name in names:
+            per[name] = per.get(name, 0) + n
+    return per
+
+
+def held_want(per_row):
+    """The fused-kernel calls one row's ``per_row`` launches imply: the
+    calls ``holding`` must see (the weights kernels are not held)."""
+    return sum(n for name, n in per_row.items() if name not in WEIGHT_KERNELS)
+
+
+ALLOC_WAITS = ("num_device_alloc", "num_device_free", "num_alloc_retries",
+               "num_sync_all_streams")
+
+
+def sync_probe(call, row):
+    """``call(row)`` once more, traced where it takes ``trace=``, under
+    torch's sync debug mode: the ``shard_fanout`` / ``shard_sync`` spans
+    (ms), the synchronising calls torch reports in it (count by
+    file:line), and the caching allocator's device allocations, frees,
+    retries and all-stream syncs in it (``cudaFree`` waits for the
+    device).  Says where the host waited inside the shards' work."""
+    import inspect
+    import os
+    import warnings
+
+    import torch
+
+    from repro_torch.obs.trace import Trace
+    tr = Trace()
+    kw = {"trace": tr} if "trace" in inspect.signature(call).parameters \
+        else {}
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            call(row, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_stats()
+    sites: dict = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            key = f"{os.path.relpath(w.filename)}:{w.lineno}"
+            sites[key] = sites.get(key, 0) + 1
+    spans = {sp.name: sp.duration_us / 1e3 for sp in tr.spans}
+    return {"fanout_ms": spans.get("shard_fanout"),
+            "sync_ms": spans.get("shard_sync"), "host_syncs": sites,
+            "allocator": {k: (after[k] - before[k] if k in after else None)
+                          for k in ALLOC_WAITS}}
+
+
+def dist_want(per_row, rows):
+    want = dict.fromkeys((*ALL_KERNELS, *WEIGHT_KERNELS), 0)
+    for name, n in per_row.items():
+        want[name] += n * rows
+    return want
+
+
+def dist_rows(label, scorer, rows, per_row):
+    """One query per scorer call, over ``rows``, with every launch
+    counter reset just before and read just after; ms a row by the host
+    clock with ``synchronize``.  Checks the launches against ``per_row``
+    and that no routing pair overflowed; probes the last row
+    (``sync_probe``); then calls the scorer once more on it with every
+    kernel call held to its plain version as it returns (``holding``),
+    as many calls as ``per_row`` implies.  Returns (answers, ms per row,
+    launches, the held calls' sites, the probe)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.obs.registry import GLOBAL
+    overflow0 = GLOBAL.counter("engine_pair_overflow").value
+    reset_launches()
+    out, ms = [], []
+    for row in rows:
+        t0 = time.perf_counter()
+        v, ids = scorer(row)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        out.append(host_answer(v, ids))
+    got = read_launches()
+    want = dist_want(per_row, len(rows))
+    if got != want:
+        raise AssertionError(f"distributed {label}: launches {got}, the "
+                             f"structure implies {want}")
+    if GLOBAL.counter("engine_pair_overflow").value != overflow0:
+        raise AssertionError(f"distributed {label}: routing overflow")
+    probe = sync_probe(scorer, rows[-1])
+    with holding(ops, f"dist-{label}") as held:
+        again = host_answer(*scorer(rows[-1]))
+    if not same_bits(again, out[-1]):
+        raise AssertionError(f"distributed {label}: the held call answers "
+                             "otherwise")
+    if len(held) != held_want(per_row):
+        raise AssertionError(f"distributed {label}: {len(held)} kernel calls "
+                             f"held, the structure implies "
+                             f"{held_want(per_row)}")
+    return out, ms, got, held, probe
+
+
+def host_answer(v, ids):
+    """A sharded scorer's (scores, ids) as host (ids, scores), misses as
+    (-1, 0.0), as ``MeshServer`` answers them."""
+    import numpy as np
+    v, ids = v.cpu().numpy(), ids.cpu().numpy()
+    hit = np.isfinite(v)
+    return (np.where(hit, ids, -1).astype(np.int32),
+            np.where(hit, v, 0.0).astype(np.float32))
+
+
+def hold_to_single_node(label, ids, sc, single_node):
+    """Ids equal to the single-node fused engine's but at printed near
+    ties, scores within rtol 1e-5; returns the near ties."""
+    swaps = near_tie_swaps(ids, sc, single_node[0][:len(ids)],
+                           single_node[1][:len(ids)], K)
+    for case in swaps:
+        case.update(engine=label)
+        print(f"near-tie swap: {json.dumps(case)}")
+    return swaps
+
+
+def same_bits(a, b):
+    import numpy as np
+    return (np.array_equal(a[0], b[0])
+            and np.array_equal(a[1].view(np.int32), b[1].view(np.int32)))
+
+
+def distributed_phase(host, batches, si, single_node, seed, dev, report,
+                      card):
+    """Step 11: the distributed engines and ``MeshServer`` as
+    ``DIST_SHARDS`` shards of one mesh, run in turn on one card; (a)-(e)
+    of the module docstring, written to ``report["distributed"]``.
+    Nothing here is a multi-GPU measurement, and no kernel time: every
+    kernel call of a sub-step's last query is held to its plain version
+    as it returns, and none is kept for timing (the earlier phases'
+    traced calls already hold most of the card's memory)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import build, live_index
+    from repro_torch.distributed import retrieval, shmap
+    from repro_torch.kernels import ops
+    from repro_torch.obs.registry import GLOBAL, percentiles
+    from repro_torch.serve import MeshConfig, MeshServer
+    from repro_torch.text import corpus
+
+    S = DIST_SHARDS
+    mesh = shmap.make_mesh(S, "shards", device=dev)
+    out: dict = {"shards": S, "device": card,
+                 "note": f"{S} shards of one mesh, run in turn on one card"}
+    rows = [np.asarray(q, np.uint32) for q in batches[0]]
+
+    def engine(label, index, maker, per_row, build_s, single=True):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        scorer = maker(index, mesh, "shards", k=K)
+        torch.cuda.synchronize()
+        put_s = time.perf_counter() - t0
+        scorer(rows[0])                       # warm-up (allocator)
+        ans, ms, got, held, probe = dist_rows(label, scorer, rows, per_row)
+        ids = np.stack([i for i, _ in ans])
+        sc = np.stack([v for _, v in ans])
+        line = {"build_s": build_s, "to_device_s": put_s,
+                "ms_per_row": ms, "launches": {k: v for k, v in got.items()
+                                               if v},
+                "held_calls": len(held), "sync_probe": probe,
+                "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
+        if single:
+            line["near_tie_swaps"] = hold_to_single_node(label, ids, sc,
+                                                         single_node)
+        print(f"distributed {label}: {json.dumps(line)}")
+        out[label] = line
+        return ids, sc
+
+    def built(fn, *args, **kw):
+        t0 = time.perf_counter()
+        ix = fn(*args, **kw)
+        return ix, time.perf_counter() - t0
+
+    # (a) bulk doc-sharded: HOR and packed fused, and the gather oracle
+    fused = {"idf": S, "query_norm": S}
+    answers = {}
+    for lay in ("hor", "packed"):
+        (ix, reason), s_ = built(retrieval.build_doc_sharded_fused, host, S,
+                                 layout=lay)
+        name = "fused_topk_packed" if lay == "packed" else "fused_topk_blocked"
+        answers[f"doc_{lay}"] = engine(
+            f"doc_{lay}", ix, retrieval.make_doc_sharded_fused_scorer,
+            {**fused, name: S}, s_)
+        out[f"doc_{lay}"]["reason"] = reason
+        del ix
+    ix, s_ = built(retrieval.build_doc_sharded, host, S)
+    engine("doc_oracle", ix, retrieval.make_doc_sharded_scorer, fused, s_)
+    del ix
+    if not same_bits(answers["doc_hor"], answers["doc_packed"]):
+        raise AssertionError("doc-sharded HOR and packed answers differ")
+
+    # (b) term-sharded fused: HOR, packed, banded
+    dense = {"hor": ("fused_score_blocked",), "packed": ("fused_score_packed",),
+             "banded": ("fused_score_packed", "fused_score_blocked")}
+    for lay, names in dense.items():
+        ix, s_ = built(retrieval.TERM_BUILDERS[lay], host, S)
+        answers[f"term_{lay}"] = engine(
+            f"term_{lay}", ix, retrieval.make_term_sharded_fused_scorer,
+            {"idf": S, **{n: S for n in names}}, s_)
+        del ix
+    if not same_bits(answers["term_hor"], answers["term_packed"]):
+        raise AssertionError("term-sharded HOR and packed answers differ")
+    torch.cuda.empty_cache()
+
+    # (c) the sharded segment stack over the live phase's index
+    if si.delta_postings or si._delta.n_docs:
+        si.seal()
+    view = si.view()
+    t0 = time.perf_counter()
+    stack = retrieval.stack_segment_shards(view, S)
+    torch.cuda.synchronize()
+    stack_s = time.perf_counter() - t0
+    metas = stack.signature()
+    groups = []
+    for m, (_, arrs) in zip(metas, stack.groups):
+        mp = retrieval._pair_budget(m.route_pairs_max, 3,
+                                    max(m.max_blocks_per_term, 1),
+                                    m.route_span_max)
+        g = {"layout": m.layout, "size_class": m.d_pad, "n_slots": m.n_slots,
+             "filled_slots": int((arrs["norm"].abs().sum(-1) > 0).sum()),
+             "bytes": sum(t.numel() * t.element_size()
+                          for t in arrs.values()),
+             "pair_budget_per_slot": mp,
+             "pairs_routed_per_row": mp * S * m.n_slots}
+        if m.layout == "banded":
+            mh = retrieval._pair_budget(m.hor_route_pairs_max, 3,
+                                        max(m.hor_max_blocks_per_term, 1),
+                                        m.hor_route_span_max)
+            g["hor_pair_budget_per_slot"] = mh
+            g["pairs_routed_per_row"] += mh * S * m.n_slots
+        groups.append(g)
+        print(f"distributed stack group: {json.dumps(g)}")
+    stack_ids, stack_sc = engine(
+        "stack", stack, retrieval.make_doc_sharded_segment_scorer,
+        stack_row_launches(metas, S), stack_s, single=False)
+    ref = view.topk(np.stack(rows), K)
+    if not np.array_equal(stack_ids, ref.doc_ids.cpu().numpy()):
+        raise AssertionError("stack ids != view.topk's")
+    np.testing.assert_allclose(stack_sc, ref.scores.cpu().numpy(),
+                               rtol=1e-5, atol=0)
+    out["stack"].update(groups=groups, not_bit_equal=int(
+        (stack_sc.view(np.int32)
+         != ref.scores.cpu().numpy().view(np.int32)).sum()))
+    del stack, view
+    torch.cuda.empty_cache()
+
+    # (d), (e): MeshServer over each topology
+    def mesh_queries(df, hashes, num_docs, seed0):
+        qs, seen, s_ = [], set(), 0
+        while len(qs) < MESH_QUERIES:
+            q = corpus.sample_query_terms(
+                df, hashes, 1, TERMS, df_band=(0.15, 0.5),
+                num_docs=num_docs, seed=seed0 + s_)[0]
+            s_ += 1
+            row = np.zeros(8, np.uint32)
+            row[:len(q)] = q
+            if row.tobytes() not in seen:
+                seen.add(row.tobytes())
+                qs.append(row)
+        return qs
+
+    def new_batch(n, s_):
+        return corpus.generate(corpus.CorpusSpec(
+            num_docs=n, vocab=VOCAB, avg_distinct=AVG_DISTINCT, seed=s_))
+
+    def run_mesh(label, index, cfg, new_docs, qrows, per_row_of):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        overflow0 = GLOBAL.counter("engine_pair_overflow").value
+        t0 = time.perf_counter()
+        ms = MeshServer(index, cfg, mesh=mesh)
+        torch.cuda.synchronize()
+        start_s = time.perf_counter() - t0
+        ms.warmup()
+
+        def serve(qs):
+            t0 = time.perf_counter()
+            tickets = [ms.submit(q) for q in qs]
+            while ms.pending:
+                ms.pump()
+            wall = time.perf_counter() - t0
+            return [t.result(timeout=600.0) for t in tickets], wall
+
+        per_epoch = {}
+        for step in ("e0", "e1"):
+            if step == "e1":
+                t0 = time.perf_counter()
+                base = ms.index.num_docs
+                ms.add_batch(new_docs)
+                ms.delete_docs(np.arange(base, base + new_docs.num_docs, 64))
+                pause = ms.handoff()
+                write_s = time.perf_counter() - t0
+            epoch = ms.serving_epoch
+            reset_launches()
+            resp, wall = serve(qrows)
+            got = read_launches()
+            want = dist_want(per_row_of(ms._state), len(qrows))
+            if got != want:
+                raise AssertionError(f"mesh {label} {step}: launches {got}, "
+                                     f"the structure implies {want}")
+            if any(r.epoch != epoch or r.cached or r.status != "ok"
+                   for r in resp):
+                raise AssertionError(f"mesh {label} {step}: not served fresh "
+                                     f"at epoch {epoch}")
+            # the single-host QueryServer's computation over the same pin:
+            # ids identical, scores within rtol 1e-5 (bit differences
+            # counted: a single row's norm chains FMAs at every width)
+            view = ms.serving_view
+            not_bits = 0
+            for b0 in range(0, len(qrows), BATCH):
+                res = view.topk(np.stack(qrows[b0:b0 + BATCH]), K)
+                ids = np.stack([r.doc_ids for r in resp[b0:b0 + BATCH]])
+                sc = np.stack([r.scores for r in resp[b0:b0 + BATCH]])
+                if not np.array_equal(ids, res.doc_ids.cpu().numpy()):
+                    raise AssertionError(f"mesh {label} {step}: ids != the "
+                                         "single-host server's")
+                want_sc = res.scores.cpu().numpy()
+                np.testing.assert_allclose(sc, want_sc, rtol=1e-5, atol=0)
+                not_bits += int((sc.view(np.int32)
+                                 != want_sc.view(np.int32)).sum())
+            entry = {"epoch": epoch, "wall_s": wall,
+                     "qps": len(qrows) / wall, "not_bit_equal": not_bits,
+                     "launches": {k: v for k, v in got.items() if v}}
+            p = percentiles([r.latency_us for r in resp])
+            entry.update(p50_us=p["p50"], p99_us=p["p99"])
+            # a micro-batch's spans are adopted by each of its tickets:
+            # read them once per batch
+            acc: dict = {}
+            for r in resp[::cfg.batch_size]:
+                for sp in r.trace.spans:
+                    if sp.name in ("shard_fanout", "shard_sync", "score"):
+                        acc[sp.name] = acc.get(sp.name, 0.0) + \
+                            sp.duration_us / 1e3
+            entry["span_ms_per_row"] = {k: v / len(resp)
+                                        for k, v in acc.items()}
+            if step == "e0":
+                reset_launches()
+                hits, _ = serve(qrows[:MESH_REPEATS])
+                if any(read_launches().values()):
+                    raise AssertionError(f"mesh {label}: cache hits launched")
+                for r, want_r in zip(hits, resp):
+                    if not (r.cached and same_bits(
+                            (r.doc_ids, r.scores),
+                            (want_r.doc_ids, want_r.scores))):
+                        raise AssertionError(f"mesh {label}: a cache hit "
+                                             "differs from its response")
+            else:
+                entry.update(write_s=write_s, handoff_pause_s=pause)
+            for r in resp:
+                stages = r.trace.stage_durations()
+                if abs(sum(stages.values()) - r.latency_us) > \
+                        STAGE_REL * r.latency_us:
+                    raise AssertionError(f"mesh {label}: stages {stages}")
+            per_epoch[step] = entry
+        digests = {r.digest() for r in ms.replicas}
+        if len(digests) != 1:
+            raise AssertionError(f"mesh {label}: replicas differ {digests}")
+        if GLOBAL.counter("engine_pair_overflow").value != overflow0:
+            raise AssertionError(f"mesh {label}: routing overflow")
+        # the last row's call again, each kernel call held to its plain
+        # version as it returns; it answers as the served response did
+        probe = sync_probe(ms._state.score_row, qrows[-1])
+        with holding(ops, f"dist-mesh-{label}") as held:
+            again = ms._state.score_row(qrows[-1])
+        if not same_bits(again, (resp[-1].doc_ids, resp[-1].scores)):
+            raise AssertionError(f"mesh {label}: the held call answers "
+                                 "otherwise")
+        if len(held) != held_want(per_row_of(ms._state)):
+            raise AssertionError(f"mesh {label}: {len(held)} kernel calls "
+                                 "held, the structure implies "
+                                 f"{held_want(per_row_of(ms._state))}")
+        summ = ms.mesh_summary()
+        line = {**per_epoch, "start_s": start_s, "held_calls": len(held),
+                "sync_probe": probe,
+                "handoff_pause_us": summ["handoff_pause_us"],
+                "replicas": len(ms.replicas), "digest": list(digests)[0],
+                "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
+        print(f"distributed mesh {label}: {json.dumps(line)}")
+        out[f"mesh_{label}"] = line
+        ms.stop()
+        del ms
+        torch.cuda.empty_cache()
+
+    # (d) the doc-sharded stack over the live index, two replicas
+    view = si.view()
+    qrows = mesh_queries(view.df, view.hashes, view.live_docs, seed * 777)
+    del view
+    run_mesh("doc_stack", si, MeshConfig(
+        batch_size=BATCH, n_terms_budget=8, k=K, n_shards=S, n_replicas=2,
+        auto_handoff=False, trace_sample=1),
+        new_batch(MESH_NEW_DOCS, seed + 3), qrows,
+        lambda state: stack_row_launches(state.groups, S))
+
+    # (e) the term topology on the 50,000-doc churn batch (cut from 1M:
+    # it bulk-builds the live corpus again at every handoff)
+    h50 = build.bulk_build(new_batch(TERM_MESH_DOCS, seed + 1))
+    si50 = live_index.SegmentedIndex.from_host(h50, device=dev)
+    qrows = mesh_queries(h50.df, h50.term_hashes, h50.num_docs, seed * 991)
+    run_mesh("term_fused", si50, MeshConfig(
+        batch_size=BATCH, n_terms_budget=8, k=K, n_shards=S,
+        topology="term_fused", auto_handoff=False, trace_sample=1),
+        new_batch(MESH_NEW_DOCS, seed + 4), qrows,
+        lambda state: {"idf": S, "fused_score_blocked": S})
+    out["mesh_term_fused"]["reduced"] = (
+        f"{TERM_MESH_DOCS:,} docs, not 1M: the term topology bulk-builds "
+        "the live corpus at every handoff")
+    del si50, h50
+    torch.cuda.empty_cache()
+    report["distributed"] = out
+
 
 def kernel_rows(sites):
     """One row per kernel for the ``kernels`` line: ``launches`` sums

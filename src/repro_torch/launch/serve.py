@@ -8,9 +8,11 @@ on ``--device`` (``cuda`` unless asked otherwise), and serves batched
 queries through the scorer (``query.make_scorer``, the gather oracle,
 as the reference launcher's default engine).  Reports the corpus, the
 index size, and the per-query latency percentiles: the q_word / q_occ /
-q_doc pipeline of paper section 3.7 end to end.  ``--shards`` (the
-reference's document-sharded engine) is refused: the distributed
-engines are not ported (ROADMAP queue 1 item 1).
+q_doc pipeline of paper section 3.7 end to end.  ``--shards N`` serves
+through the document-sharded gather engine instead
+(``distributed.retrieval.build_doc_sharded`` and
+``make_doc_sharded_scorer`` on a mesh of N shards on ``--device``, one
+query per call, as the reference's launcher vmaps it).
 """
 from __future__ import annotations
 
@@ -32,13 +34,11 @@ def main(argv=None) -> int:
     ap.add_argument("--topk", type=int, default=10)
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--shards", type=int, default=0,
-                    help="the document-sharded engine: not ported")
+                    help=">0: the document-sharded engine over a mesh of "
+                         "this many shards on --device")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.shards > 0:
-        ap.error("--shards: the document-sharded engine is not ported "
-                 "(ROADMAP queue 1 item 1)")
 
     import torch
 
@@ -57,10 +57,25 @@ def main(argv=None) -> int:
     qh = corpus.sample_query_terms(host.df, host.term_hashes, args.queries,
                                    args.terms, num_docs=host.num_docs,
                                    seed=args.seed + 1)
-    index = layouts.REPRESENTATIONS[args.repr](host, device=dev)
-    print(f"engine: {args.repr} index={index.nbytes() / 1e6:.1f} MB")
-    cap = max(host.max_posting_len, 1)
-    scorer = query.make_scorer(index, k=args.topk, cap=cap)
+    if args.shards > 0:
+        from repro_torch.distributed import retrieval, shmap
+        mesh = shmap.make_mesh(args.shards, "data", device=dev)
+        ds = retrieval.build_doc_sharded(host, args.shards)
+        row_scorer = retrieval.make_doc_sharded_scorer(ds, mesh, "data",
+                                                       k=args.topk)
+
+        def scorer(qb):
+            # one query per call: the sharded scorer's contract
+            rows = [row_scorer(row) for row in qb]
+            return query.QueryResult(
+                doc_ids=torch.stack([i for _, i in rows]),
+                scores=torch.stack([v for v, _ in rows]))
+        print(f"engine: doc-sharded x{args.shards}")
+    else:
+        index = layouts.REPRESENTATIONS[args.repr](host, device=dev)
+        print(f"engine: {args.repr} index={index.nbytes() / 1e6:.1f} MB")
+        cap = max(host.max_posting_len, 1)
+        scorer = query.make_scorer(index, k=args.topk, cap=cap)
 
     lat = []
     hits = 0
@@ -69,9 +84,10 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         res = scorer(qb)
         # the copy to the host waits for the device's work
-        ids = res.doc_ids.cpu().numpy()
+        scores = res.scores.cpu().numpy()
         lat.append((time.perf_counter() - t0) / qb.shape[0])
-        hits += int((ids >= 0).any(axis=-1).sum())
+        # a hit scores above 0; a miss is -inf (sharded) or 0 (-1 id)
+        hits += int((scores > 0).any(axis=-1).sum())
     lat_us = np.array(lat[1:] or lat) * 1e6
     print(f"served {args.queries} queries; {hits} with hits; "
           f"p50={np.percentile(lat_us, 50):.0f}us "

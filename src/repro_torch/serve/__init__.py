@@ -11,11 +11,13 @@
                  write lock
   metrics.py     latency percentiles (p50/p99), QPS, batch fill,
                  registry-backed (see ``repro_torch.obs``)
-
-The reference's distributed tier (``MeshServer``, ``MeshConfig``,
-``ShardReplica`` in ``serve/mesh.py``) is not ported: it needs the
-distributed engines of ``distributed/retrieval.py`` (ROADMAP queue 1
-item 1).
+  mesh.py        MeshServer: micro-batches fan out over sharded segment
+                 stacks (or the term-sharded fused engine) at a pinned
+                 epoch, with replicated indexes under their own
+                 maintenance, epoch handoff, admission control, deadline
+                 shedding and per-tenant result-cache partitions; one
+                 controller drives the S shards (on one card they run
+                 in turn)
 
 Observability primitives (spans, the metrics registry, the maintenance
 event log) live in ``repro_torch.obs`` and are re-exported here.
@@ -24,6 +26,7 @@ from repro_torch.obs.registry import EventLog, MetricsRegistry
 from repro_torch.obs.trace import Span, StageAggregator, Trace, Tracer
 from repro_torch.serve.cache import ResultCache, TenantCachePartitions
 from repro_torch.serve.maintenance import IndexMaintenance
+from repro_torch.serve.mesh import MeshConfig, MeshServer, ShardReplica
 from repro_torch.serve.metrics import (LatencyWindow, ServerMetrics,
                                        percentiles)
 from repro_torch.serve.server import (QueryServer, Response, ServerConfig,
@@ -34,7 +37,8 @@ from repro_torch.serve.snapshot import (load_segmented, pin,
 
 __all__ = [
     "QueryServer", "ServerConfig", "Response", "Ticket", "ResultCache",
-    "TenantCachePartitions", "IndexMaintenance", "LatencyWindow",
+    "TenantCachePartitions", "IndexMaintenance", "MeshServer",
+    "MeshConfig", "ShardReplica", "LatencyWindow",
     "ServerMetrics", "percentiles", "pin", "serialize_segmented",
     "restore_segmented", "save_segmented", "load_segmented",
     "MetricsRegistry", "EventLog", "Span", "Trace", "Tracer",

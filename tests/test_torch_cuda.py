@@ -1609,3 +1609,176 @@ def test_snapshot_saved_on_card_restores_on_cpu(gpu, tmp_path):
                                want.scores.cpu().view(torch.int32))
     assert torch.equal(cpu.topk(qh, k=10, engine="torch").doc_ids,
                        card.topk(qh, k=10, engine="torch").doc_ids.cpu())
+
+
+# ---------------------------------------------------------------------------
+# distributed retrieval: a 4-shard mesh on the card against the same
+# 4-shard mesh on the CPU (whose kernels run as their plain versions)
+# ---------------------------------------------------------------------------
+
+DIST_SHARDS = 4
+DIST_ENGINES = {          # name: (builder, scorer maker, scorer kwargs)
+    "doc": ("build_doc_sharded", "make_doc_sharded_scorer", {}),
+    "term": ("build_term_sharded", "make_term_sharded_scorer", {}),
+    "doc_hor": ("build_doc_sharded_blocked", "make_doc_sharded_fused_scorer",
+                {}),
+    "doc_packed": ("build_doc_sharded_packed",
+                   "make_doc_sharded_fused_scorer", {}),
+    "term_hor": ("build_term_sharded_blocked",
+                 "make_term_sharded_fused_scorer", {}),
+    "term_packed": ("build_term_sharded_packed",
+                    "make_term_sharded_fused_scorer", {}),
+    "term_banded": ("build_term_sharded_banded",
+                    "make_term_sharded_fused_scorer", {}),
+    "term_banded_cap": ("build_term_sharded_banded",
+                        "make_term_sharded_fused_scorer",
+                        {"cap": 100, "return_stats": True}),
+}
+
+
+def _meshes(gpu):
+    from repro_torch.distributed import shmap
+    return (shmap.make_mesh(DIST_SHARDS, "s", device=gpu),
+            shmap.make_mesh(DIST_SHARDS, "s", device="cpu"))
+
+
+def _same_rows(card, cpu, rows):
+    """The two scorers answer every row alike: ids and score bits (and
+    the truncation stats of a ``return_stats`` scorer)."""
+    for row in rows:
+        a, b = card(row), cpu(row)
+        if isinstance(a[1], dict):
+            assert a[1] == b[1]
+            a, b = a[0], b[0]
+        assert a[0].is_cuda and not b[0].is_cuda
+        assert torch.equal(a[1].cpu(), b[1])
+        assert torch.equal(a[0].cpu().view(torch.int32),
+                           b[0].view(torch.int32))
+
+
+def _fused_launches():
+    return {n: (getattr(fds, n).launches, getattr(fds, n).launches_bitonic
+                if n.startswith("fused_topk") else 0)
+            for n in ("fused_topk_blocked", "fused_topk_packed",
+                      "fused_score_blocked", "fused_score_packed")}
+
+
+@pytest.mark.parametrize("name", list(DIST_ENGINES))
+def test_sharded_engine_on_card_equals_cpu(gpu, host, name):
+    """Each bulk sharded engine on a 4-shard mesh on the card equals the
+    same engine on a 4-shard CPU mesh, ids and score bits, and a fused
+    engine launches its kernel once per shard per query."""
+    from repro_torch.distributed import retrieval
+    builder, maker, kw = DIST_ENGINES[name]
+    index = getattr(retrieval, builder)(host, DIST_SHARDS)
+    card_mesh, cpu_mesh = _meshes(gpu)
+    card = getattr(retrieval, maker)(index, card_mesh, "s", k=10, **kw)
+    cpu = getattr(retrieval, maker)(index, cpu_mesh, "s", k=10, **kw)
+    rows = [*corpus.sample_query_terms(host.df, host.term_hashes, 6, 3,
+                                       num_docs=host.num_docs, seed=8),
+            *corpus.sample_query_terms(host.df, host.term_hashes, 4, 8,
+                                       num_docs=host.num_docs, seed=9)]
+    before = _fused_launches()
+    _same_rows(card, cpu, rows)
+    grew = {n: after[0] - before[n][0]
+            for n, after in _fused_launches().items()
+            if after[0] != before[n][0]}
+    kernels = {"doc_hor": ["fused_topk_blocked"],
+               "doc_packed": ["fused_topk_packed"],
+               "term_hor": ["fused_score_blocked"],
+               "term_packed": ["fused_score_packed"]}.get(
+                   name, ["fused_score_blocked", "fused_score_packed"]
+                   if name.startswith("term_banded") else [])
+    assert grew == {n: DIST_SHARDS * len(rows) for n in kernels}
+
+
+@pytest.mark.parametrize("reducer", ["successive", "bitonic"])
+def test_stack_scorer_on_card_equals_cpu(gpu, reducer):
+    """The doc-sharded segment stack over mixed banded, HOR and packed
+    seals (4 shards, inert slots included) on the card equals the same
+    stack on the CPU, ids and score bits; every slot of every shard
+    launches its kernels, through the bitonic epilogue where the table
+    says so."""
+    from repro_torch.distributed import retrieval
+    from repro_torch.kernels import autotune
+    tc = corpus.generate(corpus.CorpusSpec(num_docs=4900, vocab=3000,
+                                           avg_distinct=30, seed=5))
+    stacks = []
+    for dev in (gpu, "cpu"):
+        si = _live_schedule(tc, dev)
+        si.seal()
+        stacks.append(retrieval.stack_segment_shards(si.view(), DIST_SHARDS))
+    metas = stacks[0].signature()
+    assert metas == stacks[1].signature()
+    assert {m.layout for m in metas} == {"banded", "hor", "packed"}
+    table = autotune.TuningTable()
+    if reducer == "bitonic":
+        for m in metas:
+            for dt in ("cuda", "cpu"):
+                table.put(dt, autotune.size_class_of(m.d_pad), m.layout,
+                          autotune.TuneConfig(reducer="bitonic"))
+    prev = autotune.set_active(table)
+    try:
+        card_mesh, cpu_mesh = _meshes(gpu)
+        card = retrieval.make_doc_sharded_segment_scorer(stacks[0],
+                                                         card_mesh, "s")
+        cpu = retrieval.make_doc_sharded_segment_scorer(stacks[1], cpu_mesh,
+                                                        "s")
+        rows = corpus.sample_query_terms(np.asarray(si._df), si.term_hashes,
+                                         8, 8, num_docs=si.live_doc_count,
+                                         seed=4)
+        before = _fused_launches()
+        _same_rows(card, cpu, rows)
+        after = _fused_launches()
+    finally:
+        autotune.set_active(prev)
+    slots = {lay: DIST_SHARDS * sum(m.n_slots for m in metas
+                                    if m.layout == lay)
+             for lay in ("banded", "hor", "packed")}
+    col = 1 if reducer == "bitonic" else 0
+    n = len(rows)
+    assert after["fused_topk_blocked"][col] - \
+        before["fused_topk_blocked"][col] == n * slots["hor"]
+    assert after["fused_topk_packed"][col] - \
+        before["fused_topk_packed"][col] == n * slots["packed"]
+    for dense in ("fused_score_blocked", "fused_score_packed"):
+        assert after[dense][0] - before[dense][0] == n * slots["banded"]
+
+
+@pytest.mark.parametrize("topology", ["doc_stack", "term_fused"])
+def test_mesh_server_on_card_equals_cpu(gpu, topology):
+    """``MeshServer`` (4 shards, 2 replicas) on the card and on the CPU
+    through one schedule of queries, a write step and a handoff: equal
+    responses (ids, score bits, epochs, cache flags), replicas in step."""
+    from repro_torch.serve import MeshConfig, MeshServer
+    tc = corpus.generate(corpus.CorpusSpec(num_docs=4900, vocab=3000,
+                                           avg_distinct=30, seed=5))
+    answers = []
+    for dev in (gpu, "cpu"):
+        si = _live_schedule(tc, dev)
+        ms = MeshServer(si, MeshConfig(
+            batch_size=8, n_terms_budget=8, k=10, n_shards=DIST_SHARDS,
+            n_replicas=2, topology=topology, auto_handoff=False))
+        assert ms.mesh.devices[0].type == torch.device(dev).type
+        pool = corpus.sample_query_terms(np.asarray(si._df), si.term_hashes,
+                                         12, 3, num_docs=si.live_doc_count,
+                                         seed=2)
+        got = []
+        for step in range(2):
+            if step:
+                ms.add_batch(build.TokenizedCorpus(
+                    tc.doc_term_ids[:200], tc.doc_counts[:200],
+                    tc.term_hashes, 200))
+                ms.delete_docs(np.arange(5, 400, 9))
+                ms.handoff()
+            tickets = [ms.submit(q) for q in [*pool, *pool[:4]]]
+            while ms.pending:
+                ms.pump()
+            got += [t.result(timeout=60.0) for t in tickets]
+        assert len({r.digest() for r in ms.replicas}) == 1
+        answers.append(got)
+    for a, b in zip(*answers):
+        assert (a.epoch, a.cached, a.status) == (b.epoch, b.cached, b.status)
+        np.testing.assert_array_equal(a.doc_ids, b.doc_ids)
+        np.testing.assert_array_equal(a.scores.view(np.int32),
+                                      b.scores.view(np.int32))

@@ -322,12 +322,11 @@ def test_flash_launcher_checks(bad):
 
 # names of the reference's packages with no counterpart in the port: the
 # kernel modules hold their own plain versions (``ref``), and the
-# interpret-mode switch and the jax shim serve only jax
-NO_COUNTERPART = {"kernels": {"ref", "runtime"}, "distributed": {"shmap"}}
-# names whose modules ROADMAP lists as still to be ported (the mesh
-# server, distributed retrieval, the seed scaffolding)
-WAITING = {"serve": {"MeshServer", "MeshConfig", "ShardReplica"},
-           "distributed": {"compress", "decode_attn", "retrieval"},
+# interpret-mode switch serves only jax
+NO_COUNTERPART = {"kernels": {"ref", "runtime"}}
+# names whose modules ROADMAP lists as still to be ported (the seed
+# scaffolding)
+WAITING = {"distributed": {"compress", "decode_attn"},
            "launch": {"hw", "mesh", "sharding"}}
 
 
@@ -366,8 +365,9 @@ def test_package_names_cover_the_reference(package):
             "obs": "from repro_torch.obs import GLOBAL, Tracer",
             "kernels": "import repro_torch.kernels.ops; "
                        "from repro_torch.kernels import ops",
-            "serve": "from repro_torch.serve import QueryServer",
-            "distributed": "from repro_torch.distributed import topk",
+            "serve": "from repro_torch.serve import QueryServer, MeshServer",
+            "distributed": "from repro_torch.distributed import topk, "
+                           "retrieval, shmap",
             "launch": "import repro_torch.launch.serve"}[package]
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", code], env=env,

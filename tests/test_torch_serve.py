@@ -723,10 +723,45 @@ def test_launcher_prints_the_reference_lines(rep, monkeypatch):
     assert got[2].split(" p50=")[0] == want[2].split(" p50=")[0]
 
 
-def test_launcher_refuses_shards():
-    with pytest.raises(SystemExit) as exc:
-        tlaunch.main(["--shards", "2", "--device", "cpu"])
-    assert exc.value.code != 0
+def test_launcher_serves_shards(monkeypatch):
+    """``--shards 2`` serves through the document-sharded gather engine
+    on a mesh of 2 CPU shards: its ids and score bits equal the port's
+    single-node gather oracle on the same queries, and it prints the
+    single-node run's corpus and served/hits lines."""
+    from repro_torch.core import query as tquery
+    from repro_torch.distributed import retrieval as tret
+    argv = ["--docs", "300", "--vocab", "600", "--avg-terms", "20",
+            "--queries", "24", "--batch", "8", "--device", "cpu"]
+    answers = []
+    make = tret.make_doc_sharded_scorer
+
+    def recording(*a, **kw):
+        scorer = make(*a, **kw)
+
+        def score(row):
+            out = scorer(row)
+            answers.append((row, out))
+            return out
+        return score
+    monkeypatch.setattr(tret, "make_doc_sharded_scorer", recording)
+    rc, got = _run(tlaunch.main, argv + ["--shards", "2"])
+    assert rc == 0 and got[1] == "engine: doc-sharded x2"
+    assert len(answers) == 24
+    rc, single = _run(tlaunch.main, argv)
+    assert got[0].split(" build=")[0] == single[0].split(" build=")[0]
+    assert got[2].split(" p50=")[0] == single[2].split(" p50=")[0]
+    tc = tcorpus.generate(tcorpus.CorpusSpec(num_docs=300, vocab=600,
+                                             avg_distinct=20, seed=0))
+    host = tbuild.bulk_build(tc)
+    oracle = tquery.make_scorer(tlayouts.build_csr(host, device="cpu"), k=K,
+                                cap=max(host.max_posting_len, 1))
+    want = oracle(np.stack([row for row, _ in answers]))
+    np.testing.assert_array_equal(
+        np.stack([i.numpy() for _, (_, i) in answers]),
+        want.doc_ids.numpy())
+    np.testing.assert_array_equal(
+        _bits(np.stack([v.numpy() for _, (v, _) in answers])),
+        _bits(want.scores))
 
 
 def test_representations_and_paper_spec_match_reference():
