@@ -140,11 +140,13 @@
    bf16 rounding (rtol 8e-3, atol 1e-3) of the plain version run in f32
    on the same inputs; PNA equals the model's segment
    aggregation written as ``scatter_reduce`` (a 1/16 slice of
-   ogbn-products); Qwen3's bf16 site equals a mirror of the models'
-   ``chunked_attention`` within 3e-2.  Times each site in turns with
-   its plain version, beside its bound and the one PyTorch call that
-   computes it (``F.embedding_bag``, ``F.scaled_dot_product_attention``;
-   none for PNA), and prints each attention site's achieved TFLOP/s.
+   ogbn-products); Qwen3's bf16 site equals the models' own
+   ``chunked_attention`` on its plain path
+   (``models.attention.chunked_attention_plain``) within 3e-2.  Times
+   each site in turns with its plain version, beside its bound and the
+   one PyTorch call that computes it (``F.embedding_bag``,
+   ``F.scaled_dot_product_attention``; none for PNA), and prints each
+   attention site's achieved TFLOP/s.
    Attention's bound counts its products on the tensor cores: one bf16
    pass, or three TF32 passes for f32 (3xTF32, as the kernel computes
    them; the f32 CUDA-core time is printed beside it).
@@ -232,14 +234,57 @@
    torch reports in it by line, and the caching allocator's device
    allocations, frees and retries in it, which say where the host
    waited for the card.
+12. The model serving phase, after step 11: the transformer serving
+   path (``repro_torch.models.transformer``) on the card.  (a) Each of
+   the five LM archs at its smoke config (weights from ``init_params``
+   on the card, MoE capacity 16): prefill(16) against prefill(15) +
+   ``pad_cache`` + ``decode_step``, rel-to-max < 2e-2 (a GQA prefill
+   runs the kernel's f32 p, its decode the plain path's bf16 p, so the
+   reference's 1e-3 between two plain paths holds on the CPU only,
+   where ``tests/test_torch_models.py`` keeps it); each prefill
+   launches the flash kernel once per GQA layer (MLA's none) and no
+   other kernel, a decode step nothing; the ring cache decodes as the
+   full cache within 2e-3.  (b) Qwen3-0.6B at full
+   width (``configs.qwen3_0p6b.make_config("full")``: 28 layers, d
+   1,024, 16 / 8 heads of 128, vocab 152,064), f32 masters made on the
+   card and served as bf16: one prefill of ``LM_BATCH`` = 8 requests of
+   4,096 seeded tokens, ``pad_cache`` to 4,160 slots, ``LM_DECODE`` = 64
+   greedy decode steps, with every launch counter reset just before
+   each and read just after (28 flash launches a prefill, none a
+   step).  Layer 0's and layer 27's kernel calls, recorded as the path
+   makes them, are held to ``flash_attention_plain`` within 3e-2, and
+   to it run in f32 and rounded to bf16 within ``BF16_RTOL`` /
+   ``BF16_ATOL``;
+   prefill(4,095) + one decode step is held to prefill(4,096) (rel-to-
+   max < 2e-2); the logits are finite.  (c) The same weights on the
+   CPU: one request of 128 tokens and 8 decode steps (the card's greedy
+   tokens fed to both), every logits row within rel-to-max 2e-2 of the
+   card's.  (d) ``splitk_decode_attention`` on a 4-shard mesh over
+   layer 0's decode cache as f32 copies (B 8, Hkv 8, S 4,160, D 128,
+   uneven lengths), windows 0 and 1,024, equal to ``decode_attention``
+   within rtol 2e-4, atol 1e-5.  Prints ``model serve smoke <arch>:``
+   lines and one ``model serve qwen3-0.6b:`` line (prefill ms and
+   decode ms a step by the host clock with ``synchronize``, decode
+   tokens/s, the attention kernel's ms inside one prefill by events
+   around each call, the prefill's FLOPs: the reference's cell count
+   (2 x active params x tokens, the tied embedding table included)
+   beside the matmuls the prefill runs (2 x the layers' weights x
+   tokens, the last position's logits, attention), whose rate is
+   printed beside 989 TFLOP/s, KV-cache bytes, peak memory, the
+   card); layer 0's call is a row-9 site (``model kernel site:``),
+   timed in turns with the plain version beside its bound and SDPA.
 9. Last, after every event timing (a trace slows the launches timed
    after it): one ``torch.profiler`` trace of each live call site of
    the four fused kernels, of the last bulk batch's candidate call per
    layout, of each bitonic site's last call, of both side kernels, of
-   the two weights kernels and of every model site (``MODEL_TRACED``
-   calls after one warm-up), printed as device ms per launch beside the
-   event ms (for the bag and PNA sites with the host's share of the
-   event time).
+   the two weights kernels and of every model site, step 12's included
+   (``MODEL_TRACED`` calls after one warm-up), printed as device ms per
+   launch beside the event ms (for the bag and PNA sites with the
+   host's share of the event time).  Then one full-width Qwen3 prefill
+   and one decode step, each in a trace of its own (``model serve trace
+   qwen3-0.6b:``): each call's device-busy share of its kernels' span
+   and of its host time, and the attention kernel's share of the
+   prefill's device time.
    Then per-phase wall
    times, a ``{"kernels": [...]}`` line with all nine kernels, the two
    bitonic entry points and the two weights kernels (means per launch
@@ -878,6 +923,15 @@ def main() -> int:
     phase_s["distributed"] = time.perf_counter() - t_phase
     print(f"phase distributed: {phase_s['distributed']:.1f} s")
 
+    t_phase = time.perf_counter()
+    lm_site, lm_call, lm_keep = lm_phase(a.seed, dev, report, card)
+    sites.append(lm_site)
+    traces[lm_call[0]] = lm_call[1]
+    del lm_call
+    torch.cuda.empty_cache()
+    phase_s["lm_serve"] = time.perf_counter() - t_phase
+    print(f"phase lm_serve: {phase_s['lm_serve']:.1f} s")
+
     # last, after every event timing: the traced sites' device time
     t_phase = time.perf_counter()
     dev_ms = device_ms(traces)
@@ -899,6 +953,9 @@ def main() -> int:
                   f"library {site.get('library_ms')} ms{host}")
     report["device_ms_by_site"] = dev_ms
     del traces
+    torch.cuda.empty_cache()
+    report["lm_serve"]["trace"] = lm_trace(lm_keep)
+    del lm_keep
     torch.cuda.empty_cache()
     phase_s["device_time"] = time.perf_counter() - t_phase
     report["phase_s"] = phase_s
@@ -2094,32 +2151,6 @@ def scatter_aggregate(feats, nbr):
                       torch.where(torch.isfinite(mx), mx, 0.0), std], dim=1)
 
 
-def model_attention(q, k, v, window, chunk=512):
-    """A plain-torch mirror of the transformers' ``chunked_attention``
-    (``repro.models.attention``): query chunks, f32 scores over all keys
-    with GQA by head groups, masked to -1e30, softmax, p cast to v's
-    dtype.  A correctness yardstick only."""
-    import torch
-    b, hq, s, d = q.shape
-    hkv = k.shape[1]
-    kg = k.reshape(b, hkv, 1, s, d).float()
-    vg = v.reshape(b, hkv, 1, s, d)
-    kpos = torch.arange(s, device=q.device)
-    out = []
-    for c0 in range(0, s, chunk):
-        qc = q[:, :, c0:c0 + chunk]
-        c = qc.shape[2]
-        qc = qc.reshape(b, hkv, hq // hkv, c, d).float()
-        scores = (qc @ kg.transpose(-1, -2)) * d ** -0.5
-        qpos = torch.arange(c0, c0 + c, device=q.device)[:, None]
-        mask = kpos[None, :] <= qpos
-        if window > 0:
-            mask &= kpos[None, :] > qpos - window
-        p = torch.softmax(scores.masked_fill(~mask, -1e30), dim=-1)
-        out.append((p.to(v.dtype) @ vg).reshape(b, hq, c, d))
-    return torch.cat(out, dim=2)
-
-
 def live_pairs(s, window):
     """Causal (query, key) pairs with a live entry at length ``s``."""
     if window <= 0:
@@ -2204,6 +2235,7 @@ def model_phase(seed, dev, report):
     from repro_torch.kernels import flash_attention as tfa
     from repro_torch.kernels import ops
     from repro_torch.kernels import segment_multi_agg as tpna
+    from repro_torch.models import attention as tattn
 
     # the plain versions' f32 products run in full f32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2281,7 +2313,8 @@ def model_phase(seed, dev, report):
                     outputs_off_f32_plain=int((gap > 0).sum()))
                 del f32, gap
             if site == "attn@qwen3_0.6b":
-                yard = model_attention(*args, kw["window"])
+                # the models' own chunked attention on its plain path
+                yard = tattn.chunked_attention_plain(*args, **kw)
                 torch.testing.assert_close(got.float(), yard.float(),
                                            rtol=tol, atol=tol)
                 info["max_abs_err_model_attention"] = float(
@@ -3233,6 +3266,421 @@ def distributed_phase(host, batches, si, single_node, seed, dev, report,
     del si50, h50
     torch.cuda.empty_cache()
     report["distributed"] = out
+
+
+# model serving phase (step 12): the transformer serving path
+LM_BATCH = 8                  # requests of ATTN_SEQ tokens in one prefill
+LM_DECODE = 64                # greedy decode steps after it
+LM_SLOTS = ATTN_SEQ + LM_DECODE   # the decode cache's slots (pad_cache)
+LM_HELD_LAYERS = (0, 27)      # the first and last layer's kernel calls
+LM_CPU_SEQ, LM_CPU_DECODE = 128, 8   # (c): one request, on both sides
+LM_TOL = 2e-2                 # bf16 rel-to-max (the reference's MLA bound)
+SPLITK_WINDOWS = (0, 1024)
+# (d): cache lengths across the four 1,040-slot shards, some at a
+# shard's edge
+SPLITK_LENS = (4159, 4000, 3121, 2080, 2079, 1040, 1039, 517)
+
+
+def rel_to_max(got, want):
+    """max |got - want| over max |want|, in f32."""
+    got, want = got.float(), want.float().to(got.device)
+    return float((got - want).abs().max() / want.abs().max().clamp_min(
+        1e-9))
+
+
+@contextlib.contextmanager
+def attention_calls(ops, keep=(), timed=False):
+    """Wrap ``ops.attention`` (what ``models.attention`` calls for every
+    GQA prefill layer) while the path runs the real kernel: the calls at
+    the indexes in ``keep`` are recorded as (args, kw, output), and with
+    ``timed`` every call is bracketed by CUDA events.  Yields
+    ``{"held": {index: call}, "events": [(start, stop), ...]}``."""
+    import torch
+    out = {"held": {}, "events": [], "n": 0}
+    saved = ops.attention
+
+    def call(*args, **kw):
+        i = out["n"]
+        out["n"] += 1
+        if timed:
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+        res = saved(*args, **kw)
+        if timed:
+            stop.record()
+            out["events"].append((start, stop))
+        if i in keep:
+            out["held"][i] = (args, kw, res)
+        return res
+    ops.attention = call
+    try:
+        yield out
+    finally:
+        ops.attention = saved
+
+
+def lm_launch_check(label, launches, flash):
+    """The flash kernel launched ``flash`` times and no other kernel."""
+    if launches["flash_attention"] != flash or any(
+            v for k, v in launches.items() if k != "flash_attention"):
+        raise AssertionError(f"{label}: launches {launches}, want "
+                             f"flash_attention {flash} and nothing else")
+
+
+def lm_smoke_archs(seed, dev):
+    """(a) of step 12: every LM arch at its smoke config on the card,
+    the reference's serving protocol (``tests/test_models.py``) and its
+    ring-cache check."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import transformer as tfm
+    out = {}
+    for arch_id, arch in configs.ARCHS.items():
+        cfg = arch.make_config("smoke", "decode_32k")
+        if cfg.moe is not None:     # capacity must not bind (see the test)
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=16.0))
+        params = tfm.init_params(seed, cfg, device=dev)
+        g = torch.Generator(device=dev).manual_seed(seed + 1)
+        toks = torch.randint(0, cfg.vocab, (2, 16), generator=g, device=dev,
+                             dtype=torch.int32)
+        gqa = cfg.n_layers if cfg.attn == "gqa" else 0
+        reset_launches()
+        full = tfm.prefill(params, cfg, toks)
+        lm_launch_check(f"{arch_id} prefill(16)", read_launches(), gqa)
+        reset_launches()
+        part = tfm.prefill(params, cfg, toks[:, :15])
+        lm_launch_check(f"{arch_id} prefill(15)", read_launches(), gqa)
+        cache = tfm.pad_cache(part.cache, 16, cfg)
+        reset_launches()
+        logits, _, _ = tfm.decode_step(params, cfg, cache, toks[:, 15:],
+                                       part.cache_len)
+        lm_launch_check(f"{arch_id} decode", read_launches(), 0)
+        # the bf16 bound: a GQA prefill runs the kernel's arithmetic (the
+        # Pallas kernel's: p and PV in f32), its decode the plain path's
+        # (p rounded to bf16), so the reference's 1e-3 for two plain
+        # paths (held on the CPU) does not apply here
+        rel = rel_to_max(logits, full.logits)
+        tol = LM_TOL
+        out[arch_id] = {"rel_to_max": rel, "tolerance": tol,
+                        "launches_per_prefill": gqa}
+        print(f"model serve smoke {arch_id}: {json.dumps(out[arch_id])}")
+        if not (rel < tol and bool(torch.isfinite(logits).all())):
+            raise AssertionError(f"{arch_id}: prefill(15) + decode is "
+                                 f"{rel} from prefill(16) (tolerance {tol})")
+
+    # the ring cache decodes as the full cache once the window wraps
+    cfg_full = tfm.TransformerConfig(
+        name="swa", n_layers=2, d_model=32, n_heads=2, n_kv_heads=2,
+        head_dim=16, d_ff=64, vocab=128, window=8, global_every=0,
+        chunk_q=8, loss_chunk=8, ring_cache=False)
+    cfg_ring = dataclasses.replace(cfg_full, ring_cache=True)
+    params = tfm.init_params(seed, cfg_full, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    steps = 24
+    toks = torch.randint(0, 128, (2, steps), generator=g, device=dev,
+                         dtype=torch.int32)
+    runs = []
+    for cfg in (cfg_full, cfg_ring):
+        cache = tfm.init_cache(cfg, 2, steps, device=dev)
+        cl = torch.zeros(2, dtype=torch.int32, device=dev)
+        outs = []
+        for i in range(steps):
+            logits, cache, cl = tfm.decode_step(params, cfg, cache,
+                                                toks[:, i:i + 1], cl)
+            outs.append(logits)
+        runs.append(torch.stack(outs))
+    if cache[0].shape[3] != tfm.cache_slots(cfg_ring, steps) or \
+            cache[0].shape[3] != 8:
+        raise AssertionError(f"ring cache holds {cache[0].shape[3]} slots")
+    torch.testing.assert_close(runs[1], runs[0], rtol=2e-3, atol=2e-3)
+    out["ring_cache_max_abs_err"] = float((runs[1] - runs[0]).abs().max())
+    return out
+
+
+def lm_phase(seed, dev, report, card):
+    """Step 12: the transformer serving path on the card, (a)-(d) of the
+    module docstring.  Returns the full-width prefill's attention site
+    (a row-9 site of the ``kernels`` line), its call for step 9's
+    trace, and what step 9's model trace needs: the bf16 weights, the
+    tokens and the decode cache."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import configs
+    from repro_torch.configs import base as cbase
+    from repro_torch.distributed import decode_attn, shmap
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as tattn
+    from repro_torch.models import transformer as tfm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sync = torch.cuda.synchronize
+    line: dict = {"held_by_earlier_steps_bytes":
+                  torch.cuda.memory_allocated(dev)}
+    sync()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # (a) the five archs at their smoke configs
+    t0 = time.perf_counter()
+    line["smoke"] = lm_smoke_archs(seed, dev)
+    line["smoke_s"] = time.perf_counter() - t0
+
+    # (b) Qwen3-0.6B at full width: f32 masters made on the card, served
+    # as bf16 weights (the reference's serving cells read bf16)
+    cfg = configs.get_arch("qwen3-0.6b").make_config("full")
+    masters = tfm.init_params(seed, cfg, device=dev)
+    n_active = cbase.lm_active_params(masters, cfg)
+    params = tfm.tree_map(lambda t: t.to(torch.bfloat16), masters)
+    del masters
+    line.update(config=dataclasses.asdict(cfg) | {
+        "dtype": "bfloat16", "residual_dtype": "float32"},
+        n_active_params=n_active, weight_bytes=sum(
+            t.nbytes for t in tfm.tree_leaves(params)))
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    toks = torch.randint(0, cfg.vocab, (LM_BATCH, ATTN_SEQ), generator=g,
+                         device=dev, dtype=torch.int32)
+    gqa = cfg.n_layers
+    # warm-up: a short prefill and a decode step (library loads)
+    w = tfm.prefill(params, cfg, toks[:1, :64])
+    tfm.decode_step(params, cfg, tfm.pad_cache(w.cache, 65, cfg),
+                    toks[:1, :1], w.cache_len)
+    sync()
+    del w
+
+    # the main path: every counter from zero just before, read just after
+    with attention_calls(ops, keep=LM_HELD_LAYERS) as rec:
+        reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        pre = tfm.prefill(params, cfg, toks)
+        sync()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        lm_launch_check("qwen3 prefill", read_launches(), gqa)
+    logits = pre.logits
+    if logits.shape != (LM_BATCH, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"qwen3 prefill: bad logits {logits.shape}")
+    cache = tfm.pad_cache(pre.cache, LM_SLOTS, cfg)
+    cache_len = pre.cache_len
+    del pre
+    kv_bytes = sum(c.nbytes for c in cache)
+
+    # the recorded kernel calls of layers 0 and 27, held to the plain
+    # version within the reference's bf16 tolerance, and, as step 8's
+    # bf16 sites are, to the plain version run in f32 on the same inputs
+    # and rounded to bf16 within one bf16 rounding (at this length an
+    # output is about as large as 3e-2)
+    held, held_f32 = [], []
+    for i in LM_HELD_LAYERS:
+        args, kw, got = rec["held"][i]
+        want = tfa.flash_attention_plain(*args, **kw)
+        torch.testing.assert_close(got.float(), want.float(), rtol=3e-2,
+                                   atol=3e-2)
+        held.append(float((got.float() - want.float()).abs().max()))
+        del want
+        f32 = tfa.flash_attention_plain(*(x.float() for x in args), **kw)
+        f32 = f32.to(torch.bfloat16).float()
+        torch.testing.assert_close(got.float(), f32, rtol=BF16_RTOL,
+                                   atol=BF16_ATOL)
+        held_f32.append(float((got.float() - f32).abs().max()))
+        del f32
+    layer0 = rec["held"][LM_HELD_LAYERS[0]]
+    del rec
+
+    # prefill(4,095) + one decode step against prefill(4,096)
+    part = tfm.prefill(params, cfg, toks[:, :-1])
+    pcache, plen = tfm.pad_cache(part.cache, ATTN_SEQ, cfg), part.cache_len
+    del part
+    reset_launches()
+    plogits, _, _ = tfm.decode_step(params, cfg, pcache, toks[:, -1:], plen)
+    lm_launch_check("qwen3 decode after prefill(4095)", read_launches(), 0)
+    del pcache
+    consistency = rel_to_max(plogits, logits)
+
+    # greedy decode: LM_DECODE steps from the prefill's cache
+    tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+    reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(LM_DECODE):
+        step_logits, cache, cache_len = tfm.decode_step(params, cfg, cache,
+                                                        tok, cache_len)
+        tok = step_logits.argmax(-1, keepdim=True).to(torch.int32)
+    sync()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / LM_DECODE
+    lm_launch_check("qwen3 decode steps", read_launches(), 0)
+    if not bool(torch.isfinite(step_logits).all()) or \
+            cache_len.tolist() != [LM_SLOTS] * LM_BATCH:
+        raise AssertionError(f"qwen3 decode: lengths {cache_len.tolist()}")
+
+    # the attention kernel's ms inside one more prefill, by events around
+    # each call the path makes (the wrapper's copies of q/k/v included)
+    with attention_calls(ops, timed=True) as rec:
+        sync()
+        t0 = time.perf_counter()
+        tfm.prefill(params, cfg, toks)
+        sync()
+        prefill2_ms = (time.perf_counter() - t0) * 1e3
+    attn_ms = sum(a.elapsed_time(b) for a, b in rec["events"])
+    if len(rec["events"]) != gqa:
+        raise AssertionError(f"{len(rec['events'])} attention calls")
+    del rec
+
+    # (c) the same weights on the CPU: one request of LM_CPU_SEQ tokens
+    # and LM_CPU_DECODE decode steps, the card's greedy tokens fed to both
+    t0 = time.perf_counter()
+    cpu_params = tfm.tree_map(lambda t: t.cpu(), params)
+    sides = []
+    for p, d in ((params, dev), (cpu_params, torch.device("cpu"))):
+        one = tfm.prefill(p, cfg, toks[:1, :LM_CPU_SEQ].to(d))
+        c = tfm.pad_cache(one.cache, LM_CPU_SEQ + LM_CPU_DECODE, cfg)
+        n, outs = one.cache_len, [one.logits]
+        for i in range(LM_CPU_DECODE):
+            t = (sides[0][i].argmax(-1, keepdim=True).to(torch.int32)
+                 if sides else outs[-1].argmax(-1, keepdim=True).to(
+                     torch.int32)).to(d)
+            lg, c, n = tfm.decode_step(p, cfg, c, t, n)
+            outs.append(lg)
+        sides.append(outs)
+    cpu_rel = [rel_to_max(c, g) for g, c in zip(*sides)]
+    cpu_s = time.perf_counter() - t0
+    del cpu_params, sides
+    if max(cpu_rel) >= LM_TOL:
+        raise AssertionError(f"card vs CPU logits {cpu_rel}")
+
+    # (d) split-K decode over a 4-shard mesh: layer 0's decode cache as
+    # f32 copies, against the single-device decode attention
+    kc, vc = (c[0].float() for c in cache)
+    q = torch.randn(LM_BATCH, cfg.n_heads, 1, cfg.head_dim, generator=g,
+                    device=dev)
+    lens = torch.tensor(SPLITK_LENS, dtype=torch.int32, device=dev)
+    splitk = decode_attn.splitk_decode_attention(
+        shmap.make_mesh(DIST_SHARDS, device=dev), "shards")
+    splitk_err = {}
+    for w in SPLITK_WINDOWS:
+        got = splitk(q, kc, vc, lens, window=w)
+        want = tattn.decode_attention(q, kc, vc, lens, window=w)
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=1e-5)
+        splitk_err[w] = float((got - want).abs().max())
+    del kc, vc
+
+    # the row-9 site: layer 0's call timed in turns with the plain
+    # version, beside its bound and SDPA on the same inputs
+    args, kw, _ = layer0
+    nbytes, nops, extra = model_work("flash_attention", args, kw)
+    ms, turns, plain_ms, clocks = time_in_turns(
+        lambda *c: ops.attention(*c, **kw),
+        lambda *c: tfa.flash_attention_plain(*c, **kw), [args])
+    lib_ms = event_ms(lambda *c: F.scaled_dot_product_attention(
+        *c, is_causal=True, enable_gqa=True), [args], REPS)
+    site = {"site": "serve@qwen3_0.6b_prefill", "kernel": "flash_attention",
+            "launches": gqa, "shapes": [list(x.shape) for x in args],
+            "dtype": str(args[0].dtype), **kw, "max_abs_err": max(held),
+            "held_layers": list(LM_HELD_LAYERS), "max_abs_err_held": held,
+            "tolerance": 3e-2, "max_abs_err_held_f32_plain": held_f32,
+            "tolerance_f32_plain": [BF16_RTOL, BF16_ATOL],
+            "bytes": nbytes, "ops": nops, **extra,
+            "kernel_ms": ms, "kernel_ms_turns": turns, "plain_ms": plain_ms,
+            "library_ms": lib_ms,
+            "library": "F.scaled_dot_product_attention(is_causal)",
+            "t_bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "t_ops_ms": nops / BF16_OPS_PER_S * 1e3,
+            "clocks_sm_mem_power_temp": clocks}
+    site["bound_ms"] = max(site["t_bytes_ms"], site["t_ops_ms"])
+    print(f"model kernel site: {json.dumps(site)}")
+
+    tokens = LM_BATCH * ATTN_SEQ
+    # the reference's cells count 2 x active params x tokens, the tied
+    # embedding table included; the prefill only gathers its rows and
+    # unembeds the last position of each request, so the rate and the
+    # peak share count the matmuls the prefill runs: the layers' weights
+    # for every token, the logits of B rows, and attention
+    cell_flops = 2.0 * n_active * tokens
+    layer_weights = sum(t.numel() for t in tfm.tree_leaves(
+        {"attn": params["attn"], "mlp": params["mlp"]}) if t.dim() == 3)
+    matmul_flops = 2.0 * layer_weights * tokens \
+        + 2.0 * cfg.d_model * cfg.vocab * LM_BATCH
+    attn_flops = gqa * nops                    # QK^T and PV, live pairs
+    line.update(
+        requests=LM_BATCH, prompt_tokens=ATTN_SEQ, decode_steps=LM_DECODE,
+        cache_slots=LM_SLOTS, prefill_ms=prefill_ms,
+        prefill_ms_second=prefill2_ms, decode_ms_per_step=decode_ms,
+        decode_tokens_per_s=LM_BATCH * 1e3 / decode_ms,
+        attention_ms_in_prefill=attn_ms,
+        attention_share_of_prefill=attn_ms / prefill2_ms,
+        attention_launches_per_prefill=gqa, decode_launches=0,
+        cell_flops_prefill=cell_flops, layer_matmul_weights=layer_weights,
+        matmul_flops_prefill=matmul_flops,
+        attention_flops_prefill=attn_flops,
+        prefill_tflops=(matmul_flops + attn_flops) / prefill_ms / 1e9,
+        prefill_peak_share=(matmul_flops + attn_flops) / prefill_ms / 1e9
+        / (BF16_OPS_PER_S / 1e12),
+        kv_cache_bytes=kv_bytes,
+        prefill_4095_plus_decode_rel_to_max=consistency,
+        card_vs_cpu_rel_to_max=cpu_rel, cpu_check_s=cpu_s,
+        splitk_max_abs_err=splitk_err,
+        max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+        card=card)
+    print(f"model serve qwen3-0.6b: {json.dumps(line)}")
+    if consistency >= LM_TOL:
+        raise AssertionError(f"prefill(4095) + decode is {consistency} "
+                             f"from prefill(4096) (tolerance {LM_TOL})")
+    report["lm_serve"] = {**line, "kernel_site": site}
+    trace = (site["site"], ("flash_attention",
+                            functools.partial(ops.attention, **kw),
+                            [args] * (1 + MODEL_TRACED), 1))
+    keep = {"cfg": cfg, "params": params, "toks": toks, "cache": cache,
+            "cache_len": cache_len - 1, "tok": tok}
+    return site, trace, keep
+
+
+def lm_trace(keep):
+    """Step 9's model trace: one full-width prefill and one decode step,
+    each in a ``torch.profiler`` trace of its own.  The device-busy
+    share of a call is the summed kernel time over the span from its
+    first kernel's start to its last kernel's end (an eager decode step
+    waits on the host between launches); the attention kernel's share is
+    its summed time over the prefill's summed kernel time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import transformer as tfm
+    cfg, params = keep["cfg"], keep["params"]
+    calls = {"prefill": lambda: tfm.prefill(params, cfg, keep["toks"]),
+             "decode_step": lambda: tfm.decode_step(
+                 params, cfg, keep["cache"], keep["tok"],
+                 keep["cache_len"])}
+    cuda = torch.autograd.DeviceType.CUDA
+    out = {}
+    for name, fn in calls.items():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        ev = [e for e in prof.events() if e.device_type == cuda]
+        if not ev:
+            out[name] = {"kernels": 0, "wall_ms": wall_ms}
+            continue
+        busy = sum(e.time_range.elapsed_us() for e in ev) / 1e3
+        span = (max(e.time_range.end for e in ev)
+                - min(e.time_range.start for e in ev)) / 1e3
+        attn = sum(e.time_range.elapsed_us() for e in ev
+                   if SYMBOLS["flash_attention"] in e.name) / 1e3
+        out[name] = {"kernels": len(ev), "device_busy_ms": busy,
+                     "span_ms": span, "wall_ms": wall_ms,
+                     "device_busy_share_of_span": busy / span,
+                     "device_busy_share_of_wall": busy / wall_ms,
+                     "attention_device_ms": attn,
+                     "attention_share_of_device": attn / busy}
+    print(f"model serve trace qwen3-0.6b: {json.dumps(out)}")
+    return out
 
 
 def kernel_rows(sites):

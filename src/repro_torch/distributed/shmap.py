@@ -11,6 +11,7 @@ collectives are explicit joins on ``mesh.devices[0]``, in shard order:
   * ``all_gather`` concatenates the shards' tensors along the last axis;
   * ``psum`` is the sequential sum ``((x0 + x1) + x2) + ...``, the order
     XLA's CPU ``psum`` adds host devices in;
+  * ``pmax`` is the elementwise maximum (exact in any order);
   * the shard's index in the loop is its ``axis_index``.
 
 ``make_mesh`` places shard s on ``cuda:(s % device_count)``: on one card
@@ -111,4 +112,13 @@ def psum(mesh: Mesh, parts: Sequence[Tensor]) -> Tensor:
     acc = parts[0].to(root)
     for p in parts[1:]:
         acc = acc + p.to(root)
+    return acc
+
+
+def pmax(mesh: Mesh, parts: Sequence[Tensor]) -> Tensor:
+    """The elementwise maximum over shards, on ``mesh.devices[0]``."""
+    root = mesh.devices[0]
+    acc = parts[0].to(root)
+    for p in parts[1:]:
+        acc = torch.maximum(acc, p.to(root))
     return acc

@@ -1782,3 +1782,199 @@ def test_mesh_server_on_card_equals_cpu(gpu, topology):
         np.testing.assert_array_equal(a.doc_ids, b.doc_ids)
         np.testing.assert_array_equal(a.scores.view(np.int32),
                                       b.scores.view(np.int32))
+
+
+# ---------------------------------------------------------------------------
+# the language-model serving path (models.transformer) on the card
+# ---------------------------------------------------------------------------
+
+LM_ARCHS = ("qwen3-0.6b", "gemma3-4b", "minicpm3-4b", "mixtral-8x7b",
+            "mixtral-8x22b")
+
+
+def _lm_smoke(arch_id, gpu, dtype=None):
+    """The arch's smoke config (compute dtype ``dtype`` if given), its
+    weights made on the CPU from a seed and the same weights on the
+    card, and 2 x 16 tokens on both."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as ttfm
+    cfg = configs.get_arch(arch_id).make_config("smoke")
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    cpu = ttfm.init_params(1, cfg, device="cpu")
+    card = ttfm.tree_map(lambda t: t.to(gpu), cpu)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 16)).astype(np.int32))
+    return ttfm, cfg, cpu, card, toks
+
+
+def _rel(a, b):
+    a, b = a.float().cpu(), b.float().cpu()
+    return float((a - b).abs().max() / (b.abs().max() + 1e-9))
+
+
+@pytest.mark.parametrize("arch_id", LM_ARCHS)
+def test_lm_smoke_on_card_equals_cpu(gpu, arch_id):
+    """Each smoke arch on the card (GQA prefill through the flash kernel,
+    decode plain) against the port on the CPU with the same weights:
+    prefill logits and cache, then one decode step from each side's own
+    padded cache.  bf16 within 2e-2 of the max; the two MoE archs in f32
+    within 1e-3 (the kernel's 3xTF32 path): at bf16 a token whose router
+    logits lie one bf16 ulp apart (mixtral-8x7b's smoke weights hold
+    one) may take another expert on each device once the attention
+    before it (the kernel's f32 p, the plain path's bf16 p) moves its
+    input, and its later K/V differ wholly
+    (``test_lm_moe_bf16_routes_as_cpu`` holds the bf16 dispatch)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    moe = arch_id.startswith("mixtral")
+    ttfm, cfg, cpu, card, toks = _lm_smoke(
+        arch_id, gpu, torch.float32 if moe else None)
+    tol = 1e-3 if moe else 2e-2
+    got = ttfm.prefill(card, cfg, toks[:, :15].to(gpu))
+    want = ttfm.prefill(cpu, cfg, toks[:, :15])
+    assert _rel(got.logits, want.logits) < tol, arch_id
+    for g, w in zip(got.cache, want.cache):
+        assert g.dtype == w.dtype == cfg.dtype
+        assert _rel(g, w) < tol, arch_id
+    logits, _, n = ttfm.decode_step(
+        card, cfg, ttfm.pad_cache(got.cache, 16, cfg), toks[:, 15:].to(gpu),
+        got.cache_len)
+    wl, _, _ = ttfm.decode_step(cpu, cfg, ttfm.pad_cache(want.cache, 16, cfg),
+                                toks[:, 15:], want.cache_len)
+    assert _rel(logits, wl) < tol, arch_id
+    assert n.tolist() == [16, 16] and torch.isfinite(logits).all()
+
+
+def _route(ttfm, cfg, prm, x):
+    """(top-k experts [N, k] in order, the least gap between neighbours
+    among the k + 1 largest router logits, in bf16 ulps of the larger
+    of the two [N]) of tokens x [N, d], as ``_moe_ffn`` routes them."""
+    k = cfg.moe.top_k
+    logits = ttfm.router_logits(prm, x, cfg.moe, cfg.dtype)
+    _, experts = ttfm.top_k_stable(torch.softmax(logits, dim=-1), k)
+    top = logits.sort(dim=-1, descending=True).values[..., :k + 1]
+    ulp = torch.exp2(torch.floor(torch.log2(
+        top[..., :-1].abs().clamp_min(2.0 ** -126))) - 7)
+    gaps = (top[..., :-1] - top[..., 1:]) / ulp
+    return (experts.reshape(x.shape[0], k).cpu(),
+            gaps.amin(-1).reshape(-1).cpu())
+
+
+@pytest.mark.parametrize("arch_id", ("mixtral-8x7b", "mixtral-8x22b"))
+def test_lm_moe_bf16_routes_as_cpu(gpu, arch_id, monkeypatch):
+    """The bf16 MoE dispatch on the card against the CPU's on the same
+    inputs: every MoE call of a card prefill (smoke config, its own
+    capacity) runs again on the CPU on the card's tokens.  Each token
+    whose k + 1 largest router logits lie more than one bf16 ulp apart
+    on both devices takes the same experts, in the same order, on both;
+    the outputs agree within 2e-2 of the max on every token that routes
+    to no expert a changed token moved to or from (its slot ranks, so
+    its drops, are the same); the near-tie tokens are printed.  Where
+    the two devices' own prefills route every token alike, their logits
+    and caches agree within 2e-2 too."""
+    ttfm, cfg, cpu, card, toks = _lm_smoke(arch_id, gpu)
+    assert cfg.dtype == torch.bfloat16
+    real, calls = ttfm._moe_ffn, []
+
+    def recording(prm, x, moe, dtype, dropless=False):
+        out = real(prm, x, moe, dtype, dropless=dropless)
+        calls.append((prm, x, out))
+        return out
+
+    monkeypatch.setattr(ttfm, "_moe_ffn", recording)
+    got = ttfm.prefill(card, cfg, toks[:, :15].to(gpu))
+    want = ttfm.prefill(cpu, cfg, toks[:, :15])
+    n_layers = cfg.n_layers
+    assert len(calls) == 2 * n_layers
+    near, alike, compared, tokens = [], True, 0, 0
+    for layer, ((prm, x, out), (prm_c, x_c, _)) in enumerate(
+            zip(calls[:n_layers], calls[n_layers:])):
+        e_card, m_card = _route(ttfm, cfg, prm, x)
+        e_cpu, m_cpu = _route(ttfm, cfg, prm_c, x.cpu())
+        margin = torch.minimum(m_card, m_cpu)
+        moved = e_card != e_cpu                               # [N, k]
+        changed = moved.any(-1)
+        assert not (changed & (margin > 1)).any(), (
+            arch_id, layer, torch.nonzero(changed).flatten().tolist(),
+            margin[changed].tolist())
+        near += [(layer, t, float(margin[t]), bool(changed[t]))
+                 for t in torch.nonzero(margin <= 1).flatten().tolist()]
+        g = ttfm._moe_groups(x.shape[0], cfg.moe)
+        clean = ~changed
+        for grp, rows in enumerate(torch.arange(x.shape[0]).reshape(g, -1)):
+            hit = torch.cat([e_card[rows][moved[rows]],
+                             e_cpu[rows][moved[rows]]])
+            clean[rows] &= ~torch.isin(e_card[rows], hit).any(-1)
+        ref = real(prm_c, x.cpu(), cfg.moe, cfg.dtype)
+        if clean.any():
+            assert _rel(out.cpu()[clean], ref[clean]) < 2e-2, (arch_id, layer)
+        compared += int(clean.sum())
+        tokens += x.shape[0]
+        alike &= bool((_route(ttfm, cfg, prm_c, x_c)[0] == e_card).all())
+    print(f"{arch_id} bf16 MoE: {compared} of {tokens} token "
+          f"outputs compared; near-tie tokens (layer, token, least gap "
+          f"in ulps, changed experts): {near}; own prefills route alike: "
+          f"{alike}")
+    assert compared > 0
+    if alike:
+        assert _rel(got.logits, want.logits) < 2e-2, arch_id
+        for g_, w_ in zip(got.cache, want.cache):
+            assert _rel(g_, w_) < 2e-2, arch_id
+
+
+@pytest.mark.parametrize("arch_id", LM_ARCHS)
+def test_lm_prefill_launches_per_gqa_layer(gpu, arch_id):
+    """A prefill launches the flash kernel once per GQA layer (counted
+    by the wrapper and seen by the profiler), MLA's prefill never; a
+    decode step launches it never."""
+    ttfm, cfg, _, card, toks = _lm_smoke(arch_id, gpu)
+    toks = toks.to(gpu)
+    pre = ttfm.prefill(card, cfg, toks[:, :15])       # built and loaded
+    cache = ttfm.pad_cache(pre.cache, 16, cfg)
+    want = cfg.n_layers if cfg.attn == "gqa" else 0   # 2, 6, 0, 2, 3
+    before = tfa.flash_attention.launches
+    names = _device_kernels([(ttfm.prefill, (card, cfg, toks[:, :15]), {})])
+    assert tfa.flash_attention.launches - before == want
+    assert sum("flash_" in n for n in names) == want, names
+    before = tfa.flash_attention.launches
+    names = _device_kernels([(ttfm.decode_step, (card, cfg, cache,
+                                                 toks[:, 15:],
+                                                 pre.cache_len), {})])
+    assert tfa.flash_attention.launches == before
+    assert not any("flash_" in n for n in names), names
+
+
+def test_mla_prefill_on_card_launches_nothing(gpu):
+    """MLA's prefill attention (Dk = nope + rope != Dv) takes the plain
+    chunked path on CUDA tensors: no flash launch, the plain path's
+    answer."""
+    from repro_torch.models import attention as tattn
+    g = torch.Generator(device=gpu).manual_seed(0)
+    q = torch.randn(2, 4, 48, 24, generator=g, device=gpu)
+    k = torch.randn(2, 4, 48, 24, generator=g, device=gpu)
+    v = torch.randn(2, 4, 48, 16, generator=g, device=gpu)
+    before = tfa.flash_attention.launches
+    got = tattn.chunked_attention(q, k, v, chunk=16)
+    assert tfa.flash_attention.launches == before
+    want = tattn.chunked_attention(q.cpu(), k.cpu(), v.cpu(), chunk=16)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("window", [0, 24])
+def test_splitk_decode_on_card(gpu, window):
+    """Split-K decode over a 4-shard mesh on the card equals the
+    single-device decode attention, within the reference's rtol 2e-4,
+    atol 1e-5."""
+    from repro_torch.distributed import decode_attn, shmap
+    from repro_torch.models import attention as tattn
+    g = torch.Generator(device=gpu).manual_seed(window)
+    q = torch.randn(3, 8, 1, 64, generator=g, device=gpu)
+    kc = torch.randn(3, 2, 256, 64, generator=g, device=gpu)
+    vc = torch.randn(3, 2, 256, 64, generator=g, device=gpu)
+    cl = torch.tensor([200, 63, 255], dtype=torch.int32, device=gpu)
+    fn = decode_attn.splitk_decode_attention(
+        shmap.make_mesh(4, device="cuda"), "shards")
+    got = fn(q, kc, vc, cl, window=window)
+    want = tattn.decode_attention(q, kc, vc, cl, window=window)
+    assert got.device == q.device
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=1e-5)
