@@ -273,6 +273,55 @@
    printed beside 989 TFLOP/s, KV-cache bytes, peak memory, the
    card); layer 0's call is a row-9 site (``model kernel site:``),
    timed in turns with the plain version beside its bound and SDPA.
+13. The recsys and GNN serving phase, run right after step 1, while
+   nothing else holds device memory: the recsys models
+   (``repro_torch.models.recsys``, xDeepFM's lookups through the bag
+   kernel) and PNA (``repro_torch.models.gnn``, each layer's four
+   aggregations one PNA kernel launch) on the card, weights made once on
+   the CPU from ``--seed`` and copied to the card, inputs from
+   ``--seed``, TF32 off.  (a) The five archs at their smoke configs, on
+   the card and on the CPU: SASRec, BERT4Rec, DIEN and xDeepFM (also
+   with ``n_hot=3``) through ``configs.base.recsys_serve_fn`` at
+   serve_p99 and ``recsys_retrieval_fn`` at retrieval_cand; PNA through
+   ``node_logits`` at full_graph_sm, minibatch_lg (the port's
+   ``NeighborSampler``) and ogb_products, and ``graph_loss`` at
+   molecule.  Logits within rel-to-max ``REC_TOL``; top-k ids equal but
+   at adjacent scores within ``REC_NEAR_TIE`` relative (printed), scores
+   within rtol 1e-5; each call launches the bag kernel once (xDeepFM) or
+   the PNA kernel once a layer, and nothing else.  (b) The four recsys
+   archs at full width (``make_config("full")``: 1,000,448-row item
+   tables, xDeepFM's 39,000,064 x 10 field table) at serve_p99 (512
+   users), held to the CPU as in (a); xDeepFM also at serve_bulk
+   (262,144 users in 128 chunks of 2,048), SASRec also at retrieval_cand
+   (one user against 1,000,448 candidates, k 100, held to the CPU).
+   With every launch counter reset just before a batch and read just
+   after: xDeepFM launches the bag kernel once a user chunk and nothing
+   else, SASRec, BERT4Rec and DIEN nothing (printed); the first and last
+   chunk's bag calls, recorded as the path makes them, equal
+   ``embedding_bag_plain`` to the bit.  (c) PNA at full width
+   (``configs.pna.make_config("full", shape)``: d 75, 4 layers) at
+   ogb_products (``make_synthetic_graph(2,449,029, 61,859,140, 100, 47)``
+   through ``fullgraph_batch``, padded to 2,449,408 nodes and 61,859,328
+   edges with trash edges at node N) and minibatch_lg (a
+   ``NeighborSampler`` block of 1,024 seeds, fanout 15, 10, over a
+   Reddit-sized graph of 232,965 nodes with ``REDDIT_EDGES`` edges, the
+   cut printed under ``reduced``).  The graphs are made on the host
+   while (a) and (b) run.  One forward holds each layer's call to
+   ``pna_multi_agg_plain`` to the bit as it returns (none is kept), and
+   at ogb_products layer 0's output to the port's ``core.segments``
+   reductions over the same edge list (its first 1/16 of the nodes)
+   within 1e-5; a second forward is counted (4 PNA launches, nothing
+   else) and timed; minibatch_lg's logits are held to the CPU's within
+   ``REC_TOL``.  Prints ``model serve recsys <arch> <shape>:`` lines (ms
+   a batch by the host clock with ``synchronize``, users/s, the bag
+   kernel's ms by events and its share, peak memory, the card),
+   ``model serve gnn pna <shape>:`` lines (forward ms, ``nbr`` build ms
+   and K, the PNA kernel's ms a layer by events and its share, peak
+   memory, the card) and the step's wall time, peak memory and what
+   earlier steps held; the first bag call of each xDeepFM batch and
+   layer 0's PNA call of each graph are ``model kernel site:`` rows,
+   timed in turns with their plain versions beside their bound, gather
+   floor and library time.
 9. Last, after every event timing (a trace slows the launches timed
    after it): one ``torch.profiler`` trace of each live call site of
    the four fused kernels, of the last bulk batch's candidate call per
@@ -284,7 +333,11 @@
    and one decode step, each in a trace of its own (``model serve trace
    qwen3-0.6b:``): each call's device-busy share of its kernels' span
    and of its host time, and the attention kernel's share of the
-   prefill's device time.
+   prefill's device time.  Then, each in a trace of its own, step 13's
+   xDeepFM serve_p99 batch and one serve_bulk chunk and a PNA forward
+   over each full-width graph (``model serve trace recsys/gnn:``): each
+   call's device-busy share and its bag or PNA kernel's device ms a
+   launch, which is that site's device time.
    Then per-phase wall
    times, a ``{"kernels": [...]}`` line with all nine kernels, the two
    bitonic entry points and the two weights kernels (means per launch
@@ -689,6 +742,14 @@ def main() -> int:
     print(f"nvcc build: {report['build_s']:.2f} s "
           f"({len(ptxas)} kernels compiled)")
 
+    # 13. recsys and GNN serving, first, while nothing else is held
+    t0 = time.perf_counter()
+    rg_sites, rg_keep = rec_gnn_phase(a.seed, dev, report, card)
+    torch.cuda.empty_cache()
+    phase_s["rec_gnn_serve"] = time.perf_counter() - t0
+    print(f"phase rec_gnn_serve: {phase_s['rec_gnn_serve']:.1f} s")
+    t_phase += phase_s["rec_gnn_serve"]
+
     # 2. corpus -----------------------------------------------------------
     t0 = time.perf_counter()
     spec = corpus.CorpusSpec(num_docs=NUM_DOCS, vocab=VOCAB,
@@ -957,6 +1018,17 @@ def main() -> int:
     report["lm_serve"]["trace"] = lm_trace(lm_keep)
     del lm_keep
     torch.cuda.empty_cache()
+    report["rec_gnn_serve"]["trace"] = rec_gnn_trace(rg_keep, rg_sites, dev)
+    del rg_keep
+    torch.cuda.empty_cache()
+    for site in rg_sites:
+        print(f"device time: {site['site']}: {site['kernel_ms']:.4f} ms per "
+              f"call by events (wrapper included), device "
+              f"{site.get('device_ms')} ms, bound {site['bound_ms']:.4f} ms, "
+              f"library {site['library_ms']} ms, host share "
+              f"{site.get('host_share')}, gather floor "
+              f"{site['gather_floor_ms']:.4f} ms")
+    sites += rg_sites
     phase_s["device_time"] = time.perf_counter() - t_phase
     report["phase_s"] = phase_s
 
@@ -3289,15 +3361,19 @@ def rel_to_max(got, want):
 
 
 @contextlib.contextmanager
-def attention_calls(ops, keep=(), timed=False):
-    """Wrap ``ops.attention`` (what ``models.attention`` calls for every
-    GQA prefill layer) while the path runs the real kernel: the calls at
-    the indexes in ``keep`` are recorded as (args, kw, output), and with
-    ``timed`` every call is bracketed by CUDA events.  Yields
-    ``{"held": {index: call}, "events": [(start, stop), ...]}``."""
+def kernel_calls(ops, name, keep=(), timed=False, check=None):
+    """Wrap ``ops.<name>`` (the entry point a model path calls for each
+    kernel launch: ``attention`` for every GQA prefill layer,
+    ``embedding_bag`` for xDeepFM's lookups, ``pna_multi_agg`` for every
+    PNA layer) while the path runs the real kernel: the calls at the
+    indexes in ``keep`` are recorded as (args, kw, output), with
+    ``timed`` every call is bracketed by CUDA events, and ``check(i,
+    args, kw, output)`` runs on each call as it returns (nothing of it is
+    kept).  Yields ``{"held": {index: call}, "events": [(start, stop),
+    ...], "n": calls}``."""
     import torch
     out = {"held": {}, "events": [], "n": 0}
-    saved = ops.attention
+    saved = getattr(ops, name)
 
     def call(*args, **kw):
         i = out["n"]
@@ -3312,20 +3388,14 @@ def attention_calls(ops, keep=(), timed=False):
             out["events"].append((start, stop))
         if i in keep:
             out["held"][i] = (args, kw, res)
+        if check is not None:
+            check(i, args, kw, res)
         return res
-    ops.attention = call
+    setattr(ops, name, call)
     try:
         yield out
     finally:
-        ops.attention = saved
-
-
-def lm_launch_check(label, launches, flash):
-    """The flash kernel launched ``flash`` times and no other kernel."""
-    if launches["flash_attention"] != flash or any(
-            v for k, v in launches.items() if k != "flash_attention"):
-        raise AssertionError(f"{label}: launches {launches}, want "
-                             f"flash_attention {flash} and nothing else")
+        setattr(ops, name, saved)
 
 
 def lm_smoke_archs(seed, dev):
@@ -3338,6 +3408,8 @@ def lm_smoke_archs(seed, dev):
     from repro_torch.models import transformer as tfm
     out = {}
     for arch_id, arch in configs.ARCHS.items():
+        if arch.kind != "lm":       # the recsys and GNN archs: step 13
+            continue
         cfg = arch.make_config("smoke", "decode_32k")
         if cfg.moe is not None:     # capacity must not bind (see the test)
             cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
@@ -3349,15 +3421,18 @@ def lm_smoke_archs(seed, dev):
         gqa = cfg.n_layers if cfg.attn == "gqa" else 0
         reset_launches()
         full = tfm.prefill(params, cfg, toks)
-        lm_launch_check(f"{arch_id} prefill(16)", read_launches(), gqa)
+        only_launched(f"{arch_id} prefill(16)", read_launches(),
+                      {"flash_attention": gqa})
         reset_launches()
         part = tfm.prefill(params, cfg, toks[:, :15])
-        lm_launch_check(f"{arch_id} prefill(15)", read_launches(), gqa)
+        only_launched(f"{arch_id} prefill(15)", read_launches(),
+                      {"flash_attention": gqa})
         cache = tfm.pad_cache(part.cache, 16, cfg)
         reset_launches()
         logits, _, _ = tfm.decode_step(params, cfg, cache, toks[:, 15:],
                                        part.cache_len)
-        lm_launch_check(f"{arch_id} decode", read_launches(), 0)
+        only_launched(f"{arch_id} decode", read_launches(),
+                      {"flash_attention": 0})
         # the bf16 bound: a GQA prefill runs the kernel's arithmetic (the
         # Pallas kernel's: p and PV in f32), its decode the plain path's
         # (p rounded to bf16), so the reference's 1e-3 for two plain
@@ -3452,14 +3527,15 @@ def lm_phase(seed, dev, report, card):
     del w
 
     # the main path: every counter from zero just before, read just after
-    with attention_calls(ops, keep=LM_HELD_LAYERS) as rec:
+    with kernel_calls(ops, "attention", keep=LM_HELD_LAYERS) as rec:
         reset_launches()
         sync()
         t0 = time.perf_counter()
         pre = tfm.prefill(params, cfg, toks)
         sync()
         prefill_ms = (time.perf_counter() - t0) * 1e3
-        lm_launch_check("qwen3 prefill", read_launches(), gqa)
+        only_launched("qwen3 prefill", read_launches(),
+                      {"flash_attention": gqa})
     logits = pre.logits
     if logits.shape != (LM_BATCH, cfg.vocab) or \
             not bool(torch.isfinite(logits).all()):
@@ -3497,7 +3573,8 @@ def lm_phase(seed, dev, report, card):
     del part
     reset_launches()
     plogits, _, _ = tfm.decode_step(params, cfg, pcache, toks[:, -1:], plen)
-    lm_launch_check("qwen3 decode after prefill(4095)", read_launches(), 0)
+    only_launched("qwen3 decode after prefill(4095)", read_launches(),
+                  {"flash_attention": 0})
     del pcache
     consistency = rel_to_max(plogits, logits)
 
@@ -3512,14 +3589,15 @@ def lm_phase(seed, dev, report, card):
         tok = step_logits.argmax(-1, keepdim=True).to(torch.int32)
     sync()
     decode_ms = (time.perf_counter() - t0) * 1e3 / LM_DECODE
-    lm_launch_check("qwen3 decode steps", read_launches(), 0)
+    only_launched("qwen3 decode steps", read_launches(),
+                  {"flash_attention": 0})
     if not bool(torch.isfinite(step_logits).all()) or \
             cache_len.tolist() != [LM_SLOTS] * LM_BATCH:
         raise AssertionError(f"qwen3 decode: lengths {cache_len.tolist()}")
 
     # the attention kernel's ms inside one more prefill, by events around
     # each call the path makes (the wrapper's copies of q/k/v included)
-    with attention_calls(ops, timed=True) as rec:
+    with kernel_calls(ops, "attention", timed=True) as rec:
         sync()
         t0 = time.perf_counter()
         tfm.prefill(params, cfg, toks)
@@ -3680,6 +3758,580 @@ def lm_trace(keep):
                      "attention_device_ms": attn,
                      "attention_share_of_device": attn / busy}
     print(f"model serve trace qwen3-0.6b: {json.dumps(out)}")
+    return out
+
+
+# recsys and GNN serving phase (step 13): the recsys models and PNA
+REC_ARCHS = ("sasrec", "bert4rec", "dien", "xdeepfm")
+REC_SMOKE = (("sasrec", 1), ("bert4rec", 1), ("dien", 1), ("xdeepfm", 1),
+             ("xdeepfm", 3))         # (arch, n_hot): xDeepFM multi-hot too
+REC_TOL = 1e-4                # f32 rel-to-max, card vs CPU
+REC_NEAR_TIE = 1e-5           # adjacent top-k scores that may swap
+PNA_SMOKE = ("full_graph_sm", "minibatch_lg", "ogb_products", "molecule")
+# ogbn-products as configs/pna.py sizes it: nodes, edges, features, classes
+OGB_GRAPH = (2_449_029, 61_859_140, 100, 47)
+# minibatch_lg's full graph (Reddit): nodes, edges, features, classes.  Its
+# edges are cut to REDDIT_EDGES: making all 114,615,892 (a stable argsort
+# over them) takes ~40 s of host time, past the step's budget; the sampled
+# block keeps its shape (169,984 nodes, 168,960 edges)
+REDDIT_GRAPH = (232_965, 114_615_892, 602, 41)
+REDDIT_EDGES = REDDIT_GRAPH[1] // 4
+
+
+def full_graphs(seed):
+    """The two full-width PNA graphs, made on the host (beside the recsys
+    part of the step): ogbn-products through ``fullgraph_batch``, padded
+    to the config's node and edge counts with trash edges at node N; a
+    ``NeighborSampler`` block (1,024 seeds, fanout 15, 10) over the
+    Reddit-sized graph with REDDIT_EDGES edges.  Each as (batch, seconds,
+    cuts)."""
+    import numpy as np
+
+    from repro_torch.configs import pna
+    from repro_torch.train import data
+    out = {}
+    t0 = time.perf_counter()
+    g = data.make_synthetic_graph(*OGB_GRAPH, seed=seed)
+    b = data.fullgraph_batch(g, seed=seed)
+    del g
+    shp = pna.SHAPES["ogb_products"]
+    n, e = shp["n_nodes"], shp["n_edges"]
+    feats = np.zeros((n, OGB_GRAPH[2]), np.float32)
+    feats[:OGB_GRAPH[0]] = b["feats"]
+    src = np.full(e, n, np.int32)
+    dst = np.full(e, n, np.int32)
+    src[:OGB_GRAPH[1]] = b["src"]
+    dst[:OGB_GRAPH[1]] = b["dst"]
+    out["ogb_products"] = ({"feats": feats, "src": src, "dst": dst},
+                           time.perf_counter() - t0, {})
+    del b
+    t0 = time.perf_counter()
+    fg = pna.SHAPES["minibatch_lg"]["full_graph"]
+    g = data.make_synthetic_graph(REDDIT_GRAPH[0], REDDIT_EDGES,
+                                  REDDIT_GRAPH[2], REDDIT_GRAPH[3],
+                                  seed=seed + 1)
+    block = data.NeighborSampler(g, fg["batch_nodes"], fg["fanout"]).sample(
+        seed)
+    out["minibatch_lg"] = (block, time.perf_counter() - t0, {
+        "full_graph_edges": [REDDIT_GRAPH[1], REDDIT_EDGES]})
+    return out
+
+
+def rec_call(arch_id, cfg, shp, shape_id, rng):
+    """(fn, inputs, extra args) of a recsys cell body at ``shp``: the
+    serve step over ``rec_serve_inputs``' layout, or the retrieval step
+    against ``padded_rows(n_candidates)`` candidate rows.  Inputs are
+    made with numpy from ``rng`` (CPU tensors): histories of real items,
+    a quarter of them with three padding slots in front, BERT4Rec's last
+    slot [MASK]."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import base as cbase
+    from repro_torch.models import recsys
+    if shape_id.startswith("serve"):
+        layout = cbase.rec_serve_inputs(arch_id, cfg, shp)
+        fn = cbase.recsys_serve_fn(arch_id, cfg, shp)
+        extra = ()
+    else:
+        layout = cbase._rec_serve_inputs(arch_id, cfg, shp["batch"])
+        fn = cbase.recsys_retrieval_fn(arch_id, cfg, shp)
+        extra = (torch_of(rng.normal(size=(
+            recsys.padded_rows(shp["n_candidates"]), cfg.embed_dim)).astype(
+                np.float32)),)
+    inp = {}
+    for k, (shape, _) in layout.items():
+        if arch_id == "xdeepfm":
+            a = rng.integers(0, cfg.field_vocab, shape)
+        else:
+            a = rng.integers(1, cfg.n_items, shape)
+            if k == "hist":
+                a[..., :3] *= rng.random(shape[:-1] + (1,)) >= 0.25
+                if arch_id == "bert4rec":
+                    a[..., -1] = cfg.n_items
+        inp[k] = torch.from_numpy(a.astype(np.int32))
+    return fn, inp, extra
+
+
+def torch_of(a):
+    import numpy as np
+    import torch
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def to_card(tree, dev):
+    from repro_torch.models import transformer as tfm
+    return tfm.tree_map(lambda t: t.to(dev), tree)
+
+
+def held_to_cpu(label, got, want):
+    """The card's output against the CPU's on the same weights and
+    inputs: logits within rel-to-max REC_TOL; top-k (values, ids): ids
+    equal but at adjacent CPU scores within REC_NEAR_TIE relative
+    (printed), scores within rtol 1e-5."""
+    import numpy as np
+    if not isinstance(want, tuple):
+        rel = rel_to_max(got, want)
+        if not (rel < REC_TOL and bool(got.isfinite().all())):
+            raise AssertionError(f"{label}: card vs CPU {rel} (tolerance "
+                                 f"{REC_TOL})")
+        return {"rel_to_max": rel}
+    gv, gi = (x.cpu().reshape(-1, x.shape[-1]).numpy() for x in got)
+    wv, wi = (x.reshape(-1, x.shape[-1]).numpy() for x in want)
+    np.testing.assert_allclose(gv, wv, rtol=1e-5, atol=0)
+    swaps = []
+    for q, j in zip(*np.nonzero(gi != wi)):
+        s = wv[q]
+        if not any(abs(s[j] - s[i]) <= REC_NEAR_TIE * abs(s[j])
+                   for i in (j - 1, j + 1) if 0 <= i < len(s)):
+            raise AssertionError(f"{label}: user {q} rank {j}: card id "
+                                 f"{gi[q, j]} != CPU id {wi[q, j]}, no "
+                                 "near tie")
+        swaps.append([int(q), int(j), int(gi[q, j]), int(wi[q, j])])
+    if swaps:
+        print(f"{label}: near-tie swaps (user, rank, card id, CPU id): "
+              f"{swaps}")
+    return {"near_tie_swaps": len(swaps),
+            "max_abs_err_scores": float(np.abs(gv - wv).max())}
+
+
+def only_launched(label, launches, want):
+    """Each kernel of ``want`` launched that often, and no other."""
+    got = {k: v for k, v in launches.items() if v}
+    if got != {k: v for k, v in want.items() if v}:
+        raise AssertionError(f"{label}: launches {got}, want {want}")
+    return got
+
+
+def pna_smoke_batch(shape_id, cfg, shp, seed):
+    """A PNA smoke shape's batch from the port's generators (the
+    sampler's block at minibatch_lg), as CPU tensors."""
+    from repro_torch.train import data
+    if shp.get("graph_level"):
+        b = data.molecule_batch(seed, 0, shp["n_graphs"],
+                                shp["n_nodes"] // shp["n_graphs"],
+                                shp["n_edges"] // shp["n_graphs"],
+                                cfg.d_feat, cfg.n_classes)
+    elif "full_graph" in shp:
+        fg = shp["full_graph"]
+        g = data.make_synthetic_graph(fg["n_nodes"], fg["n_edges"],
+                                      cfg.d_feat, cfg.n_classes, seed)
+        b = data.NeighborSampler(g, fg["batch_nodes"], fg["fanout"]).sample(
+            seed)
+    else:
+        g = data.make_synthetic_graph(shp["n_nodes"], shp["n_edges"],
+                                      cfg.d_feat, cfg.n_classes, seed)
+        b = data.fullgraph_batch(g, seed=seed)
+    return {k: torch_of(v) for k, v in b.items()}
+
+
+def rec_gnn_smoke(seed, dev):
+    """(a) of step 13: the five new archs at their smoke configs, the
+    same weights and inputs on the card and on the CPU."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.configs import base as cbase
+    from repro_torch.models import gnn
+    out = {}
+    rng = np.random.default_rng(seed)
+    for arch_id, n_hot in REC_SMOKE:
+        arch = configs.get_arch(arch_id)
+        cfg = arch.make_config("smoke")
+        if arch_id == "xdeepfm":
+            cfg = dataclasses.replace(cfg, n_hot=n_hot)
+        cpu = cbase._REC_INIT[arch_id](seed, cfg, device="cpu")
+        card = to_card(cpu, dev)
+        for shape_id in ("serve_p99", "retrieval_cand"):
+            fn, inp, extra = rec_call(arch_id, cfg,
+                                      arch.smoke_shapes[shape_id], shape_id,
+                                      rng)
+            reset_launches()
+            got = fn(card, to_card(inp, dev), *to_card(extra, dev))
+            label = f"{arch_id} n_hot={n_hot} {shape_id}"
+            only_launched(label, read_launches(),
+                          {"embedding_bag": int(arch_id == "xdeepfm")})
+            out[label] = held_to_cpu(label, got, fn(cpu, inp, *extra))
+    pna = configs.get_arch("pna")
+    for shape_id in PNA_SMOKE:
+        shp = pna.smoke_shapes[shape_id]
+        cfg = pna.make_config("smoke", shape_id)
+        b = pna_smoke_batch(shape_id, cfg, shp, seed)
+        cpu = gnn.init_params(seed, cfg, device="cpu")
+        card, cb = to_card(cpu, dev), to_card(b, dev)
+        n = b["feats"].shape[0]
+        reset_launches()
+        if shp.get("graph_level"):
+            got = gnn.graph_loss(card, cfg, cb)
+            want = gnn.graph_loss(cpu, cfg, b)
+        else:
+            got = gnn.node_logits(card, cfg, cb["feats"], cb["src"],
+                                  cb["dst"], n)
+            want = gnn.node_logits(cpu, cfg, b["feats"], b["src"],
+                                   b["dst"], n)
+        label = f"pna {shape_id}"
+        only_launched(label, read_launches(),
+                      {"pna_multi_agg": cfg.n_layers})
+        out[label] = held_to_cpu(label, got, want)
+    print(f"model serve smoke recsys/gnn: {json.dumps(out)}")
+    return out
+
+
+def gather_site(site, kern, args, launches, err, extra_info):
+    """A ``model kernel site:`` row for a bag or PNA call of a model path:
+    timed in turns with its plain version (CUDA events, wrapper
+    included), beside its bound, its gather floor and the library call
+    where there is one (``F.embedding_bag``; none for PNA)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import embedding_bag as tbag
+    from repro_torch.kernels import segment_multi_agg as tpna
+    wrapper, plain = {
+        "embedding_bag": (tbag.embedding_bag, tbag.embedding_bag_plain),
+        "pna_multi_agg": (tpna.pna_multi_agg, tpna.pna_multi_agg_plain)
+    }[kern]
+    nbytes, nops, extra = model_work(kern, args, {})
+    ms, turns, plain_ms, clocks = time_in_turns(wrapper, plain, [args])
+    lib_ms, lib_note = None, ("none: PNA's four aggregations take four "
+                              "scatter_reduce calls, not one")
+    if kern == "embedding_bag":
+        table, idx = args
+        lib_args = (idx.clamp_min(0), (idx >= 0).to(table.dtype))
+        lib_ms = event_ms(lambda i, w: F.embedding_bag(
+            i, table, mode="sum", per_sample_weights=w), [lib_args], REPS)
+        lib_note = "F.embedding_bag(mode='sum', per_sample_weights)"
+    info = {"site": site, "kernel": kern, "launches": launches,
+            "shapes": [list(x.shape) for x in args],
+            "dtype": str(args[0].dtype), "max_abs_err": err, **extra_info,
+            **extra, "bytes": nbytes, "ops": nops, "kernel_ms": ms,
+            "kernel_ms_turns": turns, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "library": lib_note,
+            "t_bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "t_ops_ms": nops / F32_OPS_PER_S * 1e3,
+            "clocks_sm_mem_power_temp": clocks}
+    info["bound_ms"] = max(info["t_bytes_ms"], info["t_ops_ms"])
+    info["gather_floor_ms"] = (info["gather_floor_bytes"]
+                               / HBM_BYTES_PER_S * 1e3)
+    return info
+
+
+def equal_bits(a, b):
+    """Two tensors of one shape and dtype with the same bits."""
+    import torch
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.float().view(torch.int32), b.float().view(torch.int32))
+
+
+def recsys_full(seed, dev, card, step):
+    """(b) of step 13: the four recsys archs at full width on the card.
+    Returns the bag sites and what step 9's trace needs."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.configs import base as cbase
+    from repro_torch.kernels import embedding_bag as tbag
+    from repro_torch.kernels import ops
+    sync = torch.cuda.synchronize
+    rng = np.random.default_rng(seed + 3)
+    sites, keep = [], {}
+    for arch_id in REC_ARCHS:
+        arch = configs.get_arch(arch_id)
+        cfg = arch.make_config("full")
+        t0 = time.perf_counter()
+        cpu = cbase._REC_INIT[arch_id](seed, cfg, device="cpu")
+        params = to_card(cpu, dev)
+        sync()
+        init_s = time.perf_counter() - t0
+        runs = [("serve_p99", True)]
+        if arch_id == "xdeepfm":
+            runs.append(("serve_bulk", False))
+            keep["xdeepfm"] = {"cfg": cfg, "params": cpu}
+        if arch_id == "sasrec":
+            runs.append(("retrieval_cand", True))
+        for shape_id, on_cpu in runs:
+            shp = arch.shapes[shape_id]
+            fn, inp, extra = rec_call(arch_id, cfg, shp, shape_id, rng)
+            dinp, dextra = to_card(inp, dev), to_card(extra, dev)
+            chunks = cbase.serve_chunks(shp)[0] \
+                if shape_id.startswith("serve") else 1
+            bag = chunks if arch_id == "xdeepfm" else 0
+            fn(params, dinp, *dextra)              # warm-up
+            sync()
+            torch.cuda.reset_peak_memory_stats(dev)
+            with kernel_calls(ops, "embedding_bag", keep={0, bag - 1},
+                              timed=True) as rec:
+                reset_launches()
+                sync()
+                t0 = time.perf_counter()
+                got = fn(params, dinp, *dextra)
+                sync()
+                ms = (time.perf_counter() - t0) * 1e3
+                label = f"{arch_id} {shape_id}"
+                launched = only_launched(label, read_launches(),
+                                         {"embedding_bag": bag})
+            users = shp["batch"]
+            line = {"users": users, "chunks": chunks, "ms_per_batch": ms,
+                    "users_per_s": users / ms * 1e3, "init_s": init_s,
+                    "launches": launched,
+                    "max_memory_allocated": torch.cuda.max_memory_allocated(
+                        dev)}
+            if bag:
+                bag_ms = sum(x.elapsed_time(y) for x, y in rec["events"])
+                line.update(bag_kernel_ms=bag_ms, bag_share=bag_ms / ms)
+                # the first and last chunk's calls, as the path made them
+                errs = []
+                for i, (args, kw, res) in sorted(rec["held"].items()):
+                    want = tbag.embedding_bag_plain(*args, **kw)
+                    if not equal_bits(res, want):
+                        raise AssertionError(f"{label}: bag call {i} != "
+                                             "its plain version")
+                    errs.append(float((res - want).abs().max()))
+                line["bag_calls_held"] = sorted(rec["held"])
+                site = gather_site(
+                    f"serve@xdeepfm_{shape_id}", "embedding_bag",
+                    rec["held"][0][0], bag, max(errs),
+                    {"chunk_users": users // chunks})
+                print(f"model kernel site: {json.dumps(site)}")
+                sites.append(site)
+                keep["xdeepfm"][shape_id] = {k: v[0] for k, v in inp.items()}
+            del rec
+            if on_cpu:
+                t0 = time.perf_counter()
+                line["card_vs_cpu"] = held_to_cpu(label, got,
+                                                  fn(cpu, inp, *extra))
+                line["cpu_check_s"] = time.perf_counter() - t0
+            if isinstance(got, tuple):
+                if not bool(got[0].isfinite().all()) or \
+                        bool(got[1].min() < 0):
+                    raise AssertionError(f"{label}: bad top-k")
+            elif got.shape != (chunks, users // chunks)[2 - got.dim():] or \
+                    not bool(got.isfinite().all()):
+                raise AssertionError(f"{label}: bad logits {got.shape}")
+            line["card"] = card
+            print(f"model serve recsys {arch_id} {shape_id}: "
+                  f"{json.dumps(line)}")
+            step[label] = line
+            del got, dinp, dextra
+        del params, cpu
+        torch.cuda.empty_cache()
+    return sites, keep
+
+
+def pna_full(seed, dev, card, step, graphs):
+    """(c) of step 13: PNA at full width (d 75, 4 layers) on the card.
+    Returns the PNA sites and what step 9's trace needs."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core import segments
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import segment_multi_agg as tpna
+    from repro_torch.models import gnn
+    sync = torch.cuda.synchronize
+    sites, keep = [], {}
+    for shape_id in ("minibatch_lg", "ogb_products"):
+        batch, gen_s, reduced = graphs.pop(shape_id)
+        cfg = configs.get_arch("pna").make_config("full", shape_id)
+        cpu = gnn.init_params(seed, cfg, device="cpu")
+        params = to_card(cpu, dev)
+        host = {k: torch_of(batch[k]) for k in ("feats", "src", "dst")}
+        del batch
+        b = to_card(host, dev)
+        n = b["feats"].shape[0]
+        label = f"pna {shape_id}"
+        held = {"max_abs_err": 0.0}
+
+        def check(i, args, kw, res):
+            """Each layer's call against the plain version, to the bit,
+            as it returns (a layer's messages are 18.6 GB at
+            ogbn-products, so none is kept); layer 0's call is the site,
+            and at ogbn-products it is also held to the port's segment
+            reductions over the same edge list."""
+            want = tpna.pna_multi_agg_plain(*args, **kw)
+            if not equal_bits(res, want):
+                raise AssertionError(f"{label}: layer {i} != its plain "
+                                     "version")
+            held["max_abs_err"] = max(held["max_abs_err"], float(
+                (res - want).abs().max()))
+            del want
+            if i:
+                return
+            m, nbr = args
+            if shape_id == "ogb_products":
+                # messages come in dst order: the first 1/16 of the nodes
+                # own a prefix of them
+                n16 = nbr.shape[0] // 16
+                seg = torch.repeat_interleave(
+                    torch.arange(n16, device=dev), (nbr[:n16] >= 0).sum(1))
+                mm = m[:seg.shape[0]]
+                mn = segments.segment_min(mm, seg, n16)
+                mx = segments.segment_max(mm, seg, n16)
+                agg = torch.cat([
+                    segments.segment_mean(mm, seg, n16),
+                    torch.where(torch.isfinite(mn), mn, 0.0),
+                    torch.where(torch.isfinite(mx), mx, 0.0),
+                    segments.segment_std(mm, seg, n16, eps=kw["eps"])], 1)
+                torch.testing.assert_close(res[:n16], agg, rtol=1e-5,
+                                           atol=1e-5)
+                held.update(segments_nodes_checked=n16,
+                            segments_edges_checked=int(seg.shape[0]),
+                            max_abs_err_segments=float(
+                                (res[:n16] - agg).abs().max()))
+                del agg, mn, mx, seg, mm
+            sites.append(gather_site(
+                f"serve@pna_{shape_id}", "pna_multi_agg", (m, nbr),
+                cfg.n_layers, 0.0, {"layer": 0, "eps": kw["eps"]}))
+
+        with kernel_calls(ops, "pna_multi_agg", check=check):
+            logits = gnn.node_logits(params, cfg, b["feats"], b["src"],
+                                     b["dst"], n)
+            sync()
+        sites[-1]["max_abs_err"] = held.pop("max_abs_err")
+        print(f"model kernel site: {json.dumps(sites[-1])}")
+        if logits.shape != (n, cfg.n_classes) or \
+                not bool(logits.isfinite().all()):
+            raise AssertionError(f"{label}: bad logits {logits.shape}")
+
+        # the neighbour lists alone, then the counted, timed forward
+        sync()
+        t0 = time.perf_counter()
+        edges = gnn.build_edges(b["src"], b["dst"], n)
+        sync()
+        nbr_ms = (time.perf_counter() - t0) * 1e3
+        k, kept = edges.nbr.shape[1], edges.src.shape[0]
+        del edges
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with kernel_calls(ops, "pna_multi_agg", timed=True) as rec:
+            reset_launches()
+            sync()
+            t0 = time.perf_counter()
+            again = gnn.node_logits(params, cfg, b["feats"], b["src"],
+                                    b["dst"], n)
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            launched = only_launched(label, read_launches(),
+                                     {"pna_multi_agg": cfg.n_layers})
+        layer_ms = [x.elapsed_time(y) for x, y in rec["events"]]
+        del rec
+        line = {"nodes": n, "edges": int(b["src"].shape[0]),
+                "edges_kept": kept, "K": k, "d_hidden": cfg.d_hidden,
+                "layers": cfg.n_layers, "forward_ms": ms,
+                "nbr_build_ms": nbr_ms, "pna_kernel_ms_per_layer": layer_ms,
+                "pna_share": sum(layer_ms) / ms, "launches": launched,
+                "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+                "rerun_rel_to_max": rel_to_max(again, logits),
+                "graph_gen_s": gen_s, "reduced": reduced, **held}
+        del again
+        if shape_id == "minibatch_lg":
+            t0 = time.perf_counter()
+            line["card_vs_cpu"] = held_to_cpu(label, logits, gnn.node_logits(
+                cpu, cfg, host["feats"], host["src"], host["dst"], n))
+            line["cpu_check_s"] = time.perf_counter() - t0
+        line["card"] = card
+        print(f"model serve gnn pna {shape_id}: {json.dumps(line)}")
+        step[label] = line
+        keep[shape_id] = {"cfg": cfg, "params": cpu, "batch": host}
+        del params, b, logits
+        torch.cuda.empty_cache()
+    return sites, keep
+
+
+def rec_gnn_phase(seed, dev, report, card):
+    """Step 13: the recsys and GNN serving paths on the card, (a)-(c) of
+    the module docstring.  Returns the model-path sites of the bag and
+    PNA kernels and what step 9's trace of the paths needs."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_step = time.perf_counter()
+    torch.cuda.synchronize()
+    step = {"held_by_earlier_steps_bytes": torch.cuda.memory_allocated(dev)}
+    torch.cuda.reset_peak_memory_stats(dev)
+    with ThreadPoolExecutor(1) as pool:
+        graphs = pool.submit(full_graphs, seed)     # host numpy, meanwhile
+        step["smoke"] = rec_gnn_smoke(seed, dev)
+        rec_sites, keep = recsys_full(seed, dev, card, step)
+        t0 = time.perf_counter()
+        graphs = graphs.result()
+        step["graph_wait_s"] = time.perf_counter() - t0
+    pna_sites, keep["pna"] = pna_full(seed, dev, card, step, graphs)
+    step["step_s"] = time.perf_counter() - t_step
+    step["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    print(f"model serve rec/gnn step: {step['step_s']:.1f} s, peak "
+          f"{step['max_memory_allocated']} B, held before "
+          f"{step['held_by_earlier_steps_bytes']} B")
+    report["rec_gnn_serve"] = step
+    return rec_sites + pna_sites, keep
+
+
+def rec_gnn_trace(keep, sites, dev):
+    """Step 9's trace of step 13's paths, each call in a
+    ``torch.profiler`` trace of its own after one warm-up: xDeepFM's
+    serve_p99 batch and one serve_bulk chunk (2,048 users), and one PNA
+    forward per full-width graph.  Each call's device-busy share of its
+    kernels' span and of its host time, and its bag or PNA kernel's
+    device ms per launch, which goes into that path's site."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import gnn, recsys
+    x = keep["xdeepfm"]
+
+    def xdeepfm(shape_id):
+        params, sparse = to_card(x["params"], dev), x[shape_id][
+            "sparse"].to(dev)
+        return lambda: recsys.xdeepfm_logit(params, x["cfg"], sparse)
+
+    def pna(shape_id):
+        g = keep["pna"][shape_id]
+        params, b = to_card(g["params"], dev), to_card(g["batch"], dev)
+        n = b["feats"].shape[0]
+        return lambda: gnn.node_logits(params, g["cfg"], b["feats"],
+                                       b["src"], b["dst"], n)
+
+    calls = {"xdeepfm_serve_p99": ("embedding_bag", xdeepfm, "serve_p99"),
+             "xdeepfm_serve_bulk_chunk": ("embedding_bag", xdeepfm,
+                                          "serve_bulk"),
+             "pna_minibatch_lg": ("pna_multi_agg", pna, "minibatch_lg"),
+             "pna_ogb_products": ("pna_multi_agg", pna, "ogb_products")}
+    cuda = torch.autograd.DeviceType.CUDA
+    out = {}
+    for name, (kern, make, shape_id) in calls.items():
+        fn = make(shape_id)
+        fn()                                          # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        del fn
+        torch.cuda.empty_cache()
+        ev = [e for e in prof.events() if e.device_type == cuda]
+        mine = [e.time_range.elapsed_us() / 1e3 for e in ev
+                if SYMBOLS[kern] in e.name]
+        if not mine:
+            out[name] = {"kernels": len(ev), "wall_ms": wall_ms}
+            continue
+        busy = sum(e.time_range.elapsed_us() for e in ev) / 1e3
+        span = (max(e.time_range.end for e in ev)
+                - min(e.time_range.start for e in ev)) / 1e3
+        out[name] = {"kernels": len(ev), "device_busy_ms": busy,
+                     "span_ms": span, "wall_ms": wall_ms,
+                     "device_busy_share_of_span": busy / span,
+                     "device_busy_share_of_wall": busy / wall_ms,
+                     f"{kern}_device_ms": mine,
+                     f"{kern}_share_of_device": sum(mine) / busy}
+        site = next(s for s in sites if s["site"] == {
+            "embedding_bag": f"serve@xdeepfm_{shape_id}",
+            "pna_multi_agg": f"serve@pna_{shape_id}"}[kern])
+        site["device_ms"] = sum(mine) / len(mine)
+        site["host_share"] = 1 - site["device_ms"] / site["kernel_ms"]
+    print(f"model serve trace recsys/gnn: {json.dumps(out)}")
     return out
 
 

@@ -10,7 +10,8 @@
 // and var = fma(-mean, mean, ssq / n).  Here they are __fmaf_rn; the build
 // has -fmad=false, so nothing else is contracted.  n = max(cnt, 1); division
 // and square root are correctly rounded; min and max order -0.0 below +0.0
-// as XLA does; a node with no valid neighbour gets 0 for min and max.  An
+// as XLA does; a node with no valid neighbour gets 0 for min and max; std
+// is sqrt(var + eps), eps an argument (PnaConfig.eps, 1e-5 by default).  An
 // id >= Nsrc is refused here: the group that reads it prints the id and
 // traps before any row is read, which fails the launch (the next
 // synchronising call raises).
@@ -48,7 +49,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr unsigned kAll = 0xffffffffu;
 constexpr int kChunk = 64;       // list slots compacted per step of a node
 constexpr int kSlots = 4;        // neighbour rows loaded before their adds
-constexpr float kEps = 1e-5f;    // under std's square root (EPS in Python)
 
 __device__ __noinline__ void report_id(int id, int node, int slot,
                                        long long rows) {
@@ -71,7 +71,7 @@ template <int P>
 __global__ void __launch_bounds__(kThreads)
 pna_kernel(const float* __restrict__ feats, const int* __restrict__ nbr,
            float* __restrict__ out, int nodes, int k, int dim,
-           long long rows) {
+           long long rows, float eps) {
   __shared__ int valid_ids[kWarps][kChunk];
   const int lane = threadIdx.x % 32;
   const unsigned below = (1u << lane) - 1u;
@@ -139,7 +139,7 @@ pna_kernel(const float* __restrict__ feats, const int* __restrict__ nbr,
         __stcs(o + c, mean);
         __stcs(o + dim + c, isfinite(a[p].mn) ? a[p].mn : 0.0f);
         __stcs(o + 2 * dim + c, isfinite(a[p].mx) ? a[p].mx : 0.0f);
-        __stcs(o + 3 * dim + c, __fsqrt_rn(__fadd_rn(var, kEps)));
+        __stcs(o + 3 * dim + c, __fsqrt_rn(__fadd_rn(var, eps)));
       }
     }
   }
@@ -147,7 +147,7 @@ pna_kernel(const float* __restrict__ feats, const int* __restrict__ nbr,
 
 template <int P>
 int launch(const float* feats, const int* nbr, float* out, int nodes, int k,
-           int dim, long long rows, cudaStream_t stream) {
+           int dim, long long rows, float eps, cudaStream_t stream) {
   // CTAs resident on the card at once, found once per process
   static int resident = 0;
   if (resident == 0) {
@@ -160,7 +160,7 @@ int launch(const float* feats, const int* nbr, float* out, int nodes, int k,
   }
   const int need = (int)(((long long)nodes + kWarps - 1) / kWarps);
   pna_kernel<P><<<need < resident ? need : resident, kThreads, 0, stream>>>(
-      feats, nbr, out, nodes, k, dim, rows);
+      feats, nbr, out, nodes, k, dim, rows, eps);
   return (int)cudaGetLastError();
 }
 
@@ -169,12 +169,13 @@ int launch(const float* feats, const int* nbr, float* out, int nodes, int k,
 // P column passes of 32 per block of columns: ceil(dim / 32), at most 4
 extern "C" int pna_multi_agg_launch(const float* feats, const int* nbr,
                                     float* out, int nodes, int k, int dim,
-                                    long long rows, void* stream) {
+                                    long long rows, float eps,
+                                    void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   switch ((dim + 31) / 32) {
-    case 1: return launch<1>(feats, nbr, out, nodes, k, dim, rows, s);
-    case 2: return launch<2>(feats, nbr, out, nodes, k, dim, rows, s);
-    case 3: return launch<3>(feats, nbr, out, nodes, k, dim, rows, s);
-    default: return launch<4>(feats, nbr, out, nodes, k, dim, rows, s);
+    case 1: return launch<1>(feats, nbr, out, nodes, k, dim, rows, eps, s);
+    case 2: return launch<2>(feats, nbr, out, nodes, k, dim, rows, eps, s);
+    case 3: return launch<3>(feats, nbr, out, nodes, k, dim, rows, eps, s);
+    default: return launch<4>(feats, nbr, out, nodes, k, dim, rows, eps, s);
   }
 }

@@ -20,6 +20,10 @@ sums to +0.0.
 * ``embedding_bag_plain``, its plain PyTorch version, the path for CPU
   tensors and the kernel's yardstick on the card.
 
+``mode="mean"`` (``ref_embedding_bag``'s mean) divides the bag sum by
+``max(valid slots, 1)`` in the table's dtype: the kernel's sum on the
+card, the plain sum on the CPU; the kernel itself only sums.
+
 ``embedding_bag.launches`` counts the kernel's launches.  ``padded_rows``
 and ``field_ids`` lay out xDeepFM's fused field table as
 ``repro.models.recsys`` does (rows padded to ``ROW_PAD``, field ``f``'s
@@ -54,9 +58,22 @@ def field_ids(sparse: Tensor, field_vocab: int) -> Tensor:
     return sparse + (off[None, :] if sparse.dim() == 2 else off[None, :, None])
 
 
-def embedding_bag_plain(table: Tensor, indices: Tensor) -> Tensor:
+MODES = ("sum", "mean")
+
+
+def _bag_mean(total: Tensor, indices: Tensor) -> Tensor:
+    """A bag sum over ``max(valid slots, 1)``, in the sum's dtype."""
+    n = (indices >= 0).sum(dim=1, keepdim=True).to(total.dtype)
+    return total / n.clamp_min(1.0)
+
+
+def embedding_bag_plain(table: Tensor, indices: Tensor,
+                        mode: str = "sum") -> Tensor:
     """Plain PyTorch version of the bag sum: [B, D] in the table's dtype,
-    the slots added in order, each add rounded to the table's dtype."""
+    the slots added in order, each add rounded to the table's dtype;
+    ``mode="mean"`` divides it by the bag's valid slots."""
+    if mode not in MODES:
+        raise ValueError(f"embedding_bag: mode {mode!r}, not one of {MODES}")
     acc = torch.zeros((indices.shape[0], table.shape[1]), dtype=table.dtype,
                       device=table.device)
     for h in range(indices.shape[1]):
@@ -64,7 +81,7 @@ def embedding_bag_plain(table: Tensor, indices: Tensor) -> Tensor:
         rows = table[ids.clamp_min(0).long()]
         rows = torch.where((ids >= 0)[:, None], rows, 0.0)
         acc = (acc.float() + rows.float()).to(table.dtype)
-    return acc
+    return _bag_mean(acc, indices) if mode == "mean" else acc
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -119,17 +136,21 @@ def _launch_embedding_bag_cuda(table: Tensor, indices: Tensor) -> Tensor:
     return out
 
 
-def embedding_bag(table: Tensor, indices: Tensor) -> Tensor:
-    """Bag sums (replaces ``embedding_bag_pallas``): table f32 or bf16
-    [V, D], indices i32[B, H] (-1 = padding) -> [B, D] in the table's
-    dtype.  On the card, B x D stays below ``OUT_LIMIT`` (a larger batch
-    is refused with a ``ValueError``).  CUDA tensors launch the kernel;
-    CPU tensors take the plain version."""
+def embedding_bag(table: Tensor, indices: Tensor, mode: str = "sum"
+                  ) -> Tensor:
+    """Bag sums (replaces ``embedding_bag_pallas``), or means with
+    ``mode="mean"``: table f32 or bf16 [V, D], indices i32[B, H] (-1 =
+    padding) -> [B, D] in the table's dtype.  On the card, B x D stays
+    below ``OUT_LIMIT`` (a larger batch is refused with a
+    ``ValueError``).  CUDA tensors launch the kernel; CPU tensors take
+    the plain version."""
     if not table.is_cuda:
-        return embedding_bag_plain(table, indices)
+        return embedding_bag_plain(table, indices, mode)
+    if mode not in MODES:
+        raise ValueError(f"embedding_bag: mode {mode!r}, not one of {MODES}")
     out = _launch_embedding_bag_cuda(table, indices)
     embedding_bag.launches += 1
-    return out
+    return _bag_mean(out, indices) if mode == "mean" else out
 
 
 embedding_bag.launches = 0

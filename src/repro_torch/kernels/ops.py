@@ -149,18 +149,21 @@ def kernel_ready(t: Tensor) -> Tensor:
     return t
 
 
-def embedding_bag(table: Tensor, indices: Tensor) -> Tensor:
-    """Bag sums: table f32 or bf16 [V, D], indices i32[B, H] (-1 =
-    padding) -> [B, D] in the table's dtype (``embedding_bag``), from any
-    view of either."""
-    return _bag.embedding_bag(kernel_ready(table), kernel_ready(indices))
+def embedding_bag(table: Tensor, indices: Tensor, mode: str = "sum"
+                  ) -> Tensor:
+    """Bag sums (or means, ``mode="mean"``): table f32 or bf16 [V, D],
+    indices i32[B, H] (-1 = padding) -> [B, D] in the table's dtype
+    (``embedding_bag``), from any view of either."""
+    return _bag.embedding_bag(kernel_ready(table), kernel_ready(indices),
+                              mode)
 
 
-def pna_multi_agg(feats: Tensor, nbr: Tensor) -> Tensor:
+def pna_multi_agg(feats: Tensor, nbr: Tensor, eps: float = _pna.EPS
+                  ) -> Tensor:
     """PNA's mean | min | max | std: feats f32[Nsrc, D], nbr i32[N, K]
-    (-1 = padding) -> f32[N, 4D] (``pna_multi_agg``), from any view of
-    either."""
-    return _pna.pna_multi_agg(kernel_ready(feats), kernel_ready(nbr))
+    (-1 = padding) -> f32[N, 4D] (``pna_multi_agg``), ``eps`` under
+    std's square root, from any view of either."""
+    return _pna.pna_multi_agg(kernel_ready(feats), kernel_ready(nbr), eps)
 
 
 def attention(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,

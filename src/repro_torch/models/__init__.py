@@ -1,5 +1,8 @@
 """Model layer of the PyTorch/CUDA port (mirrors ``repro.models``): the
 shared blocks (``layers``), attention (``attention``: prefill through the
-flash kernel on the card, plain decode, MLA) and the decoder-only LM
-(``transformer``).  The recsys and GNN models are still to be ported."""
-from repro_torch.models import attention, layers, transformer  # noqa: F401
+flash kernel on the card, plain decode, MLA), the decoder-only LM
+(``transformer``), the recsys models (``recsys``: xDeepFM's lookups
+through the bag kernel) and PNA (``gnn``: its aggregations through the
+PNA kernel)."""
+from repro_torch.models import (attention, gnn, layers, recsys,  # noqa: F401
+                                transformer)

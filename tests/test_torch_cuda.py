@@ -1978,3 +1978,156 @@ def test_splitk_decode_on_card(gpu, window):
     want = tattn.decode_attention(q, kc, vc, cl, window=window)
     assert got.device == q.device
     torch.testing.assert_close(got, want, rtol=2e-4, atol=1e-5)
+
+
+REC_CASES = [("sasrec", 1), ("bert4rec", 1), ("dien", 1), ("xdeepfm", 1),
+             ("xdeepfm", 3)]
+
+
+def _launch_counts():
+    return tbag.embedding_bag.launches, tpna.pna_multi_agg.launches
+
+
+def _same_ids_near_ties(got, want, near_tie=1e-5):
+    """Top-k ids equal but at adjacent scores within ``near_tie``
+    relative (the two devices round the user vectors apart); scores
+    within rtol 1e-5."""
+    gv, gi = (x.cpu().reshape(-1, x.shape[-1]).numpy() for x in got)
+    wv, wi = (x.reshape(-1, x.shape[-1]).numpy() for x in want)
+    np.testing.assert_allclose(gv, wv, rtol=1e-5, atol=0)
+    for q, j in zip(*np.nonzero(gi != wi)):
+        s = wv[q]
+        assert any(abs(s[j] - s[i]) <= near_tie * abs(s[j])
+                   for i in (j - 1, j + 1) if 0 <= i < len(s)), (q, j)
+
+
+@pytest.mark.parametrize("arch_id,n_hot", REC_CASES)
+def test_recsys_smoke_on_card_equals_cpu(gpu, arch_id, n_hot):
+    """Each recsys arch at its smoke config, the same weights on the card
+    and on the CPU: the serve step at serve_p99 and the retrieval step at
+    retrieval_cand.  Logits within rel-to-max 1e-4, top-k ids equal but
+    at near ties; xDeepFM launches the bag kernel once a user chunk, the
+    others no kernel."""
+    from repro_torch import configs
+    from repro_torch.configs import base as cbase
+    from repro_torch.models import transformer as ttfm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    arch = configs.get_arch(arch_id)
+    cfg = dataclasses.replace(arch.make_config("smoke"), n_hot=n_hot) \
+        if arch_id == "xdeepfm" else arch.make_config("smoke")
+    cpu = cbase._REC_INIT[arch_id](1, cfg, device="cpu")
+    card = ttfm.tree_map(lambda t: t.to(gpu), cpu)
+    rng = np.random.default_rng(2)
+    for shape_id in ("serve_p99", "retrieval_cand"):
+        shp = arch.smoke_shapes[shape_id]
+        if shape_id == "serve_p99":
+            layout = cbase.rec_serve_inputs(arch_id, cfg, shp)
+            fn = cbase.recsys_serve_fn(arch_id, cfg, shp)
+            extra = ()
+        else:
+            layout = cbase._rec_serve_inputs(arch_id, cfg, shp["batch"])
+            fn = cbase.recsys_retrieval_fn(arch_id, cfg, shp)
+            d = cfg.embed_dim
+            extra = (torch.from_numpy(rng.normal(size=(
+                512, d)).astype(np.float32)),)
+        hi = cfg.field_vocab if arch_id == "xdeepfm" else cfg.n_items
+        inp = {k: torch.from_numpy(rng.integers(0, hi, s).astype(np.int32))
+               for k, (s, _) in layout.items()}
+        before = _launch_counts()
+        got = fn(card, {k: v.to(gpu) for k, v in inp.items()},
+                 *(x.to(gpu) for x in extra))
+        torch.cuda.synchronize()
+        bag = int(arch_id == "xdeepfm")
+        assert _launch_counts() == (before[0] + bag, before[1]), arch_id
+        want = fn(cpu, inp, *extra)
+        if isinstance(want, tuple):
+            _same_ids_near_ties(got, want)
+        else:
+            assert _rel(got, want) < 1e-4, (arch_id, shape_id)
+            assert torch.isfinite(got).all()
+
+
+PNA_SHAPES = ("full_graph_sm", "minibatch_lg", "ogb_products", "molecule")
+
+
+def _pna_batch(shape_id):
+    from repro_torch import configs
+    from repro_torch.train import data
+    arch = configs.get_arch("pna")
+    shp = arch.smoke_shapes[shape_id]
+    cfg = arch.make_config("smoke", shape_id)
+    if shp.get("graph_level"):
+        b = data.molecule_batch(0, 0, shp["n_graphs"],
+                                shp["n_nodes"] // shp["n_graphs"],
+                                shp["n_edges"] // shp["n_graphs"],
+                                cfg.d_feat, cfg.n_classes)
+    elif "full_graph" in shp:
+        fg = shp["full_graph"]
+        g = data.make_synthetic_graph(fg["n_nodes"], fg["n_edges"],
+                                      cfg.d_feat, cfg.n_classes, 0)
+        b = data.NeighborSampler(g, fg["batch_nodes"], fg["fanout"]).sample(0)
+    else:
+        g = data.make_synthetic_graph(shp["n_nodes"], shp["n_edges"],
+                                      cfg.d_feat, cfg.n_classes, 0)
+        b = data.fullgraph_batch(g, seed=0)
+    return cfg, {k: torch.from_numpy(np.array(v)) for k, v in b.items()}
+
+
+@pytest.mark.parametrize("shape_id", PNA_SHAPES)
+def test_pna_smoke_on_card_equals_cpu(gpu, shape_id):
+    """PNA at each smoke shape, the same weights and graph on both sides:
+    node logits (the molecule's graph loss) within rel-to-max 1e-4, one
+    PNA launch a layer and no bag launch."""
+    from repro_torch.models import gnn
+    from repro_torch.models import transformer as ttfm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, batch = _pna_batch(shape_id)
+    cpu = gnn.init_params(1, cfg, device="cpu")
+    card = ttfm.tree_map(lambda t: t.to(gpu), cpu)
+    cb = {k: v.to(gpu) for k, v in batch.items()}
+    n = batch["feats"].shape[0]
+    before = _launch_counts()
+    if shape_id == "molecule":
+        got = gnn.graph_loss(card, cfg, cb)
+        want = gnn.graph_loss(cpu, cfg, batch)
+    else:
+        got = gnn.node_logits(card, cfg, cb["feats"], cb["src"], cb["dst"], n)
+        want = gnn.node_logits(cpu, cfg, batch["feats"], batch["src"],
+                               batch["dst"], n)
+    torch.cuda.synchronize()
+    assert _launch_counts() == (before[0], before[1] + cfg.n_layers)
+    assert _rel(got, want) < 1e-4 and torch.isfinite(got).all()
+
+
+@pytest.mark.parametrize("eps", [1e-5, 0.25, 3e-7])
+def test_pna_eps_reaches_kernel(gpu, eps):
+    """``eps`` reaches the kernel as a C float: the kernel equals its
+    plain version at each eps to the bit, and the default's bits are the
+    former constant's (an isolated node's std is sqrt(1e-5f))."""
+    feats, nbr = _pna_case(gpu, "scattered")
+    nbr[0] = -1
+    got = tpna.pna_multi_agg(feats, nbr, eps=eps)
+    want = tpna.pna_multi_agg_plain(feats, nbr, eps=eps)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    d = feats.shape[1]
+    iso = np.sqrt(np.float32(eps), dtype=np.float32)
+    assert (got[0, 3 * d:].cpu().numpy() == iso).all()
+    if eps == 1e-5:
+        default = tpna.pna_multi_agg(feats, nbr)
+        assert torch.equal(default.view(torch.int32), got.view(torch.int32))
+        assert np.float32(tpna.EPS) == np.float32(1e-5)
+
+
+def test_bag_mean_on_card_equals_plain(gpu):
+    """``mode="mean"`` on the card: the kernel's sum over max(valid
+    slots, 1), equal to the plain version's to the bit; one launch."""
+    g = torch.Generator(device=gpu).manual_seed(3)
+    table = torch.randn(500, 10, generator=g, device=gpu)
+    idx = torch.randint(-1, 500, (64, 5), generator=g, device=gpu,
+                        dtype=torch.int32)
+    idx[3] = -1
+    before = tbag.embedding_bag.launches
+    got = ops.embedding_bag(table, idx, mode="mean")
+    assert tbag.embedding_bag.launches == before + 1
+    want = tbag.embedding_bag_plain(table, idx, "mean")
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

@@ -25,7 +25,7 @@ def test_port_imports_neither_jax_nor_repro():
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
-        "assert len(mods) >= 51, mods\n"
+        "assert len(mods) >= 60, mods\n"
         "new = {'repro_torch.core.segments',\n"
         "       'repro_torch.core.direct_index',\n"
         "       'repro_torch.kernels.posting_score',\n"
@@ -46,7 +46,12 @@ def test_port_imports_neither_jax_nor_repro():
         "       'repro_torch.configs.gemma3_4b',\n"
         "       'repro_torch.configs.minicpm3_4b',\n"
         "       'repro_torch.configs.mixtral_8x7b',\n"
-        "       'repro_torch.configs.mixtral_8x22b'}\n"
+        "       'repro_torch.configs.mixtral_8x22b',\n"
+        "       'repro_torch.models.gnn', 'repro_torch.models.recsys',\n"
+        "       'repro_torch.configs.pna', 'repro_torch.configs.sasrec',\n"
+        "       'repro_torch.configs.bert4rec', 'repro_torch.configs.dien',\n"
+        "       'repro_torch.configs.xdeepfm', 'repro_torch.train',\n"
+        "       'repro_torch.train.data'}\n"
         "assert new <= set(mods), sorted(new - set(mods))\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -337,9 +342,8 @@ NO_COUNTERPART = {"kernels": {"ref", "runtime"}}
 # scaffolding)
 WAITING = {"distributed": {"compress"},
            "launch": {"hw", "mesh", "sharding"},
-           "models": {"gnn", "recsys"},
-           "configs": {"bert4rec", "dien", "pna", "sasrec", "xdeepfm",
-                       "Cell", "list_cells"}}
+           "configs": {"Cell"},
+           "train": {"checkpoint", "elastic", "loop", "optimizer"}}
 
 
 def _package_names(package: str) -> set:
@@ -361,7 +365,7 @@ def _package_names(package: str) -> set:
 
 @pytest.mark.parametrize("package", ["core", "text", "obs", "kernels",
                                      "serve", "distributed", "launch",
-                                     "models", "configs"])
+                                     "models", "configs", "train"])
 def test_package_names_cover_the_reference(package):
     """Each port package exports the reference package's public names,
     from the port's own modules, but for those with no counterpart and
@@ -383,9 +387,12 @@ def test_package_names_cover_the_reference(package):
                            "retrieval, shmap, decode_attn",
             "launch": "import repro_torch.launch.serve",
             "models": "from repro_torch.models import transformer, "
-                      "attention, layers",
+                      "attention, layers, gnn, recsys",
             "configs": "from repro_torch.configs import ARCHS, get_arch, "
-                       "ArchDef, paper_index"}[package]
+                       "ArchDef, paper_index, list_cells, pna, xdeepfm",
+            "train": "from repro_torch.train import data; "
+                     "from repro_torch.train.data import NeighborSampler"
+            }[package]
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
