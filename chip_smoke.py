@@ -273,7 +273,7 @@
    printed beside 989 TFLOP/s, KV-cache bytes, peak memory, the
    card); layer 0's call is a row-9 site (``model kernel site:``),
    timed in turns with the plain version beside its bound and SDPA.
-13. The recsys and GNN serving phase, run right after step 1, while
+13. The recsys and GNN serving phase, run right after step 14, while
    nothing else holds device memory: the recsys models
    (``repro_torch.models.recsys``, xDeepFM's lookups through the bag
    kernel) and PNA (``repro_torch.models.gnn``, each layer's four
@@ -343,6 +343,47 @@
    bitonic entry points and the two weights kernels (means per launch
    over every counted call site of the paths; ``device_ms`` where every
    site was traced) and, last, ``{"ok": true, "device": {...}}``.
+14. The training phase, run first, right after step 1, while nothing
+   else holds the card's memory, with torch's deterministic algorithms
+   on while it runs (as ``launch.train.deterministic`` sets them; the
+   cuBLAS workspace is left at torch's default for the later steps).  (a) Each backward rule of the
+   three ``kernels.ops`` Functions (torch ops, not a TPU kernel) at a
+   model site, on the card, against autograd of the plain version on
+   the same inputs and output gradient: attention at a Qwen3 layer (1 x
+   16/8 heads x 4,096 x 128, bf16, causal; plain: the chunked
+   reference arithmetic) within 2e-2 rel-to-max; the bag at an xDeepFM
+   ``train_batch`` lookup (65,536 x 39 one-hot bags over the fused
+   39M-row table) within 1e-6 (autograd adds a row's slots in another
+   order); PNA at the Reddit block's layer (minibatch_lg's 169,984
+   nodes and 168,960 random edges, relu messages with ties at 0;
+   plain: ``pna_multi_agg_autograd`` over the whole block, the
+   aggregation the rule recomputes in node chunks) within 1e-4.  Each forward launches
+   its kernel once; ``train rule <kernel>:`` lines give the errors and
+   both backward passes' ms by events.  (b) Qwen3-0.6B at full width
+   (28 layers, d 1,024, vocab 152,064), seq 4,096, the batch cut from
+   ``train_4k``'s 256 to the largest of ``TRAIN_BATCHES`` whose step
+   fits (printed): one ``optimizer.make_train_step`` step, every
+   counter set to 0 just before and read just after, launches the
+   attention kernel twice a layer (the forward, and the layer's
+   recomputation in the backward pass: ``remat``) and nothing else;
+   every gradient leaf finite, ``wq``/``wk``/``wv`` of every layer
+   nonzero; ``TRAIN_STEPS`` steps of ``loop.fit`` over that step on a
+   repeated batch, a checkpoint every ``TRAIN_CKPT_EVERY`` steps in a
+   temp dir, counted the same way; the loss descends.  (c) One
+   step run twice from the same state gives the same loss and parameter
+   bits.  (d) The last checkpoint dropped, ``fit`` resumes from the one
+   before and lands on the identical loss, the replayed steps counted
+   too.  ``train qwen3-0.6b:`` gives
+   the losses, step ms, tokens/s and peak memory.  (e)
+   ``launch.train.main([..., "--steps", "3"])`` on the card at smoke
+   scale for each of the ten archs, each ending with a finite loss.
+   (f) xDeepFM at ``train_batch`` (65,536, in ``XDEEPFM_MICROBATCHES``
+   micro-batches: the same gradient in a quarter of the memory) and PNA
+   at minibatch_lg (the launcher's synthetic graph of that shape), both
+   at full width, ``REC_TRAIN_STEPS`` steps each, every launch counter
+   set to 0 before and read after: one bag launch a micro-batch, four
+   PNA launches (one a layer) a step, nothing else.  Every line carries
+   the card's name and power limit; ``train step:`` gives the wall time.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.  Every failed check raises.
@@ -742,7 +783,17 @@ def main() -> int:
     print(f"nvcc build: {report['build_s']:.2f} s "
           f"({len(ptxas)} kernels compiled)")
 
-    # 13. recsys and GNN serving, first, while nothing else is held
+    # 14. training, first, while nothing else holds the card's memory
+    # (Qwen3's step takes most of it); torch's deterministic algorithms
+    # are on only while it runs
+    t0 = time.perf_counter()
+    train_phase(a.seed, dev, report, card)
+    torch.cuda.empty_cache()
+    phase_s["train"] = time.perf_counter() - t0
+    print(f"phase train: {phase_s['train']:.1f} s")
+    t_phase += phase_s["train"]
+
+    # 13. recsys and GNN serving, next, while nothing else is held
     t0 = time.perf_counter()
     rg_sites, rg_keep = rec_gnn_phase(a.seed, dev, report, card)
     torch.cuda.empty_cache()
@@ -4371,6 +4422,370 @@ def kernel_rows(sites):
                            if None not in lib else None),
             "device_ms": mean("device_ms") if None not in dev else None})
     return rows
+
+
+# training phase (step 14): gradients, the optimizer, the loop, the launcher
+TRAIN_BATCHES = (16, 8, 4, 2, 1)   # Qwen3 train_4k batches tried, in turn
+TRAIN_STEPS = 4                    # loop.fit steps at full width
+TRAIN_CKPT_EVERY = 2
+RULE_TOL = {"attention": 2e-2, "embedding_bag": 1e-6, "pna_multi_agg": 1e-4}
+REC_TRAIN_STEPS = 3
+# xDeepFM's train_batch (65,536 users) in micro-batches: CIN's [B, 200,
+# 39, 10] f32 products, kept for the backward pass, take 20 GB a layer at
+# the whole batch (the gradient is the same, ``make_train_step``)
+XDEEPFM_MICROBATCHES = 4
+
+
+def rule_site(name, fn, plain, args, cot, tol, card):
+    """(a) one backward rule at a model site: ``fn`` (the ``ops`` entry
+    point: kernel forward, rule backward) and ``plain`` (its plain
+    version, differentiated by autograd), both on the card from the same
+    inputs and output gradient; the rule's gradients within ``tol``
+    rel-to-max of autograd's, and both backward passes timed by events
+    (the forward outside the timed span)."""
+    import torch
+    counter = {"attention": "flash_attention",
+               "embedding_bag": "embedding_bag",
+               "pna_multi_agg": "pna_multi_agg"}[name]
+    grads, ms = {}, {}
+    for label, f in (("rule", fn), ("plain", plain)):
+        for rep in range(2):            # a warm-up, then the timed pass
+            xs = [a.detach().requires_grad_() for a in args]
+            reset_launches()
+            y = f(*xs)
+            launched = read_launches()[counter]
+            if launched != (1 if label == "rule" else 0):
+                raise AssertionError(f"train rule {name} {label}: "
+                                     f"{launched} kernel launches")
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            y.backward(cot)
+            stop.record()
+            torch.cuda.synchronize()
+            ms[label] = start.elapsed_time(stop)
+            grads[label] = [x.grad for x in xs]
+            del y, xs
+    errs = [rel_to_max(g, w) for g, w in zip(grads["rule"], grads["plain"])]
+    if not (max(errs) <= tol and all(bool(g.isfinite().all())
+                                     for g in grads["rule"])):
+        raise AssertionError(f"train rule {name}: rel-to-max {errs} > {tol}")
+    row = {"kernel": name, "shapes": [list(a.shape) for a in args],
+           "dtype": str(args[0].dtype)[6:], "rel_to_max": errs, "tol": tol,
+           "backward_ms": ms["rule"], "plain_backward_ms": ms["plain"],
+           "route": "torch ops (not a TPU kernel)"}
+    print(f"train rule {name}: {json.dumps(row)} ({card})")
+    return row
+
+
+def train_rules(seed, dev, card):
+    """(a): attention at a Qwen3 layer (1 x 16/8 heads x 4,096 x 128,
+    bf16), the bag at an xDeepFM ``train_batch`` lookup (65,536 x 39
+    one-hot bags over the fused 39M-row table), PNA at the Reddit
+    block's layer (minibatch_lg's edges, relu messages: ties at 0)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import embedding_bag as tbag
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import segment_multi_agg as tpna
+    from repro_torch.models import gnn
+    from repro_torch.models.attention import chunked_attention_plain
+    from repro_torch.train import data as tdata
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rows = []
+    q = torch.randn(1, 16, ATTN_SEQ, 128, generator=g, device=dev)
+    kv = [torch.randn(1, 8, ATTN_SEQ, 128, generator=g, device=dev)
+          for _ in range(2)]
+    args = [x.to(torch.bfloat16) for x in (q, *kv)]
+    cot = torch.randn(q.shape, generator=g, device=dev).to(torch.bfloat16)
+    rows.append(rule_site(
+        "attention", lambda *x: ops.attention(*x, causal=True),
+        lambda *x: chunked_attention_plain(*x, causal=True, chunk=512),
+        args, cot, RULE_TOL["attention"], card))
+    del q, kv, args, cot
+    xcfg = configs.get_arch("xdeepfm").make_config("full", "train_batch")
+    b = configs.get_arch("xdeepfm").shapes["train_batch"]["batch"]
+    table = torch.randn(tbag.padded_rows(xcfg.n_fields * xcfg.field_vocab),
+                        xcfg.embed_dim, generator=g, device=dev) * 0.01
+    sparse = torch_of(tdata.xdeepfm_batch(seed, 0, b, xcfg.n_fields,
+                                          xcfg.field_vocab)["sparse"])
+    ids = tbag.field_ids(sparse.to(dev), xcfg.field_vocab).reshape(-1, 1)
+    cot = torch.randn(ids.shape[0], xcfg.embed_dim, generator=g, device=dev)
+    rows.append(rule_site(
+        "embedding_bag", lambda t: ops.embedding_bag(t, ids),
+        lambda t: tbag.embedding_bag_plain(t, ids), [table], cot,
+        RULE_TOL["embedding_bag"], card))
+    del table, ids, cot
+    shp = configs.get_arch("pna").shapes["minibatch_lg"]
+    n, e = shp["n_nodes"], shp["n_edges"]
+    src = torch.randint(0, n, (e,), generator=g, device=dev)
+    dst = torch.randint(0, n, (e,), generator=g, device=dev)
+    edges = gnn.build_edges(src.int(), dst.int(), n)
+    m = torch.relu(torch.randn(edges.src.shape[0], 75, generator=g,
+                               device=dev))
+    cot = torch.randn(n, 4 * 75, generator=g, device=dev)
+    rows.append(rule_site(
+        "pna_multi_agg", lambda f: ops.pna_multi_agg(f, edges.nbr),
+        lambda f: tpna.pna_multi_agg_autograd(f, edges.nbr), [m], cot,
+        RULE_TOL["pna_multi_agg"], card))
+    return rows
+
+
+def qwen3_train(seed, dev, card):
+    """(b)-(d): Qwen3-0.6B at full width, seq ``ATTN_SEQ``: the largest
+    batch of ``TRAIN_BATCHES`` whose step fits; one no-grad forward's
+    attention launches; every gradient leaf finite and wq / wk / wv of
+    every layer nonzero; (c) one step twice from the same state, the
+    same loss and parameter bits; (b) ``TRAIN_STEPS`` steps of
+    ``loop.fit`` on a repeated batch with a checkpoint every
+    ``TRAIN_CKPT_EVERY`` in a temp dir, the loss descending; (d) the
+    last checkpoint dropped, ``fit`` again: it resumes and lands on the
+    identical loss.  Every counter is set to 0 just before each of
+    these runs and read just after: a step launches the attention
+    kernel twice a layer (the forward, and ``remat``'s recomputation of
+    the layer in the backward pass) and nothing else."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import checkpoint as tckpt
+    from repro_torch.train import data as tdata
+    from repro_torch.train import loop as tloop
+    from repro_torch.train import optimizer as topt
+    from repro_torch.core import tree
+    arch = configs.get_arch("qwen3-0.6b")
+    cfg = arch.make_config("full", "train_4k")
+    full_batch = arch.shapes["train_4k"]["batch"]
+    params = tfm.init_params(seed, cfg, device=dev)
+    state = topt.init(params)
+    ocfg = topt.AdamWConfig(lr=1e-3, warmup_steps=1,
+                            total_steps=TRAIN_STEPS)
+
+    def loss_fn(p, b):
+        return tfm.loss_fn(p, cfg, b)
+
+    step_fn = topt.make_train_step(loss_fn, ocfg)
+
+    def batch_of(bsz, step=0):
+        return {k: torch_of(v).to(dev) for k, v in tdata.lm_batch(
+            seed, step, bsz, ATTN_SEQ, cfg.vocab).items()}
+
+    out = {"n_params": cfg.param_count(params), "seq": ATTN_SEQ}
+    for bsz in TRAIN_BATCHES:          # the largest batch that fits
+        try:
+            torch.cuda.reset_peak_memory_stats(dev)
+            step_fn(params, state, batch_of(bsz))
+            torch.cuda.synchronize()
+            break
+        except torch.cuda.OutOfMemoryError:
+            torch.cuda.empty_cache()
+    else:
+        raise AssertionError("qwen3 train: no batch fits")
+    out["batch"] = bsz
+    out["reduced"] = f"batch {full_batch} -> {bsz} (the largest of " \
+                     f"{TRAIN_BATCHES} whose step fits the card)"
+    print(f"train qwen3-0.6b reduced: {out['reduced']}")
+    batch = batch_of(bsz)
+    per_step = 2 * cfg.n_layers        # the forward and remat's recompute
+
+    def counted(label, steps, fn, *args):
+        reset_launches()
+        r = fn(*args)
+        torch.cuda.synchronize()
+        out[f"launches_{label}"] = only_launched(
+            f"train qwen3 {label}", read_launches(),
+            {"flash_attention": per_step * steps})
+        return r
+
+    with torch.no_grad():
+        reset_launches()
+        loss_fn(params, batch)
+        out["launches_forward"] = only_launched(
+            "train qwen3 forward", read_launches(),
+            {"flash_attention": cfg.n_layers})
+    loss0, grads = counted("value_and_grad", 1, topt.value_and_grad,
+                           loss_fn, params, batch)
+    bad = [i for i, x in enumerate(tree.leaves(grads))
+           if not bool(torch.isfinite(x).all())]
+    zero = [(w, i) for w in ("wq", "wk", "wv")
+            for i in range(cfg.n_layers)
+            if not bool((grads["attn"][w][i] != 0).any())]
+    if bad or zero or not torch.isfinite(loss0):
+        raise AssertionError(f"qwen3 train: non-finite leaves {bad}, zero "
+                             f"attention grads {zero}, loss {loss0}")
+    out["grad_leaves"] = len(tree.leaves(grads))
+    del grads
+    # (c) the same step twice from the same state
+    first = counted("step", 1, step_fn, params, state, batch)
+    first_host = [x.cpu() for x in tree.leaves(first)]
+    del first
+    second = step_fn(params, state, batch)
+    same = all(torch.equal(a.view(torch.uint8) if a.dim() else a,
+                           b.cpu().view(torch.uint8) if b.dim() else b.cpu())
+               for a, b in zip(first_host, tree.leaves(second)))
+    out["repeatable"] = same
+    if not same:
+        raise AssertionError("qwen3 train: the same step gave other bits")
+    del second, first_host
+    torch.cuda.empty_cache()
+    # (b) the loop, with checkpoints; (d) a restart from the last but one
+    log = []
+
+    def timed(p, s, b):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = step_fn(p, s, b)
+        torch.cuda.synchronize()
+        log.append((time.perf_counter() - t0, float(r[2]["loss"])))
+        return r
+
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        lcfg = tloop.LoopConfig(total_steps=TRAIN_STEPS, ckpt_dir=ckpt,
+                                ckpt_every=TRAIN_CKPT_EVERY, keep_last=2,
+                                log_every=0)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        res = counted("fit", TRAIN_STEPS, tloop.fit, timed, params, state,
+                      lambda step: batch, lcfg)
+        out["fit_s"] = time.perf_counter() - t0
+        out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        out["losses"] = [x[1] for x in log]
+        out["step_ms"] = [x[0] * 1e3 for x in log]
+        final = float(res.metrics["loss"])
+        del res
+        if not out["losses"][-1] < out["losses"][0]:
+            raise AssertionError(f"qwen3 train: loss {out['losses']}")
+        out["checkpoints"] = tckpt.list_steps(ckpt)
+        shutil.rmtree(tckpt._step_dir(ckpt, TRAIN_STEPS))
+        log.clear()
+        t0 = time.perf_counter()
+        res = counted("restart", TRAIN_STEPS - TRAIN_CKPT_EVERY, tloop.fit,
+                      timed, params, state, lambda step: batch, lcfg)
+        out["restart_s"] = time.perf_counter() - t0
+        out["restart_steps"] = len(log)
+        out["restart_loss"] = float(res.metrics["loss"])
+        del res
+        if out["restart_loss"] != final or \
+                len(log) != TRAIN_STEPS - TRAIN_CKPT_EVERY:
+            raise AssertionError(f"qwen3 train: restart {out}")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    ms = sorted(out["step_ms"][1:]) or out["step_ms"]
+    out["step_ms_median"] = ms[len(ms) // 2]
+    out["tokens_per_s"] = bsz * ATTN_SEQ / (out["step_ms_median"] / 1e3)
+    print(f"train qwen3-0.6b: {json.dumps(out)} ({card})")
+    return out
+
+
+def launcher_smoke(dev, card):
+    """(e): ``launch.train.main`` on the card at smoke scale, 3 steps, for
+    every arch; each ends with a finite loss."""
+    import io
+
+    from repro_torch import configs
+    from repro_torch.launch import train as tlaunch
+    out = {}
+    for arch in configs.ARCHS:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = tlaunch.main(["--arch", arch, "--steps", "3", "--device",
+                               str(dev), "--log-every", "0"])
+        done = buf.getvalue().strip().splitlines()[-1]
+        if rc != 0 or not done.startswith("done: step=3 loss="):
+            raise AssertionError(f"launch.train {arch}: rc {rc}, {done}")
+        out[arch] = {"done": done, "s": time.perf_counter() - t0}
+        print(f"train launcher {arch}: {done} "
+              f"({out[arch]['s']:.1f} s, {card})")
+    return out
+
+
+def rec_gnn_train(seed, dev, card):
+    """(f): xDeepFM at ``train_batch`` (65,536) and PNA at minibatch_lg,
+    both at full width, ``REC_TRAIN_STEPS`` steps each through
+    ``make_train_step`` (xDeepFM's in ``XDEEPFM_MICROBATCHES``
+    micro-batches), with every launch counter set to 0 just before and
+    read just after: one bag launch a micro-batch, one PNA launch a
+    layer a step, nothing else."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.train import optimizer as topt
+    out = {}
+    for arch_id, shape_id, kernel, micro in (
+            ("xdeepfm", "train_batch", "embedding_bag", XDEEPFM_MICROBATCHES),
+            ("pna", "minibatch_lg", "pna_multi_agg", 1)):
+        arch = configs.get_arch(arch_id)
+        cfg = arch.make_config("full", shape_id)
+        per_step = cfg.n_layers if arch_id == "pna" else micro
+        shp = arch.shapes[shape_id]
+        params, loss_fn = tlaunch.model_fns(arch, cfg, shp, seed, dev)
+        state = topt.init(params)
+        step_fn = topt.make_train_step(loss_fn, topt.AdamWConfig(lr=1e-3),
+                                       microbatches=micro)
+        batches = tlaunch.make_batch_fn(arch, cfg, shp, seed)
+        to_dev = tlaunch.to_device_fn(dev)
+        batch = to_dev(batches(0))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        losses, ms = [], []
+        for i in range(REC_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            params, state, m = step_fn(params, state, batch)
+            losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        launches = only_launched(f"train {arch_id}", read_launches(),
+                                 {kernel: per_step * REC_TRAIN_STEPS})
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"train {arch_id}: losses {losses}")
+        out[arch_id] = {"shape": shape_id, "microbatches": micro,
+                        "losses": losses, "step_ms": ms,
+                        "launches": launches,
+                        "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+        print(f"train {arch_id} {shape_id}: {json.dumps(out[arch_id])} "
+              f"({card})")
+        del params, state, batch, m
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_phase(seed, dev, report, card):
+    """Step 14: the training path on the card, (a)-(f) of the module
+    docstring, with torch's deterministic algorithms on (as the
+    launcher sets them) and off again after, the environment as it
+    was."""
+    import os
+
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_step = time.perf_counter()
+    env = dict(os.environ)
+    held = torch.cuda.memory_allocated(dev)
+    # the launcher's deterministic mode, but not its cuBLAS workspace
+    # setting, which would stay with the later steps' products
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        step = {"rules": train_rules(seed, dev, card)}
+        torch.cuda.empty_cache()
+        step["qwen3"] = qwen3_train(seed, dev, card)
+        torch.cuda.empty_cache()
+        step["launcher"] = launcher_smoke(dev, card)
+        step["rec_gnn"] = rec_gnn_train(seed, dev, card)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        os.environ.clear()
+        os.environ.update(env)
+    step["step_s"] = time.perf_counter() - t_step
+    step["held_by_earlier_steps_bytes"] = held
+    print(f"train step: {step['step_s']:.1f} s wall, held before {held} B "
+          f"({card})")
+    report["train"] = step
 
 
 if __name__ == "__main__":

@@ -15,10 +15,14 @@ The reductions keep ``jax.ops.segment_*``'s semantics, on any device:
 * a segment id outside ``[0, num_segments)`` (the trash row, a
   sampler's pad edge, a negative id) is dropped;
 * an empty segment's max is -inf and its min +inf;
-* min and max order -0.0 below +0.0, as XLA does;
-* sums add each segment's entries in entry order on the CPU (XLA's
-  scatter order there); on CUDA ``index_add_`` adds floats by atomics,
-  in no fixed order.
+* min and max order -0.0 below +0.0, as XLA does, and a NaN entry
+  makes its segment's min and max NaN;
+* sums add each segment's entries in a fixed order, so that a sum (and
+  every gradient through one) repeats bit for bit: on the CPU in entry
+  order (XLA's scatter order there), on CUDA by ``ordered_segment_sum``
+  (the entries stably sorted by segment, then each segment reduced in
+  one pass), never by atomics;
+* ``segment_std`` is the jitted reference's arithmetic (see there).
 
 ``sorted_ids`` is accepted and has no effect: it is only a hint to XLA.
 """
@@ -87,17 +91,36 @@ def _trash_ids(segment_ids: Tensor, num_segments: int) -> Tensor:
     return torch.where(ok, ids, num_segments)
 
 
+def ordered_segment_sum(data: Tensor, ids: Tensor, n: int) -> Tensor:
+    """Sums of ``data``'s rows by ``ids`` (int64 in [0, n)) into ``[n,
+    ...]`` in a fixed order on any device: the entries stably sorted by
+    id, then each segment reduced in one pass (``torch.segment_reduce``,
+    which on the CPU adds a segment's entries one after another in entry
+    order, as ``index_add_`` does there).  No atomics, so the bits
+    repeat from run to run."""
+    order = torch.sort(ids, stable=True).indices
+    lengths = torch.bincount(ids, minlength=n)
+    return torch.segment_reduce(data[order], "sum", lengths=lengths,
+                                unsafe=True)
+
+
 def segment_sum(data: Tensor, segment_ids: Tensor, num_segments: int,
                 sorted_ids: bool = True) -> Tensor:
     ids = _trash_ids(segment_ids, num_segments)
+    if data.is_cuda:
+        return ordered_segment_sum(data, ids, num_segments + 1)[
+            :num_segments]
     out = data.new_zeros((num_segments + 1,) + tuple(data.shape[1:]))
     return out.index_add_(0, ids, data)[:num_segments]
 
 
-def _order_keys(x: Tensor) -> Tensor:
-    """int32 keys of f32 values, in XLA's order: -0.0 below +0.0."""
+def _order_keys(x: Tensor, nan_key: int = 0x7FFFFFFF) -> Tensor:
+    """int32 keys of f32 values, in XLA's order: -0.0 below +0.0; every
+    NaN (either sign) gets ``nan_key``: INT32_MAX wins a max, INT32_MIN
+    a min, as XLA's NaN-propagating min and max do."""
     bits = x.float().contiguous().view(torch.int32)
-    return torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    keys = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    return torch.where(torch.isnan(x), nan_key, keys)
 
 
 def _from_keys(keys: Tensor) -> Tensor:
@@ -107,13 +130,15 @@ def _from_keys(keys: Tensor) -> Tensor:
 def _segment_extreme(data: Tensor, segment_ids: Tensor, num_segments: int,
                      reduce: str, empty: float) -> Tensor:
     """Max or min over each segment of f32 keys (so that signed zeros
-    order as XLA orders them); ``empty`` for a segment with no entry."""
+    order as XLA orders them, and a NaN wins); ``empty`` for a segment
+    with no entry.  The keys of a NaN map back to a NaN."""
     ids = _trash_ids(segment_ids, num_segments)
     shape = (num_segments + 1,) + tuple(data.shape[1:])
     init = torch.full(shape, empty, dtype=torch.float32, device=data.device)
     idx = ids.view((-1,) + (1,) * (data.dim() - 1)).expand(data.shape)
-    keys = _order_keys(init).scatter_reduce(0, idx, _order_keys(data),
-                                            reduce, include_self=True)
+    nan_key = 0x7FFFFFFF if reduce == "amax" else -0x80000000
+    keys = _order_keys(init).scatter_reduce(
+        0, idx, _order_keys(data, nan_key), reduce, include_self=True)
     return _from_keys(keys)[:num_segments].to(data.dtype)
 
 
@@ -137,13 +162,41 @@ def segment_mean(data: Tensor, segment_ids: Tensor, num_segments: int,
     return total / count.view((-1,) + (1,) * (data.dim() - 1))
 
 
+class _FmaVar(torch.autograd.Function):
+    """``mean_sq - mean * mean`` with one rounding (an FMA), the value as
+    ``core.query.fma_f32`` computes it, the gradient as for the
+    unfused expression."""
+
+    @staticmethod
+    def forward(ctx, mean, mean_sq):
+        from repro_torch.core.query import fma_f32   # query imports us
+        ctx.save_for_backward(mean)
+        return fma_f32(-mean, mean, mean_sq)
+
+    @staticmethod
+    def backward(ctx, g):
+        (mean,) = ctx.saved_tensors
+        return -g * mean + -g * mean, g
+
+
 def segment_std(data: Tensor, segment_ids: Tensor, num_segments: int,
                 sorted_ids: bool = True, eps: float = 1e-5) -> Tensor:
-    """Per-segment standard deviation (PNA's 'std' aggregator)."""
+    """Per-segment standard deviation (PNA's 'std' aggregator), as the
+    reference computes it under ``jax.jit`` on the CPU, its one caller's
+    setting (``gnn._pna_layer``): XLA's loop contracts ``mean_sq - mean
+    * mean`` into an FMA, except where the whole input is one entry (XLA
+    then fuses the scatters into one loop that does not contract);
+    ``max(var, 0)`` keeps a NaN and splits its gradient at 0 as
+    ``jnp.maximum`` does; the square root is correctly rounded (torch's
+    f32 CPU ``sqrt`` is not always)."""
     mean = segment_mean(data, segment_ids, num_segments)
     mean_sq = segment_mean(data * data, segment_ids, num_segments)
-    var = (mean_sq - mean * mean).clamp_min(0.0)
-    return torch.sqrt(var + eps)
+    if data.shape[0] == 1:
+        var = mean_sq - mean * mean
+    else:
+        var = _FmaVar.apply(mean, mean_sq)
+    var = torch.maximum(var, torch.zeros_like(var))
+    return torch.sqrt((var + eps).double()).to(data.dtype)
 
 
 def jax_take(x: Tensor, idx: Tensor) -> Tensor:

@@ -10,7 +10,8 @@
 // and var = fma(-mean, mean, ssq / n).  Here they are __fmaf_rn; the build
 // has -fmad=false, so nothing else is contracted.  n = max(cnt, 1); division
 // and square root are correctly rounded; min and max order -0.0 below +0.0
-// as XLA does; a node with no valid neighbour gets 0 for min and max; std
+// as XLA does, and a NaN row makes them NaN, then 0 (the reference's isfinite
+// guard), as it does a node with no valid neighbour; a NaN var stays NaN; std
 // is sqrt(var + eps), eps an argument (PnaConfig.eps, 1e-5 by default).  An
 // id >= Nsrc is refused here: the group that reads it prints the id and
 // traps before any row is read, which fails the launch (the next
@@ -63,8 +64,10 @@ struct Agg {
 __device__ __forceinline__ void add(Agg& a, float row) {
   a.s = __fadd_rn(a.s, row);
   a.ssq = __fmaf_rn(row, row, a.ssq);
-  if (row < a.mn || (row == a.mn && signbit(row))) a.mn = row;
-  if (row > a.mx || (row == a.mx && !signbit(row))) a.mx = row;
+  // a NaN row wins both and stays (jnp.minimum / jnp.maximum propagate it)
+  const bool nan = isnan(row);
+  if (nan || row < a.mn || (row == a.mn && signbit(row))) a.mn = row;
+  if (nan || row > a.mx || (row == a.mx && !signbit(row))) a.mx = row;
 }
 
 template <int P>
@@ -134,8 +137,9 @@ pna_kernel(const float* __restrict__ feats, const int* __restrict__ nbr,
         const int c = col + 32 * p;
         if (c >= dim) continue;
         const float mean = __fdiv_rn(a[p].s, nn);
-        const float var =
-            fmaxf(__fmaf_rn(-mean, mean, __fdiv_rn(a[p].ssq, nn)), 0.0f);
+        // max(v, 0) keeping a NaN, as jnp.maximum does (fmaxf drops it)
+        const float v = __fmaf_rn(-mean, mean, __fdiv_rn(a[p].ssq, nn));
+        const float var = isnan(v) ? v : fmaxf(v, 0.0f);
         __stcs(o + c, mean);
         __stcs(o + dim + c, isfinite(a[p].mn) ? a[p].mn : 0.0f);
         __stcs(o + 2 * dim + c, isfinite(a[p].mx) ? a[p].mx : 0.0f);

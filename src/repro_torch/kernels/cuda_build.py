@@ -159,6 +159,17 @@ def tensors_ok(dev: int, specs) -> bool:
     return dev >= 0
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """A kernel writes a fresh tensor that autograd cannot see: refuse an
+    input that requires grad (outside ``torch.no_grad``), where the
+    gradient would silently be lost.  ``kernels.ops``' entry points carry
+    the gradient through a ``torch.autograd.Function``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError(f"{name}: an input requires grad and the raw "
+                         f"launch has no backward; call kernels.ops, whose "
+                         f"autograd Function carries the gradient")
+
+
 def check_ids(name: str, arg: str, ids, rows: int) -> None:
     """Refuse an id past the ``rows`` rows it indexes (a negative id is
     padding), reading ``ids.max()`` back: for host tensors only, since

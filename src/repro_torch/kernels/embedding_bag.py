@@ -24,6 +24,11 @@ sums to +0.0.
 ``max(valid slots, 1)`` in the table's dtype: the kernel's sum on the
 card, the plain sum on the CPU; the kernel itself only sums.
 
+``embedding_bag_backward`` is the table's gradient that
+``kernels.ops.embedding_bag``'s autograd Function gives on both devices,
+in torch ops (the reference trains through XLA's autodiff of the
+gather); the kernel itself refuses a table that requires grad.
+
 ``embedding_bag.launches`` counts the kernel's launches.  ``padded_rows``
 and ``field_ids`` lay out xDeepFM's fused field table as
 ``repro.models.recsys`` does (rows padded to ``ROW_PAD``, field ``f``'s
@@ -35,8 +40,9 @@ import ctypes
 
 import torch
 
+from repro_torch.core.segments import segment_sum
 from repro_torch.kernels.cuda_build import (check_ids, check_tensors, entry,
-                                            tensors_ok)
+                                            refuse_grad, tensors_ok)
 
 Tensor = torch.Tensor
 
@@ -84,6 +90,22 @@ def embedding_bag_plain(table: Tensor, indices: Tensor,
     return _bag_mean(acc, indices) if mode == "mean" else acc
 
 
+def embedding_bag_backward(g: Tensor, indices: Tensor, rows: int,
+                           mode: str = "sum") -> Tensor:
+    """The table's gradient for the output gradient ``g`` [B, D]: each
+    valid slot's bag row of ``g`` (over ``max(valid, 1)`` for ``"mean"``)
+    added into its table row, as XLA transposes the reference's gather:
+    in slot order (b, h), by ``core.segments.segment_sum``, whose order
+    is fixed on the card too.  Padding slots give nothing.  [rows, D] in
+    ``g``'s dtype."""
+    if mode == "mean":
+        g = _bag_mean(g, indices)
+    valid = indices >= 0
+    bag = torch.arange(indices.shape[0], device=indices.device)
+    bag = bag[:, None].expand(indices.shape)[valid]
+    return segment_sum(g[bag], indices[valid], rows)
+
+
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signature (csrc/embedding_bag.cu): table, indices, out, bags, hot, dim,
 # rows, dtype code, stream
@@ -114,6 +136,7 @@ def _launch_embedding_bag_cuda(table: Tensor, indices: Tensor) -> Tensor:
     checks the ids' range itself (nothing here synchronises); on a
     mismatch ``_refuse`` names the fault."""
     name = "embedding_bag"
+    refuse_grad(name, table)
     dev = table.get_device()
     if not (table.dtype in DTYPES and table.dim() == 2
             and indices.dim() == 2 and tensors_ok(dev, (

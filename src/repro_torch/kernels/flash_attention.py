@@ -26,14 +26,23 @@ The two agree within the reference's own tolerances (2e-4 in f32, 3e-2
 in bf16), not to the bit: the kernel's ``expf`` and its order of adds
 differ from a softmax over whole rows.  ``flash_attention.launches``
 counts the kernel's launches.
+
+``attention_backward`` is the gradient that ``kernels.ops.attention``'s
+autograd Function gives on both devices, in torch ops (the reference has
+no backward kernel: it trains through XLA's autodiff of
+``models.attention.chunked_attention``).  It is that function's
+gradient, recomputed one query chunk at a time: no ``S x S`` matrix is
+kept.  The kernel itself refuses an input that requires grad.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
-from repro_torch.kernels.cuda_build import check_tensors, entry, launch
+from repro_torch.kernels.cuda_build import (check_tensors, entry, launch,
+                                            refuse_grad)
 
 Tensor = torch.Tensor
 
@@ -68,6 +77,59 @@ def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor,
     return torch.cat(out, dim=2)
 
 
+NEG_INF = -1e30          # the reference's mask value (models.attention)
+CHUNK_Q = 512            # query rows a backward chunk recomputes at once
+
+
+def attention_backward(q: Tensor, k: Tensor, v: Tensor, do: Tensor,
+                       causal: bool = True, window: int = 0):
+    """(dq, dk, dv) of the reference's ``chunked_attention`` at q [B, Hq,
+    S, D], k [B, Hkv, S, D], v [B, Hkv, S, Dv] for the output gradient
+    ``do``, in torch ops on any device.  Each chunk of ``CHUNK_Q`` query
+    rows has its forward recomputed as that function computes it (f32
+    scores scaled by ``D ** -0.5``, masked to ``NEG_INF``, softmax, p
+    cast to v's dtype, then PV) over the keys the chunk can see, and
+    differentiated by autograd; dk and dv add up over the chunks in
+    f32."""
+    b, hq, s, d = q.shape
+    hkv, dv_w = k.shape[1], v.shape[-1]
+    group = hq // hkv
+    chunk = min(CHUNK_Q, s) or 1
+    if s % chunk:
+        chunk = math.gcd(chunk, s)
+    dq = torch.empty_like(q)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    with torch.enable_grad():
+        for c0 in range(0, s, chunk):
+            # keys no query of the chunk sees get no gradient: skip them
+            k0 = max(c0 - window + 1, 0) if window > 0 else 0
+            k1 = min(c0 + chunk, s) if causal else s
+            n = k1 - k0
+            qc = q[:, :, c0:c0 + chunk].detach().requires_grad_()
+            kc = k[:, :, k0:k1].detach().float().requires_grad_()
+            vc = v[:, :, k0:k1].detach().requires_grad_()
+            scores = (qc.reshape(b, hkv, group, chunk, d).float()
+                      @ kc.reshape(b, hkv, 1, n, d).transpose(-1, -2)
+                      ) * d ** -0.5
+            qpos = torch.arange(c0, c0 + chunk, device=q.device)[:, None]
+            kpos = torch.arange(k0, k1, device=q.device)[None, :]
+            m = torch.ones((chunk, n), dtype=torch.bool, device=q.device)
+            if causal:
+                m &= kpos <= qpos
+            if window > 0:
+                m &= kpos > qpos - window
+            p = torch.softmax(torch.where(m, scores, NEG_INF), dim=-1)
+            oc = (p.to(v.dtype) @ vc.reshape(b, hkv, 1, n, dv_w)).reshape(
+                b, hq, chunk, dv_w)
+            gq, gk, gv = torch.autograd.grad(
+                oc, (qc, kc, vc), do[:, :, c0:c0 + chunk])
+            dq[:, :, c0:c0 + chunk] = gq
+            dk[:, :, k0:k1] += gk
+            dv[:, :, k0:k1] += gv.float()
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signature (csrc/flash_attention.cu): q, k, v, o, b, hq, hkv, s, d,
 # causal, window, dtype code, stream
@@ -91,6 +153,7 @@ def _launch_flash_cuda(q: Tensor, k: Tensor, v: Tensor, causal: bool,
     """Check the three tensors, the head width and the head counts, then
     launch the kernel."""
     name = "flash_attention"
+    refuse_grad(name, q, k, v)
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"{name}: q [B, Hq, S, D] and k/v [B, Hkv, S, D] "
                          f"needed, got {tuple(q.shape)}, {tuple(k.shape)}")

@@ -31,6 +31,11 @@ argument order and layouts: ``embedding_bag`` (fixed-arity multi-hot bag
 sums), ``pna_multi_agg`` (PNA's mean | min | max | std) and ``attention``
 (flash attention, ``[B, H, S, D]``).  There is no ``backend`` argument:
 a CUDA tensor launches the kernel, a CPU tensor runs its plain version.
+Each carries gradients through a ``torch.autograd.Function`` whose
+forward is that kernel or plain version and whose backward is one code
+path in torch ops on both devices (``attention_backward``,
+``embedding_bag_backward``, ``pna_multi_agg_backward``): the gradient of
+the reference's jnp counterpart, as ``jax.grad`` takes it.
 """
 from __future__ import annotations
 
@@ -44,7 +49,8 @@ from repro_torch.core.query import (accumulate_scores, conjunctive_scores,
                                     final_scores, query_norm)
 from repro_torch.kernels import embedding_bag as _bag
 from repro_torch.kernels import segment_multi_agg as _pna
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (attention_backward,
+                                                 flash_attention)
 from repro_torch.kernels.packed_postings import unpack_blocks
 from repro_torch.kernels.posting_score import build_pairs, posting_score
 from repro_torch.kernels.fused_decode_score import (
@@ -149,30 +155,73 @@ def kernel_ready(t: Tensor) -> Tensor:
     return t
 
 
+class _EmbeddingBag(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, indices, mode):
+        ctx.save_for_backward(indices)
+        ctx.rows, ctx.mode = table.shape[0], mode
+        return _bag.embedding_bag(table, indices, mode)
+
+    @staticmethod
+    def backward(ctx, g):
+        (indices,) = ctx.saved_tensors
+        return (_bag.embedding_bag_backward(g, indices, ctx.rows, ctx.mode),
+                None, None)
+
+
+class _PnaMultiAgg(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, feats, nbr, eps):
+        ctx.save_for_backward(feats, nbr)
+        ctx.eps = eps
+        return _pna.pna_multi_agg(feats, nbr, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        feats, nbr = ctx.saved_tensors
+        return _pna.pna_multi_agg_backward(feats, nbr, g, ctx.eps), None, None
+
+
+class _Attention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return flash_attention(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        return (*attention_backward(q, k, v, do, ctx.causal, ctx.window),
+                None, None)
+
+
 def embedding_bag(table: Tensor, indices: Tensor, mode: str = "sum"
                   ) -> Tensor:
     """Bag sums (or means, ``mode="mean"``): table f32 or bf16 [V, D],
     indices i32[B, H] (-1 = padding) -> [B, D] in the table's dtype
-    (``embedding_bag``), from any view of either."""
-    return _bag.embedding_bag(kernel_ready(table), kernel_ready(indices),
-                              mode)
+    (``embedding_bag``), from any view of either; differentiable in the
+    table."""
+    return _EmbeddingBag.apply(kernel_ready(table), kernel_ready(indices),
+                               mode)
 
 
 def pna_multi_agg(feats: Tensor, nbr: Tensor, eps: float = _pna.EPS
                   ) -> Tensor:
     """PNA's mean | min | max | std: feats f32[Nsrc, D], nbr i32[N, K]
     (-1 = padding) -> f32[N, 4D] (``pna_multi_agg``), ``eps`` under
-    std's square root, from any view of either."""
-    return _pna.pna_multi_agg(kernel_ready(feats), kernel_ready(nbr), eps)
+    std's square root, from any view of either; differentiable in
+    feats."""
+    return _PnaMultiAgg.apply(kernel_ready(feats), kernel_ready(nbr), eps)
 
 
 def attention(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
               window: int = 0) -> Tensor:
     """q [B, Hq, S, D], k/v [B, Hkv, S, D] -> [B, Hq, S, D] in q's
     dtype; causal and/or a sliding ``window``, GQA; from any view of
-    q, k and v."""
-    return flash_attention(kernel_ready(q), kernel_ready(k),
-                           kernel_ready(v), causal=causal, window=window)
+    q, k and v; differentiable in all three."""
+    return _Attention.apply(kernel_ready(q), kernel_ready(k),
+                            kernel_ready(v), causal, int(window))
 
 
 def default_max_pairs(index: BlockedIndex | PackedCsrIndex, num_queries: int,

@@ -33,8 +33,9 @@ Differences from the reference, by design:
     37 GB at ogbn-products) and freed before the post-transform, which
     runs in node chunks of ``NODE_CHUNK``; each row's product is the
     same arithmetic;
-  * the loss functions give values only (the reference's ``jax.checkpoint``
-    and ``scan`` steer only its backward pass and compile size).
+  * the reference's ``jax.checkpoint`` and ``scan`` steer only its
+    backward pass and compile size: autograd keeps each layer's
+    activations (the training path writes nothing in place).
 """
 from __future__ import annotations
 
@@ -130,20 +131,35 @@ def build_edges(src: Tensor, dst: Tensor, num_nodes: int) -> Edges:
                  nbr.to(torch.int32), counts.float())
 
 
+def _tracked(*ts: Tensor) -> bool:
+    """Autograd records ops on these tensors (so no in-place writes)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def relu(x: Tensor) -> Tensor:
-    """``jax.nn.relu``: max(x, 0) with -0.0 -> +0.0, in place."""
+    """``jax.nn.relu``: max(x, 0) with -0.0 -> +0.0 (gradient 0 at 0);
+    in place, unless autograd records ``x``."""
+    if _tracked(x):
+        return torch.relu(x) + 0.0
     return torch.relu_(x).add_(0.0)
 
 
 def messages(lp: dict, h: Tensor, edges: Edges) -> Tensor:
     """relu([h[src] || h[dst]] @ w_pre + b_pre) for every kept edge, in
-    ``edges``' order: f32[E', d], computed EDGE_CHUNK edges at a time."""
+    ``edges``' order: f32[E', d], computed EDGE_CHUNK edges at a time,
+    into one buffer; where autograd records the inputs (training), each
+    chunk is a fresh tensor and the chunks are concatenated."""
     e = edges.src.shape[0]
+    chunks = [(edges.src[i:i + EDGE_CHUNK].long(),
+               edges.dst[i:i + EDGE_CHUNK].long())
+              for i in range(0, e, EDGE_CHUNK)]
+    if _tracked(h, lp["w_pre"], lp["b_pre"]):
+        return torch.cat([relu(torch.cat([h[s], h[t]], dim=-1) @ lp["w_pre"]
+                               + lp["b_pre"]) for s, t in chunks]
+                         or [h.new_zeros((0, lp["w_pre"].shape[1]))])
     m = torch.empty((e, lp["w_pre"].shape[1]), dtype=h.dtype,
                     device=h.device)
-    for i in range(0, e, EDGE_CHUNK):
-        s = edges.src[i:i + EDGE_CHUNK].long()
-        t = edges.dst[i:i + EDGE_CHUNK].long()
+    for i, (s, t) in zip(range(0, e, EDGE_CHUNK), chunks):
         m_in = torch.cat([h[s], h[t]], dim=-1)
         torch.matmul(m_in, lp["w_pre"], out=m[i:i + EDGE_CHUNK])
         del m_in
@@ -200,7 +216,7 @@ def node_logits(params: dict, cfg: PnaConfig, feats: Tensor, src: Tensor,
 
 
 def node_loss(params: dict, cfg: PnaConfig, batch: dict) -> Tensor:
-    """Node classification CE over ``mask``-ed nodes (the value).
+    """Node classification CE over ``mask``-ed nodes.
 
     batch: feats [N,F], src/dst [E], labels i32[N], mask bool[N].
     """
@@ -214,7 +230,7 @@ def node_loss(params: dict, cfg: PnaConfig, batch: dict) -> Tensor:
 
 
 def graph_loss(params: dict, cfg: PnaConfig, batch: dict) -> Tensor:
-    """Batched small graphs: mean-readout per graph + CE (the value).
+    """Batched small graphs: mean-readout per graph + CE.
 
     batch: feats [N,F], src/dst [E], graph_ids i32[N], g_labels i32[G].
     """

@@ -1,5 +1,5 @@
 """Recsys architectures: SASRec, BERT4Rec, DIEN, xDeepFM — the port of
-``repro.models.recsys`` (serving, and the losses' values).
+``repro.models.recsys`` (serving, and the losses with their gradients).
 
 The embedding layer is where the paper's layout insight lands: item
 histories and multi-hot features are bags over huge tables.  xDeepFM's
@@ -31,8 +31,9 @@ Differences from the reference, by design:
   * ``batch_axes`` and ``tp_axis`` steer only GSPMD in the reference;
     they are accepted and have no effect (``retrieval_topk`` over at most
     ``chunk`` rows always takes the exact stable top-k);
-  * ``sampled_softmax_loss`` runs its sequence chunks as a Python loop
-    (no checkpointing: the values only).
+  * ``sampled_softmax_loss`` runs its sequence chunks as a Python loop;
+    autograd keeps each chunk's gathered negatives (the reference's
+    ``jax.checkpoint`` recomputes them).
 """
 from __future__ import annotations
 

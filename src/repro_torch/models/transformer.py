@@ -1,5 +1,5 @@
 """Unified decoder-only transformer for the five LM archs: the port of
-``repro.models.transformer`` (the serving path and the loss's value).
+``repro.models.transformer`` (the serving path and the training loss).
 
 One config-driven implementation provides:
   * GQA attention (+ optional per-head qk RMS-norm)      — qwen3, gemma3
@@ -10,7 +10,7 @@ One config-driven implementation provides:
   * params stacked over layers under the reference's tree names, run by
     a Python loop over the layer index; chunked softmax-CE loss.
 
-Entry points: ``loss_fn`` (tokens + labels -> mean CE, the value only),
+Entry points: ``loss_fn`` (tokens + labels -> mean CE, differentiable),
 ``prefill`` (tokens -> last-position logits + KV cache) and
 ``decode_step`` (one token against the cache), as functions of a plain
 dict of tensors or as methods of the ``Transformer`` module.  Prefill
@@ -21,9 +21,13 @@ Differences from the reference, by design:
   * ``init_params`` draws from a ``torch.Generator`` (or a seed) on
     ``device`` in place of a PRNG key: the reference's shapes, scales
     and dtypes, other values;
-  * ``batch_axes``, ``tp_axis``, ``remat`` and ``decode_unroll`` steer
-    only XLA and GSPMD in the reference; they are accepted and have no
-    effect;
+  * ``batch_axes``, ``tp_axis`` and ``decode_unroll`` steer only XLA
+    and GSPMD in the reference; they are accepted and have no effect.
+    ``remat`` recomputes each layer in the backward pass where autograd
+    records the forward (``torch.utils.checkpoint``, the counterpart of
+    the reference's ``jax.checkpoint`` of its layer body), and the loss
+    recomputes each chunk's logits as the reference's checkpointed
+    chunk does: the same values, less memory;
   * ``decode_step`` writes the new token's K/V into the cache tensors it
     is given and returns them (the reference returns new arrays).
 """
@@ -37,11 +41,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.attention import MlaDims
 from repro_torch.models.layers import (apply_rope, cast, embed_init, normal,
                                        rms_norm)
+from repro_torch.core import tree as _tree
 
 Tensor = torch.Tensor
 
@@ -81,7 +87,7 @@ class TransformerConfig:
     dtype: Any = torch.bfloat16
     chunk_q: int = 512
     loss_chunk: int = 2048
-    remat: bool = True                # XLA only: no effect here
+    remat: bool = True                # recompute each layer in backward
     # ring (window-sized) decode cache: valid when EVERY layer is
     # windowed (mixtral SWA).  RoPE is baked into K at write time, so
     # ``slot = pos % window`` needs no remapping.
@@ -110,22 +116,10 @@ class TransformerConfig:
         return sum(int(x.numel()) for x in tree_leaves(params))
 
 
-def tree_leaves(tree) -> list:
-    """The leaves of a nested dict / list / tuple."""
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in tree_leaves(v)]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in tree_leaves(v)]
-    return [tree]
-
-
-def tree_map(fn, tree):
-    """``fn`` applied to every leaf of a nested dict / list / tuple."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+# the leaves of a nested dict / list / tuple, and ``fn`` over them, in
+# JAX's leaf order (``core.tree``)
+tree_leaves = _tree.leaves
+tree_map = _tree.map
 
 
 # ---------------------------------------------------------------------------
@@ -403,9 +397,15 @@ _LAYER_KEYS = ("attn", "mlp", "pre_attn_norm", "pre_mlp_norm",
 
 
 def _layer_params(params: dict, cfg: TransformerConfig, i: int) -> dict:
-    """Layer ``i``'s slice of the stacked per-layer params (views)."""
+    """Layer ``i``'s slice of the stacked per-layer params (views), by a
+    plain walk of the nested dicts: a decode step takes it once a
+    layer."""
+    def take(t):
+        return {k: take(v) for k, v in t.items()} if isinstance(t, dict) \
+            else t[i]
+
     keys = _LAYER_KEYS if cfg.post_norm else _LAYER_KEYS[:4]
-    return {k: tree_map(lambda t: t[i], params[k]) for k in keys}
+    return {k: take(params[k]) for k in keys}
 
 
 def _embed(params: dict, cfg: TransformerConfig, tokens: Tensor) -> Tensor:
@@ -441,7 +441,13 @@ def backbone(params: dict, cfg: TransformerConfig, tokens: Tensor,
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device).expand(b, s)
     caches = _cache_buffers(cfg, b, s, x.device) if want_cache else None
+    remat = cfg.remat and not want_cache and torch.is_grad_enabled()
     for i, is_global in enumerate(cfg.layer_is_global()):
+        if remat:
+            x, cache = checkpoint(_layer_fwd, cfg, x,
+                                  _layer_params(params, cfg, i), is_global,
+                                  positions, False, use_reentrant=False)
+            continue
         x, cache = _layer_fwd(cfg, x, _layer_params(params, cfg, i),
                               is_global, positions, want_cache)
         if want_cache:
@@ -462,9 +468,19 @@ def _logits_matrix(params: dict, cfg: TransformerConfig) -> Tensor:
     return params["lm_head"]
 
 
+def _xent_chunk(hc: Tensor, w_cast: Tensor, tc: Tensor, dtype) -> Tensor:
+    """Summed CE of one seq chunk: f32 logits of the ``dtype`` product."""
+    logits = (cast(hc, dtype) @ w_cast).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, tc[..., None].long())[..., 0]
+    return (lse - gold).sum()
+
+
 def chunked_xent(h: Tensor, w_out: Tensor, targets: Tensor, chunk: int,
                  dtype) -> Tensor:
-    """Mean CE without materializing [B,S,V]: a loop over seq chunks."""
+    """Mean CE without materializing [B,S,V]: a loop over seq chunks,
+    each recomputed in the backward pass where autograd records it (the
+    reference checkpoints its chunk too)."""
     b, s, d = h.shape
     chunk = min(chunk, s)
     if s % chunk:
@@ -472,17 +488,18 @@ def chunked_xent(h: Tensor, w_out: Tensor, targets: Tensor, chunk: int,
     w_cast = cast(w_out, dtype)
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     for c0 in range(0, s, chunk):
-        logits = (cast(h[:, c0:c0 + chunk], dtype) @ w_cast).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1,
-                            targets[:, c0:c0 + chunk, None].long())[..., 0]
-        tot = tot + (lse - gold).sum()
+        args = (h[:, c0:c0 + chunk], w_cast, targets[:, c0:c0 + chunk],
+                dtype)
+        if torch.is_grad_enabled() and (h.requires_grad or
+                                        w_cast.requires_grad):
+            tot = tot + checkpoint(_xent_chunk, *args, use_reentrant=False)
+        else:
+            tot = tot + _xent_chunk(*args)
     return tot / (b * s)
 
 
 def loss_fn(params: dict, cfg: TransformerConfig, batch: dict) -> Tensor:
-    """batch: tokens int[B,S], labels int[B,S] -> scalar CE (the value;
-    gradients belong to the training path)."""
+    """batch: tokens int[B,S], labels int[B,S] -> scalar CE."""
     h, _ = backbone(params, cfg, batch["tokens"], want_cache=False)
     return chunked_xent(h, _logits_matrix(params, cfg), batch["labels"],
                         cfg.loss_chunk, cfg.dtype)

@@ -2131,3 +2131,174 @@ def test_bag_mean_on_card_equals_plain(gpu):
     assert tbag.embedding_bag.launches == before + 1
     want = tbag.embedding_bag_plain(table, idx, "mean")
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# training: the backward rules, fixed-order sums, a small train on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("which", ["attention_f32", "attention_bf16", "bag",
+                                   "bag_mean", "pna"])
+def test_backward_rules_on_card(gpu, which):
+    """Each ``ops`` Function on the card: the forward launches its kernel
+    once, and the backward rule (torch ops) equals autograd of the plain
+    version on the card (attention: the reference's chunked arithmetic,
+    f32 within 1e-4 and bf16 within 2e-2 rel-to-max, as the kernel's
+    forward rounds otherwise; bag: 1e-6, autograd adds a row's slots in
+    another order; PNA: 1e-4, against ``pna_multi_agg_autograd`` over the
+    whole graph at once) and the same rule run on the CPU (1e-5)."""
+    from repro_torch.models.attention import chunked_attention_plain
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=gpu).manual_seed(5)
+    if which.startswith("attention"):
+        dt = torch.bfloat16 if which.endswith("bf16") else torch.float32
+        args = [torch.randn(2, h, 256, 64, generator=g, device=gpu).to(dt)
+                for h in (8, 4, 4)]
+        counter = tfa.flash_attention
+        tol = 2e-2 if dt == torch.bfloat16 else 1e-4
+
+        def call(*x):
+            return ops.attention(*x, causal=True, window=100)
+
+        def plain(*x):
+            return chunked_attention_plain(*x, causal=True, window=100,
+                                           chunk=64)
+    elif which.startswith("bag"):
+        mode = "mean" if which == "bag_mean" else "sum"
+        idx = torch.randint(-1, 300, (512, 6), generator=g, device=gpu,
+                            dtype=torch.int32)
+        args = [torch.randn(300, 16, generator=g, device=gpu)]
+        counter, tol = tbag.embedding_bag, 1e-6
+
+        def call(t):
+            return ops.embedding_bag(t, idx.to(t.device), mode)
+
+        def plain(t):
+            return tbag.embedding_bag_plain(t, idx, mode)
+    else:
+        feats, nbr = _pna_case(gpu, "scattered")
+        args = [torch.relu(feats)]                 # relu ties at zero
+        counter, tol = tpna.pna_multi_agg, 1e-4
+
+        def call(f):
+            return ops.pna_multi_agg(f, nbr.to(f.device))
+
+        def plain(f):
+            return tpna.pna_multi_agg_autograd(f, nbr)
+    grads, cot = [], None
+    for fn, device in ((call, gpu), (plain, gpu), (call, "cpu")):
+        xs = [a.detach().to(device).requires_grad_() for a in args]
+        before = counter.launches
+        out = fn(*xs)
+        assert counter.launches == before + (fn is call and device == gpu)
+        if cot is None:
+            cot = torch.randn(out.shape, generator=g, device=gpu).to(
+                out.dtype)
+        out.backward(cot.to(device))
+        grads.append([x.grad for x in xs])
+    for got, want_plain, want_cpu in zip(*grads):
+        assert torch.isfinite(got).all()
+        assert _rel(got, want_plain) <= tol
+        assert _rel(got, want_cpu) <= max(tol, 1e-5)
+
+
+def test_raw_launchers_refuse_grad_on_card(gpu):
+    """A CUDA input that requires grad never reaches a raw launch (its
+    gradient would be lost); ``ops`` takes it through its Function."""
+    q = torch.randn(1, 2, 64, 64, device=gpu, requires_grad=True)
+    for call in (lambda: tfa.flash_attention(q, q, q),
+                 lambda: tbag.embedding_bag(
+                     q[0, 0], torch.zeros(3, 2, dtype=torch.int32,
+                                          device=gpu)),
+                 lambda: tpna.pna_multi_agg(
+                     q[0, 0], torch.zeros(3, 2, dtype=torch.int32,
+                                          device=gpu))):
+        with pytest.raises(ValueError, match="requires grad"):
+            call()
+    ops.attention(q, q, q).sum().backward()
+    assert q.grad is not None and torch.isfinite(q.grad).all()
+
+
+def test_segment_sum_repeats_on_card(gpu):
+    """``segment_sum`` on the card adds in a fixed order: the same bits
+    run after run (atomics once made them vary), 1-D and 2-D, unsorted
+    ids with out-of-range ones; within 1e-5 of the CPU's entry order."""
+    from repro_torch.core import segments
+    g = torch.Generator(device=gpu).manual_seed(8)
+    ids = torch.randint(-2, 1003, (200_000,), generator=g, device=gpu,
+                        dtype=torch.int32)
+    for shape in ((200_000,), (200_000, 17)):
+        x = torch.randn(shape, generator=g, device=gpu) * 1e3
+        runs = [segments.segment_sum(x, ids, 1000) for _ in range(3)]
+        for r in runs[1:]:
+            assert torch.equal(r.view(torch.int32), runs[0].view(torch.int32))
+        want = segments.segment_sum(x.cpu(), ids.cpu(), 1000)
+        assert _rel(runs[0], want) < 1e-5
+        std = [segments.segment_std(x, ids, 1000) for _ in range(2)]
+        assert torch.equal(std[0].view(torch.int32), std[1].view(torch.int32))
+
+
+def test_pna_kernel_nan_rows(gpu):
+    """NaN rows through ``csrc/pna_multi_agg.cu``: the kernel equals the
+    plain version (mean and std NaN, min and max 0 where a NaN row is a
+    neighbour), NaN for NaN and bit for bit elsewhere."""
+    feats, nbr = _pna_case(gpu, "scattered")
+    feats[torch.arange(0, feats.shape[0], 7, device=gpu)] = float("nan")
+    feats[3, 5] = -float("nan")
+    got = tpna.pna_multi_agg(feats, nbr)
+    want = tpna.pna_multi_agg_plain(feats, nbr)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    ok = ~torch.isnan(want)
+    assert torch.equal(got[ok].view(torch.int32), want[ok].view(torch.int32))
+    d = feats.shape[1]
+    hit = (nbr >= 0) & (nbr % 7 == 0)
+    rows = hit.any(1)
+    assert rows.any() and torch.isnan(got[rows, :d]).all()
+    assert (got[rows, d:3 * d] == 0).all()
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_small_transformer_trains_on_card_as_on_cpu(gpu, dt):
+    """Two train steps of a small transformer (qwen3's smoke shape) on the
+    card and on the CPU from the same weights and batches: the card's
+    attention is the flash kernel (launched twice a layer a step: the
+    forward, and its recomputation under ``remat``), its backward the
+    rule in torch ops.  Loss and every gradient leaf of the first step
+    within 1e-4 (f32) / 3e-2 (bf16, the kernel's own bf16 bound: a bf16
+    product's rounding differs between the devices) rel-to-max; the
+    second step's loss too."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as ttfm
+    from repro_torch.train import data as tdata
+    from repro_torch.train import optimizer as topt
+    from repro_torch.core import tree
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.get_arch("qwen3-0.6b").make_config("smoke")
+    cfg = dataclasses.replace(cfg, dtype=torch.float32 if dt == "f32"
+                              else torch.bfloat16)
+    tol = 1e-4 if dt == "f32" else 3e-2
+    cpu = ttfm.init_params(0, cfg, device="cpu")
+    loss = lambda p, b: ttfm.loss_fn(p, cfg, b)                # noqa: E731
+    step = topt.make_train_step(loss, topt.AdamWConfig(lr=1e-2))
+    states = {}
+    for dev in (gpu, "cpu"):
+        p = ttfm.tree_map(lambda t: t.to(dev), cpu)
+        s = topt.init(p)
+        batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                    tdata.lm_batch(0, i, 2, 32, cfg.vocab).items()}
+                   for i in range(2)]
+        before = tfa.flash_attention.launches
+        l0, g0 = topt.value_and_grad(loss, p, batches[0])
+        launched = tfa.flash_attention.launches - before
+        out = []
+        for b in batches:
+            p, s, m = step(p, s, b)
+            out.append(float(m["loss"]))
+        states[str(dev)] = (l0, g0, out, launched)
+    (l0, g0, out, launched), (cl0, cg0, cout, _) = states.values()
+    assert launched == 2 * cfg.n_layers
+    assert abs(float(l0) - float(cl0)) <= tol * abs(float(cl0))
+    for a, b in zip(tree.leaves(g0), tree.leaves(cg0)):
+        assert torch.isfinite(a).all() and _rel(a, b) <= tol
+    np.testing.assert_allclose(out, cout, rtol=tol)

@@ -237,3 +237,24 @@ def test_relu_turns_negative_zero_positive():
     assert not torch.signbit(out[:3]).any()
     assert out[3] == 3.0 and torch.isnan(out[4])
     assert not np.signbit(np.asarray(jax.nn.relu(jnp.float32(-0.0))))
+
+
+def test_pna_nan_rows_match_reference():
+    """A NaN neighbour row makes its node's mean and std NaN and its min
+    and max 0 (NaN, then the ``isfinite`` guard), as the reference's
+    ``ref_pna_multi_agg`` gives: the plain version once skipped the NaN
+    in min and max (-2 and 1 for neighbours [1, NaN, -2])."""
+    from repro.kernels import ref as rref
+    from repro_torch.kernels import segment_multi_agg as tpna
+    feats = np.array([[1.0, 0.5], [np.nan, 2.0], [-2.0, -np.nan],
+                      [3.0, 4.0]], np.float32)
+    nbr = np.array([[0, 1, 2], [3, -1, -1], [2, 1, -1], [-1, -1, -1]],
+                   np.int32)
+    want = np.asarray(rref.ref_pna_multi_agg(jnp.asarray(feats),
+                                             jnp.asarray(nbr)))
+    got = tpna.pna_multi_agg_plain(torch.from_numpy(feats),
+                                   torch.from_numpy(nbr)).numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    ok = ~np.isnan(want)
+    np.testing.assert_array_equal(got[ok], want[ok])
+    assert (got[0, 2:6] == 0).all() and np.isnan(got[0, 0])

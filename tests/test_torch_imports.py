@@ -51,7 +51,9 @@ def test_port_imports_neither_jax_nor_repro():
         "       'repro_torch.configs.pna', 'repro_torch.configs.sasrec',\n"
         "       'repro_torch.configs.bert4rec', 'repro_torch.configs.dien',\n"
         "       'repro_torch.configs.xdeepfm', 'repro_torch.train',\n"
-        "       'repro_torch.train.data'}\n"
+        "       'repro_torch.train.data', 'repro_torch.train.optimizer',\n"
+        "       'repro_torch.train.checkpoint', 'repro_torch.train.loop',\n"
+        "       'repro_torch.core.tree', 'repro_torch.launch.train'}\n"
         "assert new <= set(mods), sorted(new - set(mods))\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -343,7 +345,7 @@ NO_COUNTERPART = {"kernels": {"ref", "runtime"}}
 WAITING = {"distributed": {"compress"},
            "launch": {"hw", "mesh", "sharding"},
            "configs": {"Cell"},
-           "train": {"checkpoint", "elastic", "loop", "optimizer"}}
+           "train": {"elastic"}}
 
 
 def _package_names(package: str) -> set:
@@ -391,7 +393,9 @@ def test_package_names_cover_the_reference(package):
             "configs": "from repro_torch.configs import ARCHS, get_arch, "
                        "ArchDef, paper_index, list_cells, pna, xdeepfm",
             "train": "from repro_torch.train import data; "
-                     "from repro_torch.train.data import NeighborSampler"
+                     "from repro_torch.train.data import NeighborSampler; "
+                     "from repro_torch.train import checkpoint, loop, "
+                     "optimizer; import repro_torch.launch.train"
             }[package]
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", code], env=env,

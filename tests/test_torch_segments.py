@@ -270,3 +270,81 @@ def test_prefetcher_yields_steps_in_order():
     it = iter(pf)
     assert [next(it)["step"] for _ in range(4)] == [3, 4, 5, 6]
     pf.close()
+
+
+@pytest.mark.parametrize("name", ["segment_min", "segment_max"])
+def test_nan_propagates_in_min_and_max(ref_fns, name):
+    """A NaN of either sign makes its segment's min and max NaN, as
+    ``jax.ops.segment_min`` / ``segment_max`` do (the order keys once put
+    a NaN past +-inf, so a positive NaN lost a min and a negative one a
+    max); the other segments keep their bits, -0.0 below +0.0 and the
+    +-inf of an empty segment included."""
+    nan, neg_nan = np.float32(np.nan), -np.float32(np.nan)
+    x = np.array([1.0, nan, neg_nan, -1.0, np.inf, nan, -np.inf, neg_nan,
+                  -0.0, 0.0, 2.0, 5.0], np.float32)
+    ids = np.array([0, 0, 1, 1, 2, 2, 3, 3, 4, 4, 5, 6], np.int32)
+    rng = np.random.default_rng(9)
+    y = _data(200, 3, rng)
+    y[rng.random((200, 3)) < 0.05] = nan
+    y[rng.random((200, 3)) < 0.05] = neg_nan
+    y[rng.random((200, 3)) < 0.05] = np.inf
+    yids = _ids("unsorted", 200, rng)
+    for data, seg, n in ((x, ids, 8), (y, yids, N_SEG)):
+        want = np.asarray(ref_fns[name](jnp.asarray(data), jnp.asarray(seg),
+                                        n))
+        got = getattr(tseg, name)(torch.from_numpy(data),
+                                  torch.from_numpy(seg), n).numpy()
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+        ok = ~np.isnan(want)
+        _assert_bits(got[ok], want[ok])
+    assert np.isnan(got).any()
+
+
+def test_std_is_the_jitted_reference():
+    """``segment_std`` as its caller runs it, under ``jax.jit``: XLA
+    contracts ``mean_sq - mean * mean`` into an FMA (not where the whole
+    input is one entry), so near-equal values keep a variance the plain
+    expression rounds away: three values of 1000.1 give 0.3137 under
+    jit, 0.3536 eagerly.  Held at the module's rtol 1e-6 over
+    low-variance segments around 1e3 and 1, and single entries."""
+    f = jax.jit(rseg.segment_std, static_argnums=(2,))
+    x = np.full(3, 1000.1, np.float32)
+    got = tseg.segment_std(torch.from_numpy(x),
+                           torch.zeros(3, dtype=torch.int32), 1).numpy()
+    np.testing.assert_allclose(got, [0.31372842], rtol=1e-6)
+    rng = np.random.default_rng(11)
+    for case in range(40):
+        e = 1 if case % 10 == 0 else int(rng.integers(2, 60))
+        base = rng.choice([1000.1, 1.0, -3.7])
+        data = (base + rng.normal(size=(e, 4)) * 10.0 ** rng.integers(-5, -1)
+                ).astype(np.float32)
+        if case % 3 == 0:
+            data[:] = data[0]                    # equal values
+        ids = np.sort(rng.integers(0, 5, e)).astype(np.int32)
+        want = np.asarray(f(jnp.asarray(data), jnp.asarray(ids), 5))
+        got = tseg.segment_std(torch.from_numpy(data), torch.from_numpy(ids),
+                               5).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=FLT_MIN)
+
+
+@pytest.mark.parametrize("name", ["segment_sum", "segment_mean",
+                                  "segment_std"])
+def test_reduction_gradients_match_reference(name):
+    """Autograd of the sums, means and std against ``jax.grad`` of the
+    jitted reference, with equal values (std's ``max(var, 0)`` at 0
+    splits its gradient in halves) and one-entry segments, within 1e-5
+    rel-to-max."""
+    rng = np.random.default_rng(12)
+    data = rng.normal(size=(40, 3)).astype(np.float32)
+    data[:6] = 2.5                                    # segment 0: equal
+    ids = np.sort(rng.integers(1, 8, 40)).astype(np.int32)
+    ids[:6] = 0
+    ids[-1] = 8                                       # one entry
+    g = rng.normal(size=(9, 3)).astype(np.float32)
+    want = np.asarray(jax.jit(lambda d, i, g: jax.vjp(
+        lambda x: getattr(rseg, name)(x, i, 9), d)[1](g)[0])(data, ids, g))
+    x = torch.from_numpy(data).requires_grad_()
+    getattr(tseg, name)(x, torch.from_numpy(ids), 9).backward(
+        torch.from_numpy(g))
+    got = x.grad.numpy()
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
