@@ -384,6 +384,45 @@
    set to 0 before and read after: one bag launch a micro-batch, four
    PNA launches (one a layer) a step, nothing else.  Every line carries
    the card's name and power limit; ``train step:`` gives the wall time.
+15. The mesh phase, right after step 14, TF32 off: (a) every smoke cell
+   of the dry run (``ArchDef.cell(shape, scale="smoke")``, all 40),
+   arguments made on the CPU from ``--seed`` (``cell_inputs``), its
+   ``fn`` once on the CPU and once on the card: the same tree, shapes
+   and dtypes, every float leaf finite and within ``CELL_TOL`` of the
+   CPU's by rel-to-max over its own largest value (f32 1e-4, bf16 2e-2;
+   an optimizer's second moment by its square root; a top-k pair by
+   step 13's near-tie rule), or, for a leaf past it, within twice what
+   rounding alone moves it on the CPU (``cell_witness``: a bf16 cell
+   run in f32, the card also within that of the f32 run; an f32 cell on
+   its params moved one ulp); integers equal; a train step's new params
+   (their distance from the CPU's printed) changed and equal, bit for
+   bit, to the AdamW update the card makes from its own moments; the
+   card's call made without the MoE routing hook (the
+   experts recorded in a second call, which the CPU then takes, as step
+   12's near-tie rule allows); every counter set to
+   0 just before the card's call and read just after (``cell_launches``:
+   the flash kernel twice a GQA layer a train step, once a prefill, none
+   in MLA or decode; the bag once an xDeepFM chunk; PNA once a layer).
+   (b) ``launch.dryrun`` over every cell on both production meshes in a
+   temporary directory: 80 records, all ``ok``; how many fit 80 GB.
+   (c) Qwen3-0.6B at full width, seq 4,096, ``COMPRESS_BATCH`` = 8 (step
+   14's cut) split 2 a slot over ``make_host_mesh(n_slots=4)`` on this
+   card: ``COMPRESS_STEPS`` = 3 AdamW steps on the int8 mean of
+   ``compress.make_compressed_grad_fn`` on a repeated batch, the error
+   buffers carried, each step counted from 0 (the flash kernel twice a
+   layer a slot, nothing else); the shards' plain gradients made again
+   beside each step: every mean leaf within the two quantisations' half
+   scales of their plain f32 mean; shard 0's loss descends;
+   ``quantized_psum_mean`` of the ``attn/wk`` leaf on the card equals
+   the CPU's to the bit; prints the step ms, the peak memory and the
+   int8 bytes a slot sends against an f32 ring all-reduce's.  (d)
+   (c)'s params and AdamW state saved, then ``elastic.recover``ed onto
+   a (2, 2) mesh of 4 slots on this card with ``lm_small_param_spec``:
+   every leaf gathers back to the saved bits, and every slot holds the
+   dry run's per-device bytes of qwen3-0.6b train_4k's params and
+   optimizer state on a (2, 2) mesh.  Prints the card's
+   ``total_memory`` beside ``launch.hw.HBM_PER_CHIP`` and ``mesh ...:``
+   lines.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.  Every failed check raises.
@@ -402,9 +441,14 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device-memory rate
-F32_OPS_PER_S = 67e12         # H100 SXM f32 rate outside the tensor cores
+sys.path.insert(0, str(SRC))
+try:    # the card's rates, from NVIDIA's H100 SXM data sheet
+    from repro_torch.launch.hw import HBM_BW as HBM_BYTES_PER_S
+    from repro_torch.launch.hw import PEAK_FLOPS_BF16 as BF16_OPS_PER_S
+    from repro_torch.launch.hw import PEAK_FLOPS_F32 as F32_OPS_PER_S
+    from repro_torch.launch.hw import PEAK_FLOPS_TF32 as TF32_OPS_PER_S
+except ImportError:     # outside a checkout: main() says so and exits
+    HBM_BYTES_PER_S = BF16_OPS_PER_S = F32_OPS_PER_S = TF32_OPS_PER_S = None
 NUM_DOCS, VOCAB, AVG_DISTINCT = 1_004_721, 50_000, 40
 BATCH, TERMS, K = 8, 3, 10
 BATCHES = 5                   # query batches served per layout
@@ -485,11 +529,8 @@ ATTN_SITES = {       # site: (batch, Hq, Hkv, head dim, window, dtype name)
 # a bf16 site's kernel against the plain version in f32, rounded to bf16:
 # one bf16 rounding apart at most (2**-7 of the value), above a floor
 BF16_RTOL, BF16_ATOL = 8e-3, 1e-3
-BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core rate
-# H100 SXM dense TF32 tensor-core rate (NVIDIA's data sheet): an f32
-# product to f32 accuracy takes three TF32 passes (3xTF32), the least time
-# this card can do it in
-TF32_OPS_PER_S = 495e12
+# an f32 product to f32 accuracy takes three TF32 passes (3xTF32) on the
+# tensor cores (TF32_OPS_PER_S), the least time this card can do it in
 
 
 def smi(fields: str) -> str:
@@ -746,7 +787,6 @@ def main() -> int:
         print(f"chip_smoke: {SRC / 'repro_torch'} not found: run from a "
               "checkout of the repository", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(SRC))
     import numpy as np
 
     from repro_torch.core import build, layouts, query
@@ -792,6 +832,14 @@ def main() -> int:
     phase_s["train"] = time.perf_counter() - t0
     print(f"phase train: {phase_s['train']:.1f} s")
     t_phase += phase_s["train"]
+
+    # 15. the cells, the dry run, compressed training, the elastic restore
+    t0 = time.perf_counter()
+    mesh_phase(a.seed, dev, report, card)
+    torch.cuda.empty_cache()
+    phase_s["mesh"] = time.perf_counter() - t0
+    print(f"phase mesh: {phase_s['mesh']:.1f} s")
+    t_phase += phase_s["mesh"]
 
     # 13. recsys and GNN serving, next, while nothing else is held
     t0 = time.perf_counter()
@@ -4786,6 +4834,602 @@ def train_phase(seed, dev, report, card):
     print(f"train step: {step['step_s']:.1f} s wall, held before {held} B "
           f"({card})")
     report["train"] = step
+
+
+# ---------------------------------------------------------------------------
+# mesh phase (step 15): the cells, the dry run, compressed-gradient
+# training over shard slots, the elastic restore
+# ---------------------------------------------------------------------------
+
+# rel-to-max, each float leaf by its own largest value, card vs CPU: the
+# repository's f32 1e-4 and bf16 2e-2; a leaf whose own rounding moves
+# it further is held by its witness (``cell_witness``, ``held_cell``)
+CELL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+WITNESS_MOVES = 16             # one-ulp moves of an f32 cell's params, at most
+COMPRESS_SLOTS = 4             # shard slots of the host mesh, all on cuda:0
+COMPRESS_BATCH = 8             # train_4k's batch cut as in step 14: 2 a slot
+COMPRESS_STEPS = 3
+
+
+def cell_inputs(arch, cell, seed):
+    """CPU arguments for a smoke ``cell``'s ``fn``, made from ``seed``:
+    params from the arch's own init (in the cell's dtypes), a fresh
+    optimizer state for a train cell, and every other leaf drawn in the
+    range its role takes (token and item ids below their tables, node
+    ids below the node count, cache lengths inside the cache)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import base
+    from repro_torch.core import tree
+    from repro_torch.models import gnn
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import optimizer as topt
+    shp = arch.smoke_shapes[cell.shape_id]
+    cfg = arch.make_config("smoke", cell.shape_id)
+    init = {"lm": tfm.init_params, "gnn": gnn.init_params}.get(
+        arch.kind) or base._REC_INIT[base._rec_arch(arch.arch_id)]
+    params = tree.map(lambda x, a: x.to(a.dtype),
+                      init(seed, cfg, device="cpu"), cell.abstract_args[0])
+    rng = np.random.default_rng(seed)
+
+    def ints(hi, a, lo=0):
+        return torch.from_numpy(rng.integers(lo, hi, size=a.shape)).to(
+            a.dtype)
+
+    def leaf(role, a):
+        if role in ("tokens", "labels"):
+            return ints(cfg.vocab, a)
+        if role == "cache":
+            return (torch.from_numpy(rng.normal(size=a.shape)) * 0.5).to(
+                a.dtype)
+        if role == "cache_len":
+            return ints(shp["seq"], a, lo=shp["seq"] // 2)
+        if role in ("src", "dst"):
+            return ints(shp["n_nodes"], a)
+        if role in ("labels_gnn", "g_labels"):
+            return ints(cfg.n_classes, a)
+        if role == "mask":
+            return torch.from_numpy(rng.random(a.shape) < 0.5)
+        if role == "graph_ids":
+            g = shp["n_graphs"]
+            return torch.from_numpy(np.minimum(
+                np.arange(a.shape[0]) // (a.shape[0] // g), g - 1)).to(
+                a.dtype)
+        if role == "sparse":
+            return ints(cfg.field_vocab, a)
+        if role == "label":
+            return ints(2, a)
+        if a.dtype.is_floating_point:           # feats, candidate rows
+            return torch.from_numpy(rng.normal(size=a.shape)).to(a.dtype)
+        return ints(cfg.n_items, a, lo=1)       # item ids of a history
+
+    roles = {"prefill": (None, "tokens"),
+             "decode": (None, "cache", "tokens", "cache_len")}
+    args = [params]
+    for i, a in enumerate(cell.abstract_args[1:], 1):
+        if cell.kind == "train" and i == 1:
+            args.append(topt.init(params))
+        elif cell.kind in roles:
+            args.append(tree.map(lambda x, r=roles[cell.kind][i]: leaf(r, x),
+                                 a))
+        else:
+            def named(path, x):
+                key = path[-1].key if path else "cand"
+                if key == "labels" and arch.kind == "gnn":
+                    key = "labels_gnn"
+                return leaf(key, x)
+            args.append(tree.map_with_path(named, a))
+    return tuple(args)
+
+
+def cell_launches(arch, cell):
+    """The kernel launches one call of a smoke cell's ``fn`` makes: the
+    flash kernel once a GQA layer in a prefill, twice in a train step
+    (``remat`` recomputes the layer), none in MLA or a decode step; the
+    bag once an xDeepFM user chunk (once a train or retrieval call); PNA
+    once a layer; nothing else."""
+    from repro_torch.configs import base
+    cfg = arch.make_config("smoke", cell.shape_id)
+    if arch.kind == "lm":
+        if cfg.attn == "mla" or cell.kind == "decode":
+            return {}
+        return {"flash_attention":
+                cfg.n_layers * (2 if cell.kind == "train" else 1)}
+    if arch.kind == "gnn":
+        return {"pna_multi_agg": cfg.n_layers}
+    if arch.arch_id == "xdeepfm":
+        shp = arch.smoke_shapes[cell.shape_id]
+        return {"embedding_bag": base.serve_chunks(shp)[0]
+                if cell.kind == "serve" else 1}
+    return {}
+
+
+@contextlib.contextmanager
+def moe_routes(tfm, replay=None, force=False):
+    """The MoE dispatches of one call: recorded (the card's run: each
+    dispatch's experts and the least gap among its tokens' k + 1 largest
+    router logits, in bf16 ulps), or replayed (the CPU's run, in the
+    same order, backward recomputations included).  A replayed token
+    takes the card's experts; where they differ from the CPU's own
+    choice, its logits must lie within one bf16 ulp of a tie on either
+    device (``test_lm_moe_bf16_routes_as_cpu``'s rule), else it raises;
+    with ``force`` (the f32 witness run) it takes them whatever its own
+    logits say.  Yields the record (or the replay's count of moved
+    tokens)."""
+    import torch
+    real_logits, real_topk = tfm.router_logits, tfm.top_k_stable
+    calls = [] if replay is None else list(replay)
+    last, moved = {}, [0]
+
+    def logits_fn(*a, **kw):
+        last["l"] = real_logits(*a, **kw)
+        return last["l"]
+
+    def topk_fn(probs, k):
+        v, e = real_topk(probs, k)
+        top = last["l"].sort(dim=-1, descending=True).values[..., :k + 1]
+        ulp = torch.exp2(torch.floor(torch.log2(
+            top[..., :-1].abs().clamp_min(2.0 ** -126))) - 7)
+        gaps = ((top[..., :-1] - top[..., 1:]) / ulp).amin(-1).cpu()
+        if replay is None:
+            calls.append((e.cpu(), gaps))
+            return v, e
+        card_e, card_gaps = calls.pop(0)
+        diff = (card_e != e.cpu()).any(-1)
+        if not force and (diff & (torch.minimum(gaps, card_gaps) > 1)).any():
+            raise AssertionError("MoE routing differs from the card's "
+                                 "away from a near tie")
+        moved[0] += int(diff.sum())
+        e = card_e.to(e.device)
+        return probs.gather(-1, e), e
+
+    tfm.router_logits, tfm.top_k_stable = logits_fn, topk_fn
+    try:
+        yield calls if replay is None else moved
+    finally:
+        tfm.router_logits, tfm.top_k_stable = real_logits, real_topk
+
+
+def cell_witness(arch, arch_id, shape_id, args, routes, seed, k):
+    """The ``k``-th second CPU run of a smoke cell, made to show how far
+    rounding alone moves each output leaf; None past the last.  A bf16
+    cell (every one an LM) has one: the cell again in f32 (built on the
+    config in f32, every float argument in f32, the card's MoE experts
+    taken whatever its own router says), whose distance from the CPU's
+    bf16 run is the bf16 arithmetic's own error.  An f32 cell has up to
+    ``WITNESS_MOVES``: its params each moved by one ulp, up or down as a
+    generator seeded ``(seed, k)`` draws, whose distance from the CPU's
+    run is what the last bit of the inputs moves.  That distance comes
+    in jumps (a near tie of PNA's min or max that one move flips and
+    another does not), so ``held_cell`` tries moves in turn."""
+    import dataclasses as dc
+
+    import torch
+    from repro_torch.configs import base
+    from repro_torch.core import tree
+    from repro_torch.models import transformer as tfm
+    cfg = arch.make_config("smoke", shape_id)
+    if getattr(cfg, "dtype", torch.float32) == torch.bfloat16:
+        if k:
+            return None
+        cell = base._lm_cell(arch_id, dc.replace(cfg, dtype=torch.float32),
+                             shape_id, arch.smoke_shapes[shape_id])
+        f32 = tree.map(lambda x: x.float() if x.dtype.is_floating_point
+                       else x.clone(), args)
+        with moe_routes(tfm, routes, force=True):
+            return "f32 run", cell.fn(*f32)
+    if k >= WITNESS_MOVES:
+        return None
+    gen = torch.Generator().manual_seed(seed * 1000 + k)
+
+    def one_ulp(x):
+        if not x.dtype.is_floating_point:
+            return x.clone()
+        up = torch.rand(x.shape, generator=gen) < 0.5
+        return torch.nextafter(x, torch.where(up, torch.inf, -torch.inf).to(
+            x.dtype))
+    moved = (tree.map(one_ulp, args[0]),) + tuple(
+        tree.map(torch.clone, a) for a in args[1:])
+    return "params one ulp", arch.cell(shape_id, scale="smoke").fn(*moved)
+
+
+def held_cell(label, got, want, dtype, card_params, witness):
+    """A cell's outputs on the card against the CPU's: the same tree,
+    shapes and dtypes; integer leaves equal; a top-k pair by
+    ``held_to_cpu``'s near-tie rule.  Each float leaf finite and within
+    ``CELL_TOL`` of the CPU's, by rel-to-max over that leaf's own
+    largest value (an optimizer's second moment by its square root).
+    A leaf past that is held by ``witness(k)``, ``cell_witness``'s k-th
+    run, made only then: where a witness run lies ``s`` (the same
+    measure) from the CPU's, the card may lie within ``2 s`` of it, each
+    device carrying its own rounding of that size, and a bf16 leaf must
+    also lie within ``2 s`` of the f32 run.  A train step's new params
+    are held through its moments: they must change, and equal, bit for
+    bit, the AdamW update of the old ones (``card_params``) from the
+    card's own moments (``optimizer.params_from_moments``, on the card).
+    Their distance from the CPU's is printed, not held: AdamW's first step
+    moves each element by about ``lr`` whatever its gradient's size, so
+    a gradient near zero whose sign the devices round apart moves a
+    zero-init param ``2 lr`` apart, twice that leaf's own largest
+    value."""
+    import torch
+    from repro_torch.configs import base
+    from repro_torch.core import tree
+    from repro_torch.train import optimizer as topt
+    tol = CELL_TOL[str(dtype)[6:]]
+    out = {"max_rel": 0.0, "held_by_witness": []}
+    train = isinstance(want, tuple) and len(want) == 3 and \
+        isinstance(want[2], dict) and "loss" in want[2]
+    if isinstance(want, tuple) and len(want) == 2 and \
+            not want[1].dtype.is_floating_point and \
+            not hasattr(want, "_fields"):
+        out.update(held_to_cpu(label, got, want))
+        return out
+    gp, gdef = tree.flatten_with_path(got)
+    wl, wdef = tree.flatten(want)
+    if str(gdef) != str(wdef):
+        raise AssertionError(f"{label}: output tree {gdef} != {wdef}")
+
+    def rel(a, b, name):
+        a, b = a.cpu().double(), b.double()
+        if ".v" in name:
+            a, b = a.sqrt(), b.sqrt()
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+    past = {}
+    for i, ((path, g), w) in enumerate(zip(gp, wl)):
+        name = "/".join(str(k) for k in path)
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{label} {name}: {g.shape} {g.dtype} on "
+                                 f"the card, {w.shape} {w.dtype} on the CPU")
+        if not w.dtype.is_floating_point:
+            if not torch.equal(g.cpu(), w):
+                raise AssertionError(f"{label} {name}: integers differ")
+            continue
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{label} {name}: not finite")
+        d = rel(g, w, name)
+        if train and name.startswith("[0]"):
+            out["params_card_cpu"] = max(out.get("params_card_cpu", 0.0), d)
+            continue
+        out["max_rel"] = max(out["max_rel"], d)
+        if d >= tol:
+            past[i] = {"leaf": name, "card_cpu": d, "witness_cpu": 0.0}
+    k = 0
+    while past and any(h["card_cpu"] >= 2 * h["witness_cpu"]
+                       for h in past.values()):
+        run = witness(k)
+        if run is None:
+            break
+        out["witness"], xl = run[0], tree.leaves(run[1])
+        out["witness_runs"] = k = k + 1
+        for i, h in past.items():
+            h["witness_cpu"] = max(h["witness_cpu"],
+                                   rel(xl[i], wl[i], h["leaf"]))
+            if run[0] == "f32 run":
+                h["card_f32"] = rel(gp[i][1], xl[i], h["leaf"])
+    for h in past.values():
+        out["held_by_witness"].append(h)
+        s = h["witness_cpu"]
+        if h["card_cpu"] >= 2 * s or h.get("card_f32", 0.0) >= 2 * s:
+            raise AssertionError(f"{label} {h['leaf']}: card vs CPU "
+                                 f"{h['card_cpu']} (tolerance {tol}; "
+                                 f"{out.get('witness')}: {h})")
+    if train:
+        new, old = tree.leaves(got[0]), tree.leaves(card_params)
+        if all(torch.equal(a, b) for a, b in zip(new, old)):
+            raise AssertionError(f"{label}: the step left the params")
+        want_new = tree.leaves(topt.params_from_moments(
+            base.OPT_CFG, card_params, got[1]))
+        bad = [i for i, (a, b) in enumerate(zip(new, want_new))
+               if not torch.equal(a, b)]
+        if bad:
+            raise AssertionError(f"{label}: params {bad} are not the AdamW "
+                                 "update of the card's moments")
+    return out
+
+
+def cells_on_card(seed, dev, card):
+    """(a): every smoke cell through ``ArchDef.cell``, run once on the
+    CPU and once on the card on the same arguments, launches counted
+    from 0 around the card's call."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import tree
+    from repro_torch.models import transformer as tfm
+    out, failed = {}, []
+    for arch_id, shape_id in configs.list_cells():
+        arch = configs.get_arch(arch_id)
+        cell = arch.cell(shape_id, scale="smoke")
+        args = cell_inputs(arch, cell, seed)
+        moe = getattr(arch.make_config("smoke", shape_id), "moe", None)
+        card_args = to_card(args, dev)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        got = cell.fn(*(tree.map(torch.clone, card_args) if moe is not None
+                        else card_args))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        label = f"cell {arch_id} {shape_id}"
+        launches = only_launched(label, read_launches(),
+                                 cell_launches(arch, cell))
+        routes = []
+        if moe is not None:    # the experts, recorded in a second call
+            with moe_routes(tfm) as routes:
+                got = cell.fn(*card_args)
+        # the CPU on the card's experts; clones: a decode step writes
+        # its cache
+        with moe_routes(tfm, routes) as moved:
+            want = cell.fn(*tree.map(torch.clone, args))
+        witness = functools.partial(cell_witness, arch, arch_id, shape_id,
+                                    args, routes, seed)
+        dtype = getattr(arch.make_config("smoke", shape_id), "dtype",
+                        torch.float32)
+        try:
+            rec = held_cell(label, got, want, dtype, card_args[0], witness)
+        except AssertionError as e:           # every cell's, then raise
+            failed.append(str(e))
+            rec = {"failed": str(e)}
+        if moe is not None:
+            rec["moe_dispatches"] = len(routes)
+            rec["moe_near_tie_tokens"] = moved[0]
+        out[f"{arch_id}/{shape_id}"] = {"kind": cell.kind, "ms": ms,
+                                        "launches": launches, **rec}
+        del got, want, card_args
+    if failed:
+        raise AssertionError("mesh cells:\n" + "\n".join(failed))
+    print(f"mesh cells: {len(out)} smoke cells on the card, each within "
+          f"its tolerance of the CPU: {json.dumps(out)} ({card})")
+    return out
+
+
+def dryrun_both(card):
+    """(b): the dry run over every cell on both production meshes, in a
+    temporary directory: 80 records, all ``ok``."""
+    import io
+    import json as _json
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import dryrun, hw
+    d = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    try:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = dryrun.main(["--all", "--mesh", "both", "--out", d])
+        s = time.perf_counter() - t0
+        recs = [_json.loads(p.read_text()) for p in
+                sorted(Path(d).glob("*/*.json"))]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    n_ok = sum(r["ok"] for r in recs)
+    n_fit = sum(bool(r.get("fits")) for r in recs)
+    if rc != 0 or len(recs) != 80 or n_ok != 80:
+        raise AssertionError(f"dry run: rc {rc}, {len(recs)} records, "
+                             f"{n_ok} ok")
+    big = max(recs, key=lambda r: r["argument_bytes_per_device"])
+    out = {"records": len(recs), "ok": n_ok, "fits": n_fit,
+           "hbm_per_chip": hw.HBM_PER_CHIP, "s": s,
+           "largest": [big["arch"], big["shape"], big["mesh"],
+                       big["argument_bytes_per_device"]]}
+    print(f"mesh dryrun: {json.dumps(out)} ({card})")
+    return out
+
+
+def compressed_train(seed, dev, card):
+    """(c): Qwen3-0.6B at full width, seq ``ATTN_SEQ``, a batch of
+    ``COMPRESS_BATCH`` split over ``COMPRESS_SLOTS`` slots of a host mesh
+    on this card, ``COMPRESS_STEPS`` AdamW steps on the int8 mean of
+    ``make_compressed_grad_fn`` on a repeated batch.  Each step, the
+    shards' plain gradients are made again beside it: every mean leaf
+    within the two quantisations' half scales of their plain f32 mean
+    (with the error buffer the step carried); shard 0's loss descends;
+    ``quantized_psum_mean`` of one leaf on the card equals the CPU's to
+    the bit.  Every counter set to 0 just before each step and read
+    just after: the attention kernel twice a layer a slot."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import tree
+    from repro_torch.distributed import compress, shmap
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch import sharding
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import data as tdata
+    from repro_torch.train import optimizer as topt
+    arch = configs.get_arch("qwen3-0.6b")
+    cfg = arch.make_config("full", "train_4k")
+    params = tfm.init_params(seed, cfg, device=dev)
+    state = topt.init(params)
+    ocfg = topt.AdamWConfig(lr=1e-3, warmup_steps=1,
+                            total_steps=COMPRESS_STEPS)
+    mesh = tmesh.make_host_mesh(n_slots=COMPRESS_SLOTS, device=dev)
+    line = mesh.along("data")
+
+    def loss_fn(p, b):
+        return tfm.loss_fn(p, cfg, b)
+
+    fn = compress.make_compressed_grad_fn(loss_fn, mesh, "data")
+    batch = {k: torch_of(v).to(dev) for k, v in tdata.lm_batch(
+        seed, 0, COMPRESS_BATCH, ATTN_SEQ, cfg.vocab).items()}
+    per = COMPRESS_BATCH // COMPRESS_SLOTS
+    err = compress.zeros_like_error(params)
+    names = ["/".join(str(getattr(k, "key", k)) for k in p)
+             for p, _ in tree.flatten_with_path(params)[0]]
+    out = {"slots": COMPRESS_SLOTS, "batch": COMPRESS_BATCH,
+           "seq": ATTN_SEQ, "losses": [], "step_ms": [],
+           "reduced": f"batch {arch.shapes['train_4k']['batch']} -> "
+                      f"{COMPRESS_BATCH} (step 14's cut), "
+                      f"{per} a slot"}
+    keep, psum_in = names.index("attn/wk"), []
+    worst = 0.0
+    torch.cuda.reset_peak_memory_stats(dev)
+    for step in range(COMPRESS_STEPS):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        loss, mean, new_err = fn(params, batch, err)
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out[f"launches_step{step}"] = only_launched(
+            f"compressed step {step}", read_launches(),
+            {"flash_attention": 2 * cfg.n_layers * COMPRESS_SLOTS})
+        out["losses"].append(float(loss.gather()))
+        # the shards' plain gradients again, each with the buffer it
+        # carried: their f32 mean, and each shard's first scale
+        flat_e = tree.leaves(err)
+        acc, s1 = None, []
+        for s in range(COMPRESS_SLOTS):
+            sl = {k: v[s * per:(s + 1) * per] for k, v in batch.items()}
+            g = tree.leaves(topt.value_and_grad(loss_fn, params, sl)[1])
+            flats = []
+            for i, x in enumerate(g):
+                e = flat_e[i]
+                e = e.pieces[s] if isinstance(e, sharding.ShardedTensor) \
+                    else e
+                f = x.reshape(-1) + e.reshape(-1)
+                flats.append(torch.nn.functional.pad(
+                    f, (0, (-f.numel()) % COMPRESS_SLOTS)))
+            s1.append([float(f.abs().max()) / 127 for f in flats])
+            if step == 0:
+                psum_in.append(flats[keep])
+            acc = flats if acc is None else [a + f for a, f in
+                                             zip(acc, flats)]
+            del g, flats
+        for i, (m, a) in enumerate(zip(tree.leaves(mean), acc)):
+            plain = a / COMPRESS_SLOTS
+            cm = m.gather().reshape(-1)
+            cm = torch.nn.functional.pad(cm, (0, plain.numel() - cm.numel()))
+            chunks = cm.reshape(COMPRESS_SLOTS, -1)
+            s2 = (chunks.abs().amax(1) / 127).repeat_interleave(
+                chunks.shape[1])
+            bound = 0.5 * float(np.mean([x[i] for x in s1])) + 0.5 * s2 + \
+                1e-6 * float(plain.abs().max())
+            over = float(((cm - plain).abs() / bound).max())
+            worst = max(worst, over)
+            if over > 1:
+                raise AssertionError(f"compressed step {step} {names[i]}: "
+                                     f"{over} of the quantisation bound")
+        del acc
+        if step == 0:
+            got = compress.quantized_psum_mean(line, psum_in)[0]
+            want = compress.quantized_psum_mean(
+                shmap.make_mesh(COMPRESS_SLOTS, "data", device="cpu"),
+                [x.cpu() for x in psum_in])[0]
+            same = torch.equal(got.cpu().view(torch.int32),
+                               want.view(torch.int32))
+            out["psum_card_equals_cpu"] = same
+            out["psum_leaf"] = ["attn/wk", int(got.numel())]
+            if not same:
+                raise AssertionError("quantized_psum_mean: card != CPU")
+            del got, want, psum_in
+        params, state, _ = topt.update(
+            ocfg, tree.map(sharding.gather, mean), state, params)
+        err = new_err
+        del mean, loss
+    if not out["losses"][-1] < out["losses"][0]:
+        raise AssertionError(f"compressed training: loss {out['losses']}")
+    out["bound_worst"] = worst
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    # what a slot sends a step: its int8 chunks to its 3 peers, its
+    # quantized chunk mean back to them, two f32 scales each way a leaf;
+    # an f32 ring all-reduce sends 2 (S - 1) / S of the f32 vector
+    s1 = COMPRESS_SLOTS - 1
+    chunks = [(x.numel() + (-x.numel()) % COMPRESS_SLOTS) // COMPRESS_SLOTS
+              for x in tree.leaves(params)]
+    out["wire_bytes_a_slot"] = {
+        "int8": sum(2 * s1 * c + 2 * 4 * s1 for c in chunks),
+        "f32_psum": sum(2 * s1 * 4 * c for c in chunks)}
+    print(f"mesh compressed qwen3-0.6b: {json.dumps(out)} ({card})")
+    del err
+    return out, params, state
+
+
+def elastic_restore(params, state, dev, card):
+    """(d): (c)'s params and optimizer state saved, then ``recover``ed
+    onto a (2, 2) mesh of 4 slots on this card with
+    ``lm_small_param_spec``: every leaf gathers back to the saved bits,
+    and each slot holds the dry run's per-device bytes of those two
+    arguments of qwen3-0.6b's train_4k cell on a (2, 2) mesh."""
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import tree
+    from repro_torch.distributed import shmap
+    from repro_torch.launch import dryrun, sharding
+    from repro_torch.train import checkpoint as tckpt
+    from repro_torch.train import elastic
+    mesh = elastic.largest_mesh(model_parallelism=2, n_slots=4, device=dev)
+    cell = configs.get_arch("qwen3-0.6b").cell(
+        "train_4k", mesh_axes=tuple(mesh.axis_names))
+    rec = dryrun.cell_record(cell, shmap.make_named_mesh(
+        (2, 2), mesh.axis_names, "meta"))
+    want = rec["arg_bytes_per_device"]["params"] + \
+        rec["arg_bytes_per_device"]["opt_state"]
+    d = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    try:
+        t0 = time.perf_counter()
+        tckpt.save(d, COMPRESS_STEPS, (params, state))
+        save_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored, step = elastic.recover(
+            d, (params, state), mesh,
+            lambda p, leaf: sharding.lm_small_param_spec(p, leaf, mesh))
+        torch.cuda.synchronize()
+        recover_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    bad = [i for i, (x, saved) in enumerate(zip(tree.leaves(restored),
+                                                 tree.leaves((params, state))))
+           if not torch.equal(x.gather().view(torch.uint8) if saved.dim()
+                              else x.gather(),
+                              saved.view(torch.uint8) if saved.dim()
+                              else saved)]
+    per_slot = [sum(x.slot_bytes(i) for x in tree.leaves(restored))
+                for i in range(mesh.size)]
+    out = {"mesh": mesh.shape, "step": step, "save_s": save_s,
+           "recover_s": recover_s, "slot_bytes": per_slot,
+           "dryrun_bytes": want, "leaves": len(tree.leaves(restored)),
+           "split_leaves": sum(x.pieces[0].numel() < math.prod(x.shape)
+                               for x in tree.leaves(restored))}
+    print(f"mesh elastic restore: {json.dumps(out)} ({card})")
+    if bad or step != COMPRESS_STEPS or any(b != want for b in per_slot):
+        raise AssertionError(f"elastic restore: leaves {bad} differ, step "
+                             f"{step}, slot bytes {per_slot} != {want}")
+    return out
+
+
+def mesh_phase(seed, dev, report, card):
+    """Step 15: (a)-(d) of the module docstring, TF32 off; the
+    deterministic algorithms on only while (c) runs, as step 14 runs."""
+    import torch
+    from repro_torch.launch import hw
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_step = time.perf_counter()
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"mesh card memory: {total} B beside hw.HBM_PER_CHIP "
+          f"{hw.HBM_PER_CHIP} B ({card})")
+    step = {"total_memory": total, "hbm_per_chip": hw.HBM_PER_CHIP}
+    step["cells"] = cells_on_card(seed, dev, card)
+    torch.cuda.empty_cache()
+    step["dryrun"] = dryrun_both(card)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        step["compressed"], params, state = compressed_train(seed, dev, card)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.empty_cache()
+    step["elastic"] = elastic_restore(params, state, dev, card)
+    del params, state
+    torch.cuda.empty_cache()
+    step["step_s"] = time.perf_counter() - t_step
+    print(f"mesh step: {step['step_s']:.1f} s wall ({card})")
+    report["mesh"] = step
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
 """distributed layer of the PyTorch/CUDA port (mirrors ``repro.distributed``):
 the one-controller mesh (``shmap``), the top-k merges (``topk``), the
-doc- and term-sharded engines (``retrieval``) and split-K decode
-attention (``decode_attn``)."""
-from repro_torch.distributed import (decode_attn, retrieval, shmap,  # noqa: F401
-                                     topk)
+doc- and term-sharded engines (``retrieval``), split-K decode
+attention (``decode_attn``) and int8 gradient compression
+(``compress``)."""
+from repro_torch.distributed import (compress, decode_attn,  # noqa: F401
+                                     retrieval, shmap, topk)

@@ -147,7 +147,8 @@ def retrieval_topk(user_vec: Tensor, cand_table: Tensor, k: int = 100,
     """
     c = cand_table.shape[0]
     if c <= chunk:
-        return top_k_stable((user_vec @ cand_table.T).float(), k)
+        v, ids = top_k_stable((user_vec @ cand_table.T).float(), k)
+        return v, ids.to(torch.int32)          # jax.lax.top_k's id dtype
     g = retrieval_layout(c, k, chunk)
     n, chunk, kb, width, pad = (g[x] for x in ("n", "chunk", "kb", "width",
                                                 "pad"))

@@ -2,7 +2,7 @@
 the synthetic data pipelines and the neighbour sampler (``data``), AdamW
 and the pure train step (``optimizer``), atomic checkpoints in the
 reference's format (``checkpoint``) and the fault-tolerant loop
-(``loop``); ``core.tree`` flattens their trees in JAX's leaf order.
-Elastic re-meshing (``elastic``) waits for the port's meshes."""
-from repro_torch.train import (checkpoint, data, loop,  # noqa: F401
-                               optimizer)
+(``loop``), and the elastic restore onto a mesh (``elastic``);
+``core.tree`` flattens their trees in JAX's leaf order."""
+from repro_torch.train import (checkpoint, data, elastic,  # noqa: F401
+                               loop, optimizer)

@@ -17,8 +17,8 @@ Guarantees:
 
 Differences from the reference, by design: ``restore`` takes ``device``
 (default: each leaf on the device of its ``like`` leaf) where the
-reference takes JAX shardings; the elastic re-mesh (``train/elastic``)
-is not ported.
+reference takes JAX shardings; ``train/elastic.recover`` restores onto
+the host and places each leaf on a mesh.
 """
 from __future__ import annotations
 

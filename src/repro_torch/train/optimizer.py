@@ -25,6 +25,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch.core import tree
+from repro_torch.core.tree import value_and_grad  # noqa: F401
 
 Tensor = torch.Tensor
 
@@ -88,44 +89,35 @@ def update(cfg: AdamWConfig, grads, state: AdamWState, params):
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
                         max=1.0) if cfg.clip_norm > 0 else \
         torch.ones_like(gnorm)
-    step = state.step + 1
-    lr = lr_at(cfg, step)
-    b1c = 1.0 - torch.pow(torch.full_like(lr, cfg.b1), step.float())
-    b2c = 1.0 - torch.pow(torch.full_like(lr, cfg.b2), step.float())
 
-    def upd(p, g, m, v):
+    def moments(g, m, v):
         g = g.float() * scale
-        m2 = cfg.b1 * m + (1 - cfg.b1) * g
-        v2 = cfg.b2 * v + (1 - cfg.b2) * g * g
+        return cfg.b1 * m + (1 - cfg.b1) * g, cfg.b2 * v + (1 - cfg.b2) * g * g
+
+    flat_p, td = tree.flatten(params)
+    out = [moments(g, m, v) for g, m, v in zip(
+        tree.leaves(grads), tree.leaves(state.m), tree.leaves(state.v))]
+    new_state = AdamWState(step=state.step + 1,
+                           m=tree.unflatten(td, [o[0] for o in out]),
+                           v=tree.unflatten(td, [o[1] for o in out]))
+    metrics = {"grad_norm": gnorm, "lr": lr_at(cfg, new_state.step)}
+    return params_from_moments(cfg, params, new_state), new_state, metrics
+
+
+def params_from_moments(cfg: AdamWConfig, params, state: AdamWState):
+    """The params AdamW makes from ``params`` and the state after the
+    step (its moments and step count), elementwise in f32."""
+    lr = lr_at(cfg, state.step)
+    b1c = 1.0 - torch.pow(torch.full_like(lr, cfg.b1), state.step.float())
+    b2c = 1.0 - torch.pow(torch.full_like(lr, cfg.b2), state.step.float())
+
+    def one(p, m2, v2):
         mhat = m2 / b1c
         vhat = v2 / b2c
         delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * \
             p.float()
-        return (p.float() - lr * delta).to(p.dtype), m2, v2
-
-    flat_p, td = tree.flatten(params)
-    out = [upd(p, g, m, v) for p, g, m, v in zip(
-        flat_p, tree.leaves(grads), tree.leaves(state.m),
-        tree.leaves(state.v))]
-    new_p = tree.unflatten(td, [o[0] for o in out])
-    new_m = tree.unflatten(td, [o[1] for o in out])
-    new_v = tree.unflatten(td, [o[2] for o in out])
-    metrics = {"grad_norm": gnorm, "lr": lr}
-    return new_p, AdamWState(step=step, m=new_m, v=new_v), metrics
-
-
-def value_and_grad(loss_fn: Callable, params, batch):
-    """(loss, grads) of ``loss_fn(params, batch)`` by autograd: each param
-    enters as a fresh leaf (``detach``), so nothing of ``params`` is
-    written, and the grads mirror the params' tree and dtypes."""
-    flat, td = tree.flatten(params)
-    leaves = [p.detach().requires_grad_() for p in flat]
-    with torch.enable_grad():
-        loss = loss_fn(tree.unflatten(td, leaves), batch)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
-             for p, g in zip(flat, grads)]
-    return loss.detach(), tree.unflatten(td, grads)
+        return (p.float() - lr * delta).to(p.dtype)
+    return tree.map(one, params, state.m, state.v)
 
 
 def make_train_step(loss_fn: Callable, cfg: AdamWConfig,

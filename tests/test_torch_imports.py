@@ -53,7 +53,11 @@ def test_port_imports_neither_jax_nor_repro():
         "       'repro_torch.configs.xdeepfm', 'repro_torch.train',\n"
         "       'repro_torch.train.data', 'repro_torch.train.optimizer',\n"
         "       'repro_torch.train.checkpoint', 'repro_torch.train.loop',\n"
-        "       'repro_torch.core.tree', 'repro_torch.launch.train'}\n"
+        "       'repro_torch.core.tree', 'repro_torch.launch.train',\n"
+        "       'repro_torch.launch.hw', 'repro_torch.launch.mesh',\n"
+        "       'repro_torch.launch.sharding', 'repro_torch.launch.dryrun',\n"
+        "       'repro_torch.train.elastic',\n"
+        "       'repro_torch.distributed.compress'}\n"
         "assert new <= set(mods), sorted(new - set(mods))\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -340,12 +344,8 @@ def test_flash_launcher_checks(bad):
 # kernel modules hold their own plain versions (``ref``), and the
 # interpret-mode switch serves only jax
 NO_COUNTERPART = {"kernels": {"ref", "runtime"}}
-# names whose modules ROADMAP lists as still to be ported (the seed
-# scaffolding)
-WAITING = {"distributed": {"compress"},
-           "launch": {"hw", "mesh", "sharding"},
-           "configs": {"Cell"},
-           "train": {"elastic"}}
+# names whose modules ROADMAP lists as still to be ported: none
+WAITING: dict = {}
 
 
 def _package_names(package: str) -> set:
@@ -387,7 +387,9 @@ def test_package_names_cover_the_reference(package):
             "serve": "from repro_torch.serve import QueryServer, MeshServer",
             "distributed": "from repro_torch.distributed import topk, "
                            "retrieval, shmap, decode_attn",
-            "launch": "import repro_torch.launch.serve",
+            "launch": "import repro_torch.launch.serve; "
+                      "from repro_torch.launch import hw, mesh, sharding, "
+                      "dryrun",
             "models": "from repro_torch.models import transformer, "
                       "attention, layers, gnn, recsys",
             "configs": "from repro_torch.configs import ARCHS, get_arch, "
